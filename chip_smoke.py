@@ -19,7 +19,21 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    setpoint phases and measurement noise, through ``step`` and one
    ``multistep(K=4)``, with the kernel launch counts read around it;
 7. one more period with the plain sweep on the card: every lane's u must
-   agree with the kernel path to 1e-4.
+   agree with the kernel path to 1e-4;
+8. the Goldfarb–Idnani kernel against its plain version on the card, on
+   fresh copies of the same inputs, with both times: (a) float64 random QPs
+   (n=6, m=24, B=4096) with dual warm starts and a slot cap of 3 that
+   forces restarts, (b) the headline-GI and (c) the large-GI solve inputs,
+   captured in a steady closed-loop period with the carried operator state;
+9. a small float64 GI fleet on the card against the same fleet on the CPU;
+10. THE GI MAIN PATHS, each in closed loop through ``step`` and one
+   ``multistep(K=4)`` with the kernel launch counts read around it:
+   headline-GI (the headline fleet with ``qp_solver="active_set"``,
+   float32 data, float64 slots, 16 periods) and large-GI (32 distinct 8x8
+   plants, Hp=15, Hc=4, ``gi_max_active=8``, x 128 replicas = 4096 lanes,
+   float32 data and slots, 8 periods);
+11. one more period of each with the plain GI solve on the card: every
+   lane's u must agree with the kernel path to 1e-4.
 
 The line before the last is the card's name and power limit, and before it
 a JSON object of the kernels; the last line is
@@ -39,6 +53,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_TOL = 1e-4      # kernel vs plain, float32: |Δ| ≤ F32_TOL·(1 + max|plain|)
                     # (the two sum over the m rows in different orders)
+GI_F64_TOL = 1e-9   # GI kernel vs plain on float64 data: x to 1e-9·(1 + max|x|)
+GI_FLIPS = 4        # GI at the fleet shapes: lanes whose converged flag may
+                    # differ (a near-tie in the f32 scan can change the pivot
+                    # order; the optimum is unique, so x may not move)
 
 
 class Fail(Exception):
@@ -226,9 +244,11 @@ def pallas_test_batch(torch, dev):
             torch.ones(B, dtype=torch.bool, device=dev), 600, 1e-6, 1.6]
 
 
-def large_controllers(mt, n, nio=8, Hp=15, Hc=4, seed=0):
-    """The 8x8 / Hp=15 configuration of bench.py (``_large_plant_controllers``)
-    with the ADMM backend, constructed by the port itself."""
+def large_controllers(mt, n, nio=8, Hp=15, Hc=4, seed=0, qp_solver="admm",
+                      gi_max_active=None):
+    """The 8x8 / Hp=15 configuration of bench.py (``_large_plant_controllers``),
+    constructed by the port itself; ``qp_solver`` and ``gi_max_active`` pass
+    through as bench.py passes them."""
     rng = np.random.default_rng(seed)
     ctrls = []
     for _ in range(n):
@@ -238,7 +258,8 @@ def large_controllers(mt, n, nio=8, Hp=15, Hc=4, seed=0):
         Bu = rng.normal(size=(nio, nio)) * 0.5 + np.eye(nio)
         model = mt.LinModel(mt.ss(A, Bu, np.eye(nio), np.zeros((nio, nio)), 2.0), 2.0)
         c = mt.LinMPC(model, Hp=Hp, Hc=Hc, Mwt=np.ones(nio),
-                      Nwt=np.full(nio, 1.0), Cwt=1e3)
+                      Nwt=np.full(nio, 1.0), Cwt=1e3, qp_solver=qp_solver,
+                      gi_max_active=gi_max_active)
         c.setconstraint(umin=np.full(nio, -10.0), umax=np.full(nio, 10.0),
                         dumin=np.full(nio, -4.0), dumax=np.full(nio, 4.0),
                         ymin=np.full(nio, -60.0), ymax=np.full(nio, 60.0))
@@ -274,6 +295,234 @@ class ClosedLoop:
         self.x = e("bij,bj->bi", self.A, self.x) + e("bij,bj->bi", self.Bu, u)
 
 
+def small_fleet_check(torch, BatchedLinMPC, ctrls, label):
+    """A small float64 fleet on the card (kernels) against the same fleet on
+    the CPU (plain versions, which the CPU tests hold to the reference):
+    5 closed-loop periods, u to 1e-6, equal n_conv."""
+    fl = {d: BatchedLinMPC(ctrls, reps=2, device=d, dtype=torch.float64)
+          for d in ("cuda", "cpu")}
+    loops = {d: ClosedLoop(torch, ctrls, 2, d, torch.float64) for d in fl}
+    B = fl["cpu"].B
+    worst = 0.0
+    for k in range(5):
+        out = {}
+        for d in fl:
+            ym, ry = loops[d].measure(k)
+            u, nc = fl[d].step(ym, ry)
+            loops[d].advance(u)
+            out[d] = (u.cpu(), int(nc))
+        worst = max(worst, (out["cuda"][0] - out["cpu"][0]).abs().max().item())
+        check(out["cuda"][1] == out["cpu"][1] == B,
+              f"{label}: n_conv card {out['cuda'][1]} cpu {out['cpu'][1]}")
+    check(worst < 1e-6, f"{label}: card vs CPU |Δu| {worst:.3e} ≥ 1e-6")
+    print(f"{label} ({len(ctrls)}x2 lanes, 5 periods): card vs CPU max |du| "
+          f"{worst:.3e} (bar 1e-6)", flush=True)
+
+
+def drive(torch, ops, name, fleet, loop, n_step, K=4):
+    """THE MAIN PATH of one fleet: a first period from rest, then — with the
+    launch counts set to 0 — ``n_step`` closed-loop ``step`` periods and one
+    ``multistep(K)``.  Fails on non-finite u or a last period below
+    0.99·B converged.  Returns the launch counts and the median solves/s."""
+    B = fleet.B
+    zero = torch.zeros(B, fleet.nym, device=fleet.device, dtype=fleet.dtype)
+    u, _ = fleet.step(zero, torch.zeros(B, fleet.ny, device=fleet.device,
+                                        dtype=fleet.dtype))
+    loop.advance(u)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rates, finite = [], True
+    for k in range(n_step):
+        ym, ry = loop.measure(k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, nc = fleet.step(ym, ry)
+        n_conv = int(nc)
+        dt = time.perf_counter() - t0
+        it = fleet.last_iters.tolist()
+        finite &= bool(torch.isfinite(u).all())
+        loop.advance(u)
+        rates.append(B / dt)
+        print(f"{name} period {k:2d}: n_conv {n_conv}/{B} iters max {it[0]} mean {it[1]} "
+              f"step {dt * 1e3:.2f} ms {B / dt:.0f} solves/s", flush=True)
+    # K periods in one call: the plant state is measured once, the noise
+    # and setpoint phases rotate
+    meas = [loop.measure(n_step + i) for i in range(K)]
+    ym_k = torch.stack([m_[0] for m_ in meas])
+    ry_k = torch.stack([m_[1] for m_ in meas])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, NC = fleet.multistep(ym_k, ry_k)
+    NC = NC.tolist()
+    dt = time.perf_counter() - t0
+    for i in range(K):
+        finite &= bool(torch.isfinite(U[i]).all())
+        loop.advance(U[i])
+    n_conv = NC[-1]
+    it = fleet.last_iters.tolist()
+    print(f"{name} multistep K={K}: n_conv {NC} last iters max {it[0]} mean {it[1]} "
+          f"{dt * 1e3:.2f} ms {K * B / dt:.0f} solves/s", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    med = statistics.median(rates)
+    print(f"{name} main path: {n_step + K} periods, kernel launches {launches}, "
+          f"median {med:.0f} solves/s over the {n_step} step periods", flush=True)
+    check(finite, f"{name} main path: non-finite u")
+    check(n_conv >= 0.99 * B, f"{name} main path: last period n_conv {n_conv} < 0.99·{B}")
+    check(U.shape == (K, B, fleet.nu), f"{name}: multistep U has shape {tuple(U.shape)}")
+    return launches, med
+
+
+def plain_period(torch, name, fleet, loop, attr, kernel_fn, plain_fn):
+    """One more period from the same snapshot with the kernel and with the
+    plain version on the card (kernel, plain, plain, kernel): every lane's
+    u must agree to 1e-4."""
+    snap = fleet.state
+    ym, ry = loop.measure(10_000)
+    res = {}
+    for label in ("kernel", "plain", "plain", "kernel"):
+        fleet.state = snap
+        setattr(fleet, attr, kernel_fn if label == "kernel" else plain_fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, nc = fleet.step(ym, ry)
+        nc = int(nc)
+        res.setdefault(label, []).append((u, nc, time.perf_counter() - t0))
+    setattr(fleet, attr, kernel_fn)
+    B = fleet.B
+    u_k, nc_k, _ = res["kernel"][0]
+    u_p, nc_p, _ = res["plain"][0]
+    check(bool(torch.isfinite(u_p).all()), f"{name}: plain version on the card: non-finite u")
+    bad = ((u_k - u_p).abs().amax(1) > 1e-4).nonzero().flatten().tolist()
+    t_k = statistics.mean(r[2] for r in res["kernel"])
+    t_p = statistics.mean(r[2] for r in res["plain"])
+    print(f"{name}, plain version on the card, same period: {B - len(bad)}/{B} lanes' "
+          f"u agree with the kernel path to 1e-4 (max |du| "
+          f"{(u_k - u_p).abs().max().item():.3e}); n_conv kernel {nc_k} plain {nc_p}; "
+          f"step kernel {t_k * 1e3:.2f} ms ({B / t_k:.0f} solves/s) plain "
+          f"{t_p * 1e3:.2f} ms ({B / t_p:.0f} solves/s)", flush=True)
+    check(not bad, f"{name}: plain version on the card: lanes {bad[:20]} (of "
+          f"{len(bad)}) disagree with the kernel path by more than 1e-4")
+
+
+def _clone(args):
+    return [a.clone() if hasattr(a, "clone") else a for a in args]
+
+
+def gi_steady_inputs(torch, fleet, ctrls, reps, periods=4):
+    """GI solve inputs of a steady closed-loop period: ``periods`` periods
+    from the fleet's current state, then the inputs (carried operator state
+    included) of the next one's solve.  The setpoints are 5x the usual ones
+    so that bounds are active.  The fleet's state is restored afterwards."""
+    loop = ClosedLoop(torch, ctrls, reps, fleet.device, fleet.dtype, ry_scale=5.0)
+    snap = fleet.state
+    inner, rec = fleet.gi, {}
+
+    def capture(*args):
+        rec["args"] = _clone(args)
+        return inner(*args)
+    try:
+        for k in range(periods):
+            u, _ = fleet.step(*loop.measure(k))
+            loop.advance(u)
+        fleet.gi = capture
+        fleet.step(*loop.measure(periods))
+    finally:
+        fleet.gi = inner
+        fleet.state = snap
+    check("args" in rec, "no GI solve was captured")
+    return rec["args"]
+
+
+def gi_random_inputs(torch, ops, dev, B=4096, n=6, m=24, cap=3):
+    """float64 random QPs of the tests/test_qp.py kind, one per lane, with
+    dual warm starts — a cold solve's duals on a third of the lanes, the
+    same plus junk on a third, junk alone on the rest — and a slot cap of 3
+    below many lanes' active-set sizes, so warm rows overflow and spend the
+    cold restart.  Returns the inputs of the capped solve."""
+    rng = np.random.default_rng(0)
+    H = rng.normal(size=(B, n, n))
+    P = H @ H.transpose(0, 2, 1) + n * np.eye(n)
+    A = rng.normal(size=(B, m, n))
+    Ax = np.einsum("bmn,bn->bm", A, rng.normal(size=(B, n)) * 0.1)
+    margin = rng.uniform(0.05, 1.0, size=(B, m))
+    l = np.where(rng.random((B, m)) < 0.3, -1e20, Ax - margin)
+    Pinv = np.linalg.inv(P)
+    Pinv = Pinv @ (2.0 * np.eye(n) - P @ Pinv)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    prob = (t(P), t(rng.normal(size=(B, n))), t(A), t(l), t(Ax + margin))
+    cache = dict(gic_Pinv=t(Pinv))
+    cold = ops.solve_qp_active(*prob, cache=cache, solve=ops.gi_solve_reference)
+    junk = t(rng.normal(size=(B, m)) * (rng.random((B, m)) < 0.2))
+    part = (torch.arange(B, device=dev) % 3)[:, None]
+    y0 = torch.where(part == 0, cold.y, torch.where(part == 1, cold.y + junk, junk))
+    rec = {}
+
+    def capture(*args):
+        rec["args"] = _clone(args)
+        return ops.gi_solve_reference(*args)
+    ops.solve_qp_active(*prob, y0, cache=cache, max_active=cap, solve=capture)
+    return rec["args"]
+
+
+def gi_vs_plain(torch, ops, name, args, f64):
+    """The GI kernel and its plain version on fresh copies of the same CUDA
+    inputs: the bars, and both times (CUDA events, median of 25).
+
+    float64 (``f64``): x to 1e-9·(1 + max|x|), iterations and converged
+    flags equal on every lane.  Fleet shapes: the converged flag equal on
+    all but GI_FLIPS lanes (listed with both iteration counts) and x to
+    F32_TOL·(1 + max|x_plain|) where both converged."""
+    runs = {}
+    for label, fn in (("kernel", ops.gi_solve), ("plain", ops.gi_solve_reference)):
+        a = _clone(args)
+        x, lam, it, conv = fn(*a)
+        runs[label] = dict(x=x, it=it, conv=conv, idx=a[6])
+    torch.cuda.synchronize()
+    k, p = runs["kernel"], runs["plain"]
+    B, n = p["x"].shape
+    m, ns = args[4].shape[1], args[6].shape[1]
+    x_scale = 1.0 + p["x"].abs().max().item()
+    flips = (k["conv"] != p["conv"]).nonzero().flatten().tolist()
+    same_it = int((k["it"] == p["it"]).sum())
+    entering = int(args[8].any(1).sum())
+    warm_rows = int((args[12] > 0).sum())
+    if f64:
+        err = (k["x"] - p["x"]).abs().max().item()
+        tol = GI_F64_TOL * x_scale
+    else:
+        both = k["conv"] & p["conv"]
+        err = (k["x"] - p["x"])[both].abs().max().item() if bool(both.any()) else 0.0
+        tol = F32_TOL * x_scale
+    print(f"GI kernel check {name}: B={B} n={n} m={m} slots={ns} data "
+          f"{args[1].dtype} slots {args[9].dtype}; {entering}/{B} lanes enter with "
+          f">= 1 valid slot, {warm_rows}/{B} with >= 1 warm row; converged kernel {int(k['conv'].sum())} plain "
+          f"{int(p['conv'].sum())}; equal iterations on {same_it}/{B} lanes "
+          f"({same_it / B:.4f}), iterations max kernel {int(k['it'].max())} plain "
+          f"{int(p['it'].max())}; equal active sets on "
+          f"{int((k['idx'] == p['idx']).all(1).sum())}/{B}; max |x kernel - x plain| "
+          f"{err:.3e} (tol {tol:.3e})", flush=True)
+    if flips:
+        print(f"  converged flag differs on lanes {flips}: iterations kernel "
+              f"{k['it'][flips].tolist()} plain {p['it'][flips].tolist()}")
+    check(np.isfinite(err) and err <= tol,
+          f"{name}: GI kernel and plain disagree on x: {err:.3e} > {tol:.3e}")
+    if f64:
+        check(same_it == B, f"{name}: iterations differ on {B - same_it} lanes")
+        check(not flips, f"{name}: converged differs on lanes {flips[:20]}")
+    else:
+        check(len(flips) <= GI_FLIPS, f"{name}: converged differs on {len(flips)} "
+              f"lanes (at most {GI_FLIPS} allowed)")
+    holder = {}
+
+    def setup():
+        holder["a"] = _clone(args)
+    ms_k = median_ms(torch, lambda: ops.gi_solve(*holder["a"]), setup)
+    ms_p = median_ms(torch, lambda: ops.gi_solve_reference(*holder["a"]), setup)
+    print(f"GI kernel time {name}: kernel {ms_k:.4f} ms plain {ms_p:.4f} ms", flush=True)
+    return dict(err=err, ms=ms_k, plain_ms=ms_p, entering=entering, B=B)
+
+
 def main():
     try:
         import torch
@@ -294,6 +543,7 @@ def main():
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    t_start = time.perf_counter()
 
     # --- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -304,23 +554,8 @@ def main():
             print("  ptxas:", line.strip())
 
     # --- 5. small float64 fleet: card (kernel) vs CPU (plain) ------------
-    small = random_cstr_controllers(4, Hp=10, Hc=2, seed=0)
-    fl = {d: BatchedLinMPC(small, reps=2, device=d, dtype=torch.float64)
-          for d in ("cuda", "cpu")}
-    loops = {d: ClosedLoop(torch, small, 2, d, torch.float64) for d in fl}
-    worst = 0.0
-    for k in range(5):
-        out = {}
-        for d in fl:
-            ym, ry = loops[d].measure(k)
-            u, nc = fl[d].step(ym, ry)
-            loops[d].advance(u)
-            out[d] = (u.cpu(), int(nc))
-        worst = max(worst, (out["cuda"][0] - out["cpu"][0]).abs().max().item())
-        check(out["cuda"][1] == out["cpu"][1] == 8,
-              f"small f64 fleet: n_conv card {out['cuda'][1]} cpu {out['cpu'][1]}")
-    check(worst < 1e-6, f"small f64 fleet: card vs CPU |Δu| {worst:.3e} ≥ 1e-6")
-    print(f"small f64 fleet (4x2 lanes, 5 periods): card vs CPU max |du| {worst:.3e} (bar 1e-6)")
+    small_fleet_check(torch, BatchedLinMPC, random_cstr_controllers(4, Hp=10, Hc=2, seed=0),
+                      "small f64 fleet")
 
     # --- the fleets of the main path, and their sweep inputs ------------
     t0 = time.perf_counter()
@@ -348,98 +583,95 @@ def main():
         "large_8x8_hp15": kernel_vs_plain(torch, ops, "large_8x8_hp15", large_args),
     }
 
-    # --- 4. size guard -----------------------------------------------------
+    # --- 4. size guards ----------------------------------------------------
     n, m, Bg = 64, 1024, 2
-    z = lambda *s: torch.zeros(s, device=dev)
+    z = lambda *s, dt=torch.float32: torch.zeros(s, device=dev, dtype=dt)
+    zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
     try:
-        ops.admm_sweep(z(Bg, n, n), z(1, m, n), torch.zeros(Bg, dtype=torch.int32, device=dev),
+        ops.admm_sweep(z(Bg, n, n), z(1, m, n), zi(Bg),
                        z(Bg, n), z(Bg, m), z(Bg, m), z(Bg, m) + 1, z(Bg, n), z(Bg, m),
                        z(Bg, m), torch.ones(Bg, dtype=torch.bool, device=dev), 1, 1e-6, 1.6)
         raise Fail("size guard: n=64, m=1024 float32 was not refused")
     except ValueError as err:
         print(f"size guard: n={n} m={m} refused ({err})")
+    f64 = torch.float64
+    try:
+        ops.gi_solve(z(1, n, n, dt=f64), z(1, m, n, dt=f64), zi(Bg), z(Bg, n, dt=f64),
+                     z(Bg, m, dt=f64), z(Bg, m, dt=f64), zi(Bg, 4), zi(Bg, 4),
+                     torch.zeros(Bg, 4, dtype=torch.bool, device=dev), z(Bg, 4, 4, dt=f64),
+                     zi(Bg, 4), zi(Bg, 4), zi(Bg), False, zi(Bg) + 5, 1e-9)
+        raise Fail("GI size guard: n=64, m=1024 float64 was not refused")
+    except ValueError as err:
+        print(f"GI size guard: n={n} m={m} float64 refused ({err})")
 
-    # --- 6. the main path ------------------------------------------------
-    zero = torch.zeros(B, 2, device=dev)
-    u, _ = fleet.step(zero, zero)            # first period from rest
-    loop.advance(u)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    rates, finite, n_conv = [], True, None
-    for k in range(12):
-        ym, ry = loop.measure(k)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        u, nc = fleet.step(ym, ry)
-        n_conv = int(nc)
-        dt = time.perf_counter() - t0
-        it = fleet.last_iters.tolist()
-        finite &= bool(torch.isfinite(u).all())
-        loop.advance(u)
-        rates.append(B / dt)
-        print(f"period {k:2d}: n_conv {n_conv}/{B} iters max {it[0]} mean {it[1]} "
-              f"step {dt * 1e3:.2f} ms {B / dt:.0f} solves/s", flush=True)
-    K = 4
-    # K periods in one call: the plant state is measured once, the noise
-    # and setpoint phases rotate
-    meas = [loop.measure(12 + i) for i in range(K)]
-    ym_k = torch.stack([m_[0] for m_ in meas])
-    ry_k = torch.stack([m_[1] for m_ in meas])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    U, NC = fleet.multistep(ym_k, ry_k)
-    NC = NC.tolist()
-    dt = time.perf_counter() - t0
-    for i in range(K):
-        finite &= bool(torch.isfinite(U[i]).all())
-        loop.advance(U[i])
-    n_conv = NC[-1]
-    it = fleet.last_iters.tolist()
-    print(f"multistep K={K}: n_conv {NC} last iters max {it[0]} mean {it[1]} "
-          f"{dt * 1e3:.2f} ms {K * B / dt:.0f} solves/s", flush=True)
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    print(f"main path: 16 periods, kernel launches {launches}, median "
-          f"{statistics.median(rates):.0f} solves/s over the 12 step periods")
-    check(finite, "main path: non-finite u")
-    check(launches["admm_sweep"] > 0, "main path: the ADMM kernel was never launched")
-    check(n_conv >= 0.99 * B, f"main path: last period n_conv {n_conv} < 0.99·{B}")
-    check(U.shape == (K, B, 2), f"multistep U has shape {tuple(U.shape)}")
+    # --- 6. the ADMM main path -------------------------------------------
+    admm_launches, _ = drive(torch, ops, "headline-ADMM", fleet, loop, 12)
+    check(admm_launches["admm_sweep"] > 0,
+          "headline-ADMM main path: the ADMM kernel was never launched")
 
     # --- 7. the same period with the plain sweep on the card --------------
-    snap = fleet.state
-    ym, ry = loop.measure(16)
-    res = {}
-    for label in ("kernel", "plain", "plain", "kernel"):
-        fleet.state = snap
-        fleet.sweep = ops.admm_sweep if label == "kernel" else ops.admm_sweep_reference
-        torch.cuda.synchronize()
+    plain_period(torch, "headline-ADMM", fleet, loop, "sweep", ops.admm_sweep,
+                 ops.admm_sweep_reference)
+    del fleet
+
+    # --- 8a. the GI kernel vs plain: float64 random QPs ---------------------
+    gi_checks = {"random_f64": gi_vs_plain(torch, ops, "random_f64",
+                                           gi_random_inputs(torch, ops, dev), True)}
+
+    # --- 9. small float64 GI fleet: card (kernel) vs CPU (plain) ------------
+    small_fleet_check(torch, BatchedLinMPC,
+                      random_cstr_controllers(4, Hp=10, Hc=2, seed=0,
+                                              qp_solver="active_set"),
+                      "small f64 GI fleet")
+
+    # --- 8b-11. the GI main paths ------------------------------------------
+    gi_launches = 0
+    gi_paths = (
+        ("headline-GI", lambda: random_cstr_controllers(256, Hp=10, Hc=2, seed=0,
+                                                        qp_solver="active_set"),
+         16, None, 12),
+        ("large-GI", lambda: large_controllers(mt, 32, qp_solver="active_set",
+                                               gi_max_active=8),
+         128, torch.float32, 4),
+    )
+    for name, make, reps, slots, n_step in gi_paths:
         t0 = time.perf_counter()
-        u, nc = fleet.step(ym, ry)
-        nc = int(nc)
-        res.setdefault(label, []).append((u, nc, time.perf_counter() - t0))
-    fleet.sweep = ops.admm_sweep
-    u_k, nc_k, _ = res["kernel"][0]
-    u_p, nc_p, _ = res["plain"][0]
-    check(bool(torch.isfinite(u_p).all()), "plain sweep on the card: non-finite u")
-    agree = int(((u_k - u_p).abs().amax(1) <= 1e-4).sum())
-    t_k = statistics.mean(r[2] for r in res["kernel"])
-    t_p = statistics.mean(r[2] for r in res["plain"])
-    print(f"plain sweep on the card, same period: {agree}/{B} lanes' u agree "
-          f"with the kernel path to 1e-4 (max |du| {(u_k - u_p).abs().max().item():.3e}); "
-          f"n_conv kernel {nc_k} plain {nc_p}; step kernel {t_k * 1e3:.2f} ms "
-          f"({B / t_k:.0f} solves/s) plain {t_p * 1e3:.2f} ms ({B / t_p:.0f} solves/s)")
-    check(agree == B, f"plain sweep on the card: only {agree}/{B} lanes' u agree "
-          "with the kernel path to 1e-4")
+        cs = make()
+        gfleet = BatchedLinMPC(cs, reps=reps, device=dev, dtype=torch.float32,
+                               gi_slot_dtype=slots)
+        check(gfleet.B == 4096, f"{name} fleet has {gfleet.B} lanes")
+        print(f"{name} fleet: {len(cs)} distinct x {reps} reps = {gfleet.B} lanes, "
+              f"QP n={gfleet.n_qp} m={gfleet.params['A_stack'].shape[1]} "
+              f"slots={gfleet.gi_slots} ({gfleet.gi_slot_dtype}), built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        chk = gi_vs_plain(torch, ops, name, gi_steady_inputs(torch, gfleet, cs, reps),
+                          False)
+        check(chk["entering"] >= 0.05 * chk["B"], f"{name}: only {chk['entering']} "
+              "lanes enter the captured solve with a valid slot (< 5 %)")
+        gi_checks[name] = chk
+        gloop = ClosedLoop(torch, cs, reps, dev, torch.float32)
+        launches, _ = drive(torch, ops, name, gfleet, gloop, n_step)
+        check(launches["gi_solve"] > 0, f"{name} main path: the GI kernel was never launched")
+        gi_launches += launches["gi_solve"]
+        plain_period(torch, name, gfleet, gloop, "gi", ops.gi_solve, ops.gi_solve_reference)
+        del gfleet
 
     head = checks["headline"]
     print(json.dumps({"kernels": [{
         "name": "admm_sweep", "route": "cuda",
         "source": "mpc_tpu_torch/csrc/admm_sweep.cu",
         "replaces": "mpc_tpu/ops/pallas_qp.py:31",
-        "launches": launches["admm_sweep"],
+        "launches": admm_launches["admm_sweep"],
         "max_abs_err": max(c["err"] for c in checks.values()),
-        "ms": head["ms"], "plain_ms": head["plain_ms"]}]}))
+        "ms": head["ms"], "plain_ms": head["plain_ms"]}, {
+        "name": "gi_solve", "route": "cuda",
+        "source": "mpc_tpu_torch/csrc/gi_solve.cu",
+        "replaces": "docs/pallas_gi_experiment.py:84 + mpc_tpu/ops/qp_active.py:407",
+        "launches": gi_launches,
+        "max_abs_err": max(c["err"] for c in gi_checks.values()),
+        "ms": gi_checks["headline-GI"]["ms"],
+        "plain_ms": gi_checks["headline-GI"]["plain_ms"]}]}))
+    print(f"total {time.perf_counter() - t_start:.1f} s after the card check")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,16 @@
 
 Counterpart of ``mpc_tpu/controllers/linmpc.py``.  Construction is the same
 host NumPy code and yields the same ``params`` dict (prediction matrices,
-bounds, Hessian, row stack and the ADMM solver cache).  The per-period step
-is ``_build_step``: a torch function over a leading lane axis (F/q̃ build →
-constraint RHS → warm-start shift → batched ADMM QP → receding input), which
-the fleet (``parallel/batch.py``) runs for every lane at once.
+bounds, Hessian, row stack, and the ADMM solver cache or, with
+``qp_solver="active_set"``, the Goldfarb–Idnani cache ``gic_Pinv``).  The
+per-period step is ``_build_step``: a torch function over a leading lane
+axis (F/q̃ build → constraint RHS → warm-start shift → batched QP, ADMM or
+GI → receding input), which the fleet (``parallel/batch.py``) runs for
+every lane at once.
 
 Not ported yet (see ROADMAP): the single-controller ``moveinput``/``getinfo``
-and ``setmodel``, ``qp_solver="active_set"`` (the Goldfarb–Idnani backend),
-custom linear constraints in the runtime step, and estimators other than
-the SteadyKalmanFilter.
+and ``setmodel``, custom linear constraints in the runtime step, and
+estimators other than the SteadyKalmanFilter.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ import torch
 from ..estimators import StateEstimator, SteadyKalmanFilter
 from ..models import LinModel
 from ..ops.admm_kernel import admm_sweep
+from ..ops.gi_kernel import gi_solve
 from ..ops.qp import build_solver_cache, solve_qp
+from ..ops.qp_active import build_gi_cache, solve_qp_active
 from ..utils.config import BIG
 from ..utils.lanes import mtv, mv, take
 from ..utils.linalg import repeatdiag
@@ -31,8 +34,6 @@ from .transcription import (MultipleShooting, SingleShooting,
                             TranscriptionMethod, init_defectmat, init_predmat,
                             init_ZtoDU, init_ZtoU, move_blocking)
 
-_GI_TODO = ("qp_solver='active_set' (the Goldfarb–Idnani backend) is not "
-            "ported yet: ROADMAP queue 1, item 2 and queue 2, item 1")
 ADMM_CACHE_KEYS = ("qpc_D", "qpc_E", "qpc_c", "qpc_eq", "qpc_loose",
                    "qpc_rhovs", "qpc_Minvs")
 
@@ -46,12 +47,14 @@ class LinMPC(PredictiveController):
                  Mwt=None, Nwt=None, Lwt=None, M_Hp=None, N_Hc=None, L_Hp=None,
                  Cwt=1e5, transcription: TranscriptionMethod | None = None,
                  Wy=None, Wu=None, Wd=None, Wr=None, qp_solver="admm",
-                 **estim_kwargs):
-        if qp_solver == "active_set":
-            raise NotImplementedError(_GI_TODO)
-        if qp_solver != "admm":
+                 gi_max_active=None, **estim_kwargs):
+        if qp_solver not in ("admm", "active_set"):
             raise ValueError("qp_solver must be 'admm' or 'active_set'")
         self.qp_solver = qp_solver
+        # GI slot-buffer cap (ops/qp_active.py max_active); lanes whose true
+        # active set overflows it report converged=False
+        self.gi_max_active = (None if gi_max_active is None
+                              else int(gi_max_active))
         if isinstance(model_or_estim, StateEstimator):
             estim = model_or_estim
             model = estim.model
@@ -193,6 +196,9 @@ class LinMPC(PredictiveController):
         else:
             self._elim = {}
         self.n_qp = self.nZt - self.n_eq if self.elim_eq else self.nZt
+        # GI slot-buffer size: capped by gi_max_active when set
+        self.gi_slots = (self.n_qp if self.gi_max_active is None
+                         else min(self.n_qp, self.gi_max_active))
         # default bounds (deviation form), kept as data
         if not hasattr(self, "U0min"):
             self.U0min = np.full(nu * Hp, -BIG)
@@ -230,14 +236,17 @@ class LinMPC(PredictiveController):
 
     # ------------------------------------------------------------------
     def _rebuild_qp_cache(self):
-        """Step-invariant ADMM setup (Ruiz diagonals + ρ-ladder inverses)
-        for the current (H̃, A_stack) and bound classification, built on the
-        host in f64; with MultipleShooting elimination on the reduced
-        (H_r, A_r)."""
+        """Step-invariant QP setup for the current (H̃, A_stack), built on
+        the host in f64 (with MultipleShooting elimination on the reduced
+        (H_r, A_r)): the refined P⁻¹ for GI, or the Ruiz diagonals and
+        ρ-ladder inverses for the current bound classification for ADMM."""
         if self.elim_eq:
             Hm, Am = self.params["H_r"], self.params["A_r"]
         else:
             Hm, Am = self.params["H"], self.A_stack
+        if self.qp_solver == "active_set":
+            self.params.update(build_gi_cache(Hm, Am))
+            return
         TH = 1e18   # ops.qp._BIG: rows at/beyond this are "infinite"
         loose = np.concatenate([
             self.U0min <= -TH, self.U0max >= TH,
@@ -352,11 +361,13 @@ class LinMPC(PredictiveController):
 
     def __repr__(self):
         model = self.estim.model
+        optimizer = ("Goldfarb–Idnani active-set QP" if self.qp_solver == "active_set"
+                     else "ADMM-QP")
         return (f"{type(self).__name__} controller with a sample time Ts = "
                 f"{model.Ts} s:\n"
                 f"├ estimator: {type(self.estim).__name__}\n"
                 f"├ model: {type(model).__name__}\n"
-                f"├ optimizer: ADMM-QP (torch)\n"
+                f"├ optimizer: {optimizer} (torch)\n"
                 f"├ transcription: {type(self.transcription).__name__}\n"
                 f"└ dimensions: Hp={self.Hp}, Hc={self.Hc}, nu={model.nu}, "
                 f"nx̂={self.estim.nx_hat}, nym={self.estim.nym}, nd={model.nd}, "
@@ -384,21 +395,28 @@ def _validate_custom_lincon(model, Wy, Wu, Wd, Wr):
 
 
 # ---------------------------------------------------------------------------
-def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0):
+def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
+                qp_solver="admm", gi_max_active=None, slot_dtype=None):
     """Create the per-period step over a leading lane axis.
 
     ``p`` holds the params stacked over distinct controllers (tensors on the
     fleet's device); lane ``b`` reads controller ``lane_ctrl[b]``.  Every
     other argument is per lane.  Returns ``(u, Z̃, y, converged, F, obj,
-    iters, rung)``, each batch-leading.
+    iters, rung, gi_state)``, each batch-leading; ``gi_state`` is None for
+    ADMM.  With ``qp_solver="active_set"`` the QP is the Goldfarb–Idnani
+    solve (``gi_max_active`` slots, ``slot_dtype`` slot precision), which
+    carries ``qp_state`` across periods and seeds from ``y_prev`` only when
+    no ``qp_state`` is given.
     """
     if nw:
         raise NotImplementedError(
             "custom linear constraints (Wy/Wu/Wd/Wr) in the runtime step wait "
-            "for the single-controller moveinput port (ROADMAP queue 1)")
+            "for the single-controller moveinput port (ROADMAP queue 1, item 4)")
+    use_as = qp_solver == "active_set"
 
     def step(p, x0_hat, lastu0, d0, D_hat_0, R_hat_y, R_hat_u, xs_hat, ys_hat,
-             Z_prev, y_prev, rung_prev, lane_ctrl, sweep=admm_sweep):
+             Z_prev, y_prev, rung_prev, lane_ctrl, sweep=admm_sweep,
+             qp_state=None, gi=gi_solve):
         B = x0_hat.shape[0]
         dt, dev = x0_hat.dtype, x0_hat.device
         L = lambda k: take(p[k], lane_ctrl)
@@ -452,7 +470,18 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0):
         if n_eps:
             Zs[:, -1] = Z_prev[:, -1]
         # --- solve QP ---
-        cache = {k: p[k] for k in ADMM_CACHE_KEYS}
+        def gi_qp(P, q_, A, l_, u_, y0):
+            # GI with the cross-period operator carry when qp_state is given
+            # (P and A are step-invariant, so the carried inverse Gram stays
+            # exact); dual-seed warm start otherwise
+            return solve_qp_active(
+                P, q_, A, l_, u_, None if qp_state is not None else y0,
+                lane_ctrl=lane_ctrl, cache={"gic_Pinv": p["gic_Pinv"]},
+                state0=qp_state, max_active=gi_max_active,
+                slot_dtype=slot_dtype, solve=gi)
+
+        if not use_as:
+            cache = {k: p[k] for k in ADMM_CACHE_KEYS}
         if is_ms and n_eq:
             # MultipleShooting via construct-time equality elimination:
             # Z̃ = Z̃p + N v with ES̃ N = 0
@@ -462,15 +491,21 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0):
             shift = mv(p["A_stack"][:, :n_ie], Zp, lane_ctrl)
             l_r = torch.clamp(l[:, :n_ie] - shift, -2e18, 2e18)
             u_r = torch.clamp(u_vec[:, :n_ie] - shift, -2e18, 2e18)
-            v0 = Mt("Nnull", Zs - Zp)
-            sol = solve_qp(p["H_r"], q_r, p["A_r"], l_r, u_r, x0=v0,
-                           y0=y_prev[:, :n_ie].contiguous(), rung0=rung_prev,
-                           cache=cache, lane_ctrl=lane_ctrl, sweep=sweep)
+            y0r = y_prev[:, :n_ie].contiguous()
+            if use_as:
+                sol = gi_qp(p["H_r"], q_r, p["A_r"], l_r, u_r, y0r)
+            else:
+                v0 = Mt("Nnull", Zs - Zp)
+                sol = solve_qp(p["H_r"], q_r, p["A_r"], l_r, u_r, x0=v0,
+                               y0=y0r, rung0=rung_prev, cache=cache,
+                               lane_ctrl=lane_ctrl, sweep=sweep)
             Z_sol = Zp + M("Nnull", sol.x)
             y_full = torch.cat([sol.y, full(n_eq, 0.0)], -1)
             obj = (sol.obj + 0.5 * torch.sum(Zp * M("H", Zp), -1)
                    + torch.sum(q * Zp, -1))
             sol = sol._replace(x=Z_sol, y=y_full, obj=obj)
+        elif use_as:
+            sol = gi_qp(p["H"], q, p["A_stack"], l, u_vec, y_prev)
         else:
             sol = solve_qp(p["H"], q, p["A_stack"], l, u_vec, x0=Zs,
                            y0=y_prev, rung0=rung_prev, cache=cache,
@@ -485,6 +520,6 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0):
                          L("U0max")[:, :nu] + L("C_umax_u") * eps_f)
         u = u0 + L("Uop")[:, :nu]
         return (u, Z_t, sol.y, sol.converged, F, sol.obj + r_const,
-                sol.iters, sol.rung)
+                sol.iters, sol.rung, sol.gi_state)
 
     return step

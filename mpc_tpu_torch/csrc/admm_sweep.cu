@@ -34,8 +34,9 @@
 
 namespace {
 
-// Upper bound on warps per block; the host picks at most 256 threads.  The
-// host-side working-set formula (ops/admm_kernel.py::smem_bytes) uses it too.
+// Upper bound on warps per block (ops/_build.py::MAX_WARPS); the host picks
+// at most 256 threads.  The host-side working-set formula
+// (ops/admm_kernel.py::smem_bytes) uses it too.
 constexpr int kMaxWarps = 8;
 
 template <typename T>

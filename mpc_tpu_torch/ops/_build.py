@@ -4,7 +4,8 @@ The sources under ``mpc_tpu_torch/csrc/`` are compiled with ``nvcc`` for
 Hopper (``sm_90a``) into one shared library with a plain C interface,
 ``build/libmpc_tpu_torch_kernels.so`` at the root of the checkout, on first
 use.  A stamp file beside it holds the hash of the sources and flags; the
-library is rebuilt when the hash changes.  Nothing here runs at import:
+library is rebuilt when the hash changes.  The launch counts and the launch
+geometry both kernels share live here too.  Nothing here runs at import:
 the CPU tests import every module on machines without ``nvcc``.
 """
 from __future__ import annotations
@@ -27,6 +28,27 @@ _lib = None
 # what the last build did: seconds spent in nvcc (0.0 when the stamp
 # matched) and the compiler's output (ptxas register/shared-memory report)
 last_build = {"seconds": None, "log": ""}
+
+# Kernel launches made by the wrappers, one count per kernel (read and reset
+# by callers that need to show a run went through the kernels).
+LAUNCHES = {"admm_sweep": 0, "gi_solve": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# Launch geometry both kernels share.  Shared memory one block may use on an
+# H100 (232,448 bytes): the budget the plain versions check, so the CPU tests
+# exercise the same guard.
+HOPPER_SMEM_OPTIN = 232448
+MAX_WARPS = 8       # kMaxWarps in csrc/admm_sweep.cu and csrc/gi_solve.cu
+
+
+def block_threads(m: int) -> int:
+    """Threads of one lane's block: the rows rounded up to a warp, 32…256."""
+    return min(32 * MAX_WARPS, max(32, -(-m // 32) * 32))
 
 
 def _sources():
@@ -84,6 +106,14 @@ def load_library():
             # Minv, A, lane_ctrl, q, l, u, rho, x, z, y, active,
             # B, n, m, iters, threads, smem_bytes, sigma, alpha, stream
             fn.argtypes = [ptr] * 11 + [i32] * 6 + [f64, f64, ptr]
+            fn.restype = i32
+        for name in ("mpc_gi_solve_f32_f64", "mpc_gi_solve_f32_f32",
+                     "mpc_gi_solve_f64_f64"):
+            fn = getattr(lib, name)
+            # Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
+            # wside, wcnt, max_it, x, lam, it, conv,
+            # B, n, m, ns, warm, threads, smem_bytes, tol, stream
+            fn.argtypes = [ptr] * 18 + [i32] * 7 + [f64, ptr]
             fn.restype = i32
         _lib = lib
     return _lib

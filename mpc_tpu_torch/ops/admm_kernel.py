@@ -23,32 +23,14 @@ from __future__ import annotations
 import torch
 
 from ..utils.lanes import mtv, mv, take
-
-# Kernel launches made by admm_sweep (read and reset by callers that need
-# to show a run went through the kernel).
-LAUNCHES = {"admm_sweep": 0}
-
-# Shared memory one block may use on an H100 (232,448 bytes): the budget the
-# plain version checks, so the CPU tests exercise the same guard.
-HOPPER_SMEM_OPTIN = 232448
-_MAX_WARPS = 8      # kMaxWarps in csrc/admm_sweep.cu
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def block_threads(m: int) -> int:
-    """Threads of one lane's block: the rows rounded up to a warp, 32…256."""
-    return min(32 * _MAX_WARPS, max(32, -(-m // 32) * 32))
+from ._build import HOPPER_SMEM_OPTIN, LAUNCHES, MAX_WARPS, block_threads
 
 
 def smem_bytes(n: int, m: int, itemsize: int) -> int:
     """Shared memory of one lane's block: A, Minv, q/x/rhs/x̃, l/u/ρ/z/y and
     the per-warp partial sums of Aᵀ(ρz − y), exactly as the kernel lays them
     out."""
-    return (m * n + n * n + 4 * n + 5 * m + _MAX_WARPS * n) * itemsize
+    return (m * n + n * n + 4 * n + 5 * m + MAX_WARPS * n) * itemsize
 
 
 def _check_budget(n, m, dtype, budget):

@@ -1,0 +1,429 @@
+"""Per-lane Goldfarb–Idnani solve: the kernel wrapper and its plain version.
+
+``gi_solve`` runs, for every lane of a batch of dense QPs
+
+    min ½xᵀPx + qᵀx   s.t.  l ≤ Ax ≤ u
+
+what ``mpc_tpu/ops/qp_active.py::_gi_impl`` runs for one: the warm loop
+(warm-row inserts by bordering, the KKT jump, wrong-sign drops) and then the
+main loop, whose every iteration is the violation scan (the work of the
+Pallas ``kmv`` kernel, ``docs/pallas_gi_experiment.py:84``), the fused
+select-and-pivot step, the unified rank-one update of the inverse Gram
+``Ginv``, the slot-cap overflow test, the f32 anti-cycling detectors, the
+one-shot cold restart and the infeasibility certificate.
+
+On a CUDA tensor it launches the hand-written kernel
+``mpc_tpu_torch/csrc/gi_solve.cu`` (one thread block per lane; see the note
+at the top of that file).  On a CPU tensor it runs ``gi_solve_reference``,
+the plain torch version beside it.  There is no fallback from one to the
+other: a failed build or launch raises.
+
+Arguments, batch leading (B lanes, n variables, m rows, ns slots):
+
+* ``Pinv`` (n_d, n, n) in the SLOT dtype and ``A`` (n_d, m, n) in the DATA
+  dtype, read per lane through ``lane_ctrl`` (B,) int32;
+* ``q`` (B, n), ``l``/``u`` (B, m) in the data dtype;
+* the operator state ``idx``/``side`` (B, ns) int32, ``vmask`` (B, ns) bool
+  and ``Ginv`` (B, ns, ns) in the slot dtype — updated IN PLACE;
+* the warm-row list ``widx``/``wside`` (B, ns) int32 with ``wcnt`` (B,)
+  int32 pending rows, ``warm`` (bool: a carried state or a dual seed was
+  given), the per-lane iteration cap ``max_it`` (B,) int32 and ``tol``.
+
+Returns ``(x, lam, it, converged)``: x (B, n) and the slot multipliers
+(B, ns) in the slot dtype, the iteration count (B,) int32 and the
+``done & feasible`` flag (B,) bool.  The data dtype is float32 or float64;
+the slot dtype is float64, or float32 with float32 data.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils.lanes import take
+from ._build import HOPPER_SMEM_OPTIN, LAUNCHES, MAX_WARPS, block_threads
+
+_BIG = 1e18        # ops.qp._BIG: bounds beyond this are infinite
+_TINY = 1e-30
+# shared-memory scalar cells of the kernel (kSlotScalars, kIntScalars)
+_SLOT_SCALARS = 8
+_INT_SCALARS = 16
+
+
+def smem_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int) -> int:
+    """Shared memory of one lane's block, exactly as the kernel lays it out:
+    P⁻¹, Ginv, the n-vectors (x, x_un, the pivot row, P⁻¹aₚ and a scratch
+    vector), the ns-vectors (λ, g, r, a Ginv row, the KKT right-hand side
+    and multipliers) and the scalar cells in the slot dtype; A, l, u, the
+    row norms, A·x, the slot table Aact and the per-warp scan maxima in the
+    data dtype; idx, side, vmask, the per-warp argmax rows and the integer
+    cells as 4-byte ints."""
+    return (slot_size * (n * n + ns * ns + 5 * n + 6 * ns + _SLOT_SCALARS)
+            + data_size * (m * n + 4 * m + ns * n + MAX_WARPS)
+            + 4 * (3 * ns + MAX_WARPS + _INT_SCALARS))
+
+
+def slot_dtype_for(dt, slot_dtype=None):
+    """The slot dtype of a solve on ``dt`` data: float64 unless float32
+    slots are asked for on float32 data."""
+    if slot_dtype is None or slot_dtype == torch.float64:
+        return torch.float64
+    if slot_dtype == torch.float32 and dt == torch.float32:
+        return torch.float32
+    raise TypeError(f"slot dtype {slot_dtype} with {dt} data: the slots are "
+                    "float64, or float32 with float32 data")
+
+
+def _check_budget(n, m, ns, dt, hi, budget):
+    need = smem_bytes(n, m, ns, torch.empty((), dtype=dt).element_size(),
+                      torch.empty((), dtype=hi).element_size())
+    if need > budget:
+        raise ValueError(
+            f"problem too large for the GI kernel: one lane needs {need} "
+            f"bytes of shared memory (n={n}, m={m}, slots={ns}, data {dt}, "
+            f"slots {hi}), the block budget is {budget} bytes; use a "
+            "smaller QP, fewer slots (max_active) or float32")
+
+
+def _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
+                wside, wcnt, max_it):
+    B, n = q.shape
+    m = l.shape[1]
+    ns = idx.shape[1]
+    want = {"q": (q, (B, n)), "l": (l, (B, m)), "u": (u, (B, m)),
+            "idx": (idx, (B, ns)), "side": (side, (B, ns)),
+            "vmask": (vmask, (B, ns)), "Ginv": (Ginv, (B, ns, ns)),
+            "widx": (widx, (B, ns)), "wside": (wside, (B, ns)),
+            "wcnt": (wcnt, (B,)), "max_it": (max_it, (B,)),
+            "lane_ctrl": (lane_ctrl, (B,))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    n_d = A.shape[0]
+    if A.dim() != 3 or tuple(A.shape[1:]) != (m, n):
+        raise ValueError(f"A has shape {tuple(A.shape)}, expected (n_d, {m}, {n})")
+    if tuple(Pinv.shape) != (n_d, n, n):
+        raise ValueError(f"Pinv has shape {tuple(Pinv.shape)}, expected ({n_d}, {n}, {n})")
+    if not 1 <= ns <= n:
+        raise ValueError(f"the slot count must lie in [1, n={n}], got {ns}")
+    dt, hi = A.dtype, Ginv.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"gi_solve takes float32 or float64 data, got {dt}")
+    slot_dtype_for(dt, hi)       # raises unless hi is a slot dtype of dt
+    for name, t in (("q", q), ("l", l), ("u", u)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} is {t.dtype}, A is {dt}")
+    if Pinv.dtype != hi:
+        raise TypeError(f"Pinv is {Pinv.dtype}, Ginv (the slot dtype) is {hi}")
+    for name, t in (("lane_ctrl", lane_ctrl), ("idx", idx), ("side", side),
+                    ("widx", widx), ("wside", wside), ("wcnt", wcnt),
+                    ("max_it", max_it)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if vmask.dtype != torch.bool:
+        raise TypeError(f"vmask must be bool, got {vmask.dtype}")
+    return B, n, m, ns
+
+
+def violation_scan_reference(A_l, x_d, l, u, row_nrm):
+    """The scan phase of one GI iteration (the work of ``kmv``), per lane.
+
+    ``A_l`` (B, m, n), ``x_d`` (B, n) and ``l``/``u``/``row_nrm`` (B, m), all
+    in the data dtype.  Returns ``(Ax, vl, vu, score)``: A·x, the lower and
+    upper violations (−∞ on infinite sides) and max(vl, vu) over the
+    round-off scale max(‖aᵢ‖·‖x‖, 1), whose first argmax is the row picked.
+    """
+    Ax = torch.matmul(A_l, x_d.unsqueeze(-1)).squeeze(-1)
+    scale = torch.clamp(row_nrm * torch.linalg.vector_norm(x_d, dim=1,
+                                                           keepdim=True), min=1.0)
+    ninf = float("-inf")
+    vl = torch.where(l > -_BIG, l - Ax, ninf)
+    vu = torch.where(u < _BIG, Ax - u, ninf)
+    return Ax, vl, vu, torch.maximum(vl, vu) / scale
+
+
+def gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv,
+                       widx, wside, wcnt, warm, max_it, tol):
+    """Plain torch version of the kernel (same contract, same budget).
+
+    ``_gi_impl`` over a leading lane axis: one Python loop per GI loop,
+    running while any lane is live, with every carry field committed by
+    ``torch.where(live, new, old)`` — the semantics of ``vmap`` over
+    ``lax.while_loop``, which keeps a finished lane's carry.
+    """
+    B, n, m, ns = _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask,
+                              Ginv, widx, wside, wcnt, max_it)
+    dt, hi, dev = A.dtype, Ginv.dtype, q.device
+    _check_budget(n, m, ns, dt, hi, HOPPER_SMEM_OPTIN)
+    inf = float("inf")
+    A_l = take(A, lane_ctrl)                       # (B, m, n) data dtype
+    P_l = take(Pinv, lane_ctrl)                    # (B, n, n) slot dtype
+    ar = torch.arange(B, device=dev)
+    slot_id = torch.arange(ns, device=dev)
+    eye = torch.eye(ns, dtype=hi, device=dev).expand(B, ns, ns)
+    row_nrm = torch.linalg.vector_norm(A_l, dim=2)
+    has_lo, has_up = l > -_BIG, u < _BIG
+
+    def mv(M, v):                                  # (B, i, j) @ (B, j)
+        return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+    def mtv(M, v):                                 # (B, i, j)ᵀ @ (B, i)
+        return torch.matmul(v.unsqueeze(-2), M).squeeze(-2)
+
+    def outer(a, b):
+        return a.unsqueeze(-1) * b.unsqueeze(-2)
+
+    def first_free(vm):                            # jnp.argmin(vmask)
+        return torch.argmin(vm.to(torch.int8), dim=1)
+
+    def row_of(M, k):                              # M[b, k[b], :]
+        return M[ar, k]
+
+    def commit(live, new, old):
+        return {k: torch.where(live.view((B,) + (1,) * (old[k].dim() - 1)),
+                               new[k], old[k]) for k in old}
+
+    x_un = -mv(P_l, q.to(hi))
+    Aact = torch.where(vmask.unsqueeze(-1), A_l[ar[:, None], idx.long()],
+                       torch.zeros((), dtype=dt, device=dev))
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    st = dict(x=x_un, idx=idx.clone(), side=side.clone(),
+              lam=torch.zeros(B, ns, dtype=hi, device=dev),
+              vmask=vmask.clone(), Ginv=Ginv.clone(), Aact=Aact,
+              wpos=torch.zeros_like(it), it=it,
+              done=~(torch.full((B,), bool(warm), device=dev) | (wcnt > 0)))
+
+    # ---------------- warm loop: insert + KKT jump + wrong-sign drop ------
+    live = ~st["done"] & (st["it"] < max_it)
+    while bool(live.any()):
+        vm_, Gi, Aa = st["vmask"], st["Ginv"], st["Aact"]
+        s = torch.where(vm_, st["side"], 0).to(hi)
+        free = ~vm_.all(1)
+        inserting = st["wpos"] < wcnt
+        wsel = torch.clamp(st["wpos"], max=ns - 1).long()
+        cand = widx[ar, wsel]
+        cside = wside[ar, wsel]
+        cspf = cside.to(hi)
+        arow = A_l[ar, cand.long()].to(hi)
+        col = mv(P_l, arow)
+        g = torch.where(vm_, mv(Aa.to(hi), col) * s * cspf[:, None], 0.0)
+        gamma = torch.sum(arow * col, 1)
+        r = torch.where(vm_, mv(Gi, g), 0.0)
+        sc = gamma - torch.sum(g * r, 1)
+        ins_ok = inserting & (sc > tol * torch.clamp(gamma, min=1.0)) & free
+        app = first_free(vm_)
+        ii = slot_id == app[:, None]
+        e = ii.to(hi)
+        w = r - e
+        Gv_add = (Gi + outer(w, w) / torch.clamp(sc, min=_TINY)[:, None, None]
+                  - outer(e, e))
+        Aact_add = torch.where(ii.unsqueeze(-1), A_l[ar, cand.long()].unsqueeze(1), Aa)
+        # KKT jump of the current set and the wrong-sign drop
+        bnd = torch.where(st["side"] > 0, torch.gather(u, 1, st["idx"].long()),
+                          torch.gather(l, 1, st["idx"].long())).to(hi)
+        dvec = s * (mv(Aa.to(hi), x_un) - bnd)
+        lamw = mv(Gi, torch.where(vm_, dvec, 0.0))
+        lam_chk = torch.where(vm_, lamw, inf)
+        k_w = torch.argmin(lam_chk, 1)
+        negw = lam_chk.amin(1) < -tol
+        kkt = ~inserting
+        adopt = kkt & ~negw
+        wdrop = kkt & negw
+        e_w = slot_id == k_w[:, None]
+        e_k = e_w.to(hi)
+        ck = row_of(Gi, k_w)
+        piv = torch.clamp(torch.sum(ck * e_k, 1), min=_TINY)
+        Gv_drop = Gi - outer(ck, ck) / piv[:, None, None] + outer(e_k, e_k)
+
+        def pick(add_v, drop_v, keep_v):
+            b3 = (B,) + (1,) * (keep_v.dim() - 1)
+            return torch.where(ins_ok.view(b3), add_v,
+                               torch.where(wdrop.view(b3), drop_v, keep_v))
+
+        x_adopt = x_un - mv(P_l, mtv(Aa.to(hi), s * lamw))
+        new = dict(
+            x=torch.where(adopt[:, None], x_adopt, st["x"]),
+            idx=torch.where(ins_ok[:, None] & ii, cand[:, None], st["idx"]),
+            side=torch.where(ins_ok[:, None] & ii, cside[:, None], st["side"]),
+            lam=torch.where(adopt[:, None],
+                            torch.where(vm_, torch.clamp(lamw, min=0.0), 0.0),
+                            st["lam"]),
+            vmask=pick(vm_ | ii, vm_ & ~e_w, vm_),
+            Ginv=pick(Gv_add, Gv_drop, Gi),
+            Aact=torch.where(ins_ok[:, None, None], Aact_add, Aa),
+            wpos=st["wpos"] + inserting.to(torch.int32),
+            it=st["it"] + 1,
+            done=st["done"] | adopt)
+        st = commit(live, new, st)
+        live = ~st["done"] & (st["it"] < max_it)
+
+    # ---------------- main loop: scan + fused select and pivot ------------
+    zi = torch.zeros(B, dtype=torch.int32, device=dev)
+    zh = torch.zeros(B, dtype=hi, device=dev)
+    false = torch.zeros(B, dtype=torch.bool, device=dev)
+    st = dict(x=st["x"], idx=st["idx"], side=st["side"], lam=st["lam"],
+              vmask=st["vmask"], Ginv=st["Ginv"], Aact=st["Aact"],
+              p=zi - 1, sp=zi, slack=zh, lam_p=zh, zrun=zi, d1=zi - 1,
+              d2=zi - 1, vstall=zi, restarted=false, it=st["it"], done=false,
+              feas=~false)
+    live = ~st["done"] & (st["it"] < max_it)
+    while bool(live.any()):
+        vm_, Gi, Aa, lam = st["vmask"], st["Ginv"], st["Aact"], st["lam"]
+        x = st["x"]
+        s = torch.where(vm_, st["side"], 0).to(hi)
+        free = ~vm_.all(1)
+        # --- violation scan in the data dtype (kmv's work) ---
+        _, vl, vu, score = violation_scan_reference(A_l, x.to(dt), l, u, row_nrm)
+        j = torch.argmax(score, 1)
+        opt = score[ar, j] <= tol
+        vj = torch.maximum(vl[ar, j], vu[ar, j])
+        j_side = torch.where(vu[ar, j] >= vl[ar, j], 1, -1).to(torch.int32)
+        cont = st["p"] >= 0
+        fresh = ~cont & ~opt
+        stepping = cont | fresh
+        p_eff = torch.where(cont, st["p"], j.to(torch.int32))
+        sp = torch.where(cont, st["sp"], j_side)
+        spf = sp.to(hi)
+        slack = torch.where(cont, st["slack"], torch.clamp(vj, min=0.0).to(hi))
+        lam_p = torch.where(cont, st["lam_p"], 0.0)
+        # --- Gram work for the pivot row (slot dtype) ---
+        arow_d = A_l[ar, p_eff.long()]
+        arow = arow_d.to(hi)
+        col = mv(P_l, arow)
+        g = torch.where(vm_, mv(Aa.to(hi), col) * s * spf[:, None], 0.0)
+        gamma = torch.sum(arow * col, 1)
+        r = torch.where(vm_, mv(Gi, g), 0.0)
+        sc = gamma - torch.sum(g * r, 1)
+        # --- step lengths ---
+        t2 = torch.where(sc > tol, slack / torch.clamp(sc, min=_TINY), inf)
+        ratio = torch.where(vm_ & (r > tol), lam / torch.clamp(r, min=tol), inf)
+        k_b = torch.argmin(ratio, 1)
+        t1 = ratio.amin(1)
+        t = torch.minimum(t1, t2)
+        infeas_raw = stepping & ~torch.isfinite(t)
+        t = torch.where(torch.isfinite(t), t, 0.0)
+        z = mv(P_l, mtv(Aa.to(hi), r * s)) - spf[:, None] * col
+        x_step = x + t[:, None] * z
+        lam_step = torch.where(vm_, torch.clamp(lam - t[:, None] * r, min=0.0), lam)
+        lam_p_new = lam_p + t
+        slack_new = torch.clamp(slack - t * sc, min=0.0)
+        fin2 = torch.isfinite(t2)
+        full = (t2 <= t1) & fin2 & free
+        do_add = stepping & full & ~infeas_raw
+        do_drop = stepping & ~full & (t1 <= t2) & ~infeas_raw & torch.isfinite(t1)
+        overflow_raw = stepping & ~free & fin2 & (t2 <= t1) & ~infeas_raw
+        # --- f32 anti-cycling detectors and the one-shot restart ---
+        zero_run = torch.where(stepping & (t <= _TINY), st["zrun"] + 1, 0)
+        j32 = j.to(torch.int32)
+        rehit = fresh & ((j32 == st["d1"]) | (j32 == st["d2"]))
+        vstall = torch.where(rehit, st["vstall"] + 1,
+                             torch.where(fresh, 0, st["vstall"]))
+        restart = ~st["restarted"] & ((zero_run > ns + 2) | (vstall >= 4)
+                                      | infeas_raw | overflow_raw)
+        infeasible = infeas_raw & st["restarted"]
+        overflow = overflow_raw & st["restarted"]
+        app = first_free(vm_)
+        e_b = slot_id == k_b[:, None]
+        ii = slot_id == app[:, None]
+        e_app = ii.to(hi)
+        e_bh = e_b.to(hi)
+        # --- unified rank-one update: Ginv + c1·aaᵀ + c2·bbᵀ ---
+        ck = row_of(Gi, k_b)
+        piv = torch.clamp(torch.sum(ck * e_bh, 1), min=_TINY)
+        a_vec = torch.where(do_add[:, None], r - e_app, ck)
+        c1 = torch.where(do_add, 1.0 / torch.clamp(sc, min=_TINY),
+                         torch.where(do_drop, -1.0 / piv, 0.0))
+        b_vec = torch.where(do_add[:, None], e_app, e_bh)
+        c2 = torch.where(do_add, -1.0, torch.where(do_drop, 1.0, 0.0)).to(hi)
+        Ginv_n = (Gi + c1[:, None, None] * outer(a_vec, a_vec)
+                  + c2[:, None, None] * outer(b_vec, b_vec))
+        Aact_n = torch.where((do_add[:, None] & ii).unsqueeze(-1),
+                             arow_d.unsqueeze(1), Aa)
+        keep_lam = torch.where((stepping & ~overflow_raw)[:, None], lam_step, lam)
+        # the keep path must NOT apply the step's dual update
+        lam_n = torch.where(do_add[:, None], torch.where(ii, lam_p_new[:, None], lam_step),
+                            torch.where(do_drop[:, None], lam_step * (1.0 - e_bh),
+                                        keep_lam))
+        vmask_n = torch.where(do_add[:, None], vm_ | ii,
+                              torch.where(do_drop[:, None], vm_ & ~e_b, vm_))
+        upd_x = stepping & ~infeas_raw & ~overflow_raw
+        idx_kb = st["idx"][ar, k_b]
+        R, R2 = restart, restart[:, None]
+        new = dict(
+            x=torch.where(R2, x_un, torch.where(upd_x[:, None], x_step, x)),
+            idx=torch.where(R2, 0, torch.where(do_add[:, None] & ii,
+                                               p_eff[:, None], st["idx"])),
+            side=torch.where(R2, 0, torch.where(do_add[:, None] & ii,
+                                                sp[:, None], st["side"])),
+            lam=torch.where(R2, 0.0, lam_n),
+            vmask=vmask_n & ~R2,
+            Ginv=torch.where(R[:, None, None], eye, Ginv_n),
+            Aact=torch.where(R[:, None, None], torch.zeros((), dtype=dt, device=dev),
+                             Aact_n),
+            p=torch.where(do_drop & ~R, p_eff, -1),
+            sp=torch.where(do_drop & ~R, sp, 0),
+            slack=torch.where(do_drop & ~R, slack_new, 0.0),
+            lam_p=torch.where(do_drop & ~R, lam_p_new, 0.0),
+            zrun=torch.where(R, 0, zero_run),
+            d1=torch.where(R, -1, torch.where(do_drop, idx_kb, st["d1"])),
+            d2=torch.where(R, -1, torch.where(do_drop, st["d1"], st["d2"])),
+            vstall=torch.where(R, 0, vstall),
+            restarted=st["restarted"] | restart,
+            it=st["it"] + 1,
+            done=st["done"] | infeasible | overflow | (~cont & opt),
+            feas=st["feas"] & ~infeasible & ~overflow)
+        new = {k: v.to(st[k].dtype) for k, v in new.items()}
+        st = commit(live, new, st)
+        live = ~st["done"] & (st["it"] < max_it)
+
+    idx.copy_(st["idx"])
+    side.copy_(st["side"])
+    vmask.copy_(st["vmask"])
+    Ginv.copy_(st["Ginv"])
+    return st["x"], st["lam"], st["it"], st["done"] & st["feas"]
+
+
+def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
+             wside, wcnt, warm, max_it, tol):
+    """The per-lane GI solve (see the module docstring).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    dev = q.device
+    if dev.type == "cpu":
+        return gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side,
+                                  vmask, Ginv, widx, wside, wcnt, warm,
+                                  max_it, tol)
+    if dev.type != "cuda":
+        raise ValueError(f"gi_solve runs on cpu or cuda, got {dev}")
+    B, n, m, ns = _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask,
+                              Ginv, widx, wside, wcnt, max_it)
+    ts = (Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx, wside,
+          wcnt, max_it)
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"gi_solve arguments must all lie on {dev}")
+        if not t.is_contiguous():
+            raise ValueError("gi_solve arguments must be contiguous")
+    dt, hi = A.dtype, Ginv.dtype
+    budget = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    _check_budget(n, m, ns, dt, hi, budget)
+    x = torch.empty(B, n, dtype=hi, device=dev)
+    lam = torch.empty(B, ns, dtype=hi, device=dev)
+    it = torch.empty(B, dtype=torch.int32, device=dev)
+    conv = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return x, lam, it, conv
+    from ._build import load_library
+    lib = load_library()
+    fn = {(torch.float32, torch.float64): lib.mpc_gi_solve_f32_f64,
+          (torch.float32, torch.float32): lib.mpc_gi_solve_f32_f32,
+          (torch.float64, torch.float64): lib.mpc_gi_solve_f64_f64}[(dt, hi)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in ts + (x, lam, it, conv)), B, n, m, ns,
+                int(bool(warm)), block_threads(m),
+                smem_bytes(n, m, ns, A.element_size(), Ginv.element_size()),
+                float(tol), stream)
+    if rc != 0:
+        raise RuntimeError(f"gi_solve kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gi_solve"] += 1
+    return x, lam, it, conv

@@ -41,6 +41,8 @@ class QPSolution(NamedTuple):
     iters: torch.Tensor      # (B,) int32
     obj: torch.Tensor        # (B,) ½xᵀPx + qᵀx
     rung: torch.Tensor       # (B,) int32 final ρ-ladder rung
+    # GI operator state for the next period (ops/qp_active.py; None for ADMM)
+    gi_state: dict | None = None
 
 
 def build_solver_cache(P, A, eq_mask, loose_mask, *,
@@ -137,7 +139,7 @@ def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
     if cache is None:
         raise NotImplementedError(
             "the uncached in-solve Ruiz/ρ-ladder path of solve_qp is not "
-            "ported yet (ROADMAP: port queue); pass cache=build_solver_cache(...)")
+            "ported yet (ROADMAP queue 1, item 2); pass cache=build_solver_cache(...)")
     _check_cache_penalties(cache, sigma, rho)
     B, n = q.shape
     m = l.shape[1]

@@ -1,10 +1,12 @@
 """Batched LinMPC serving fleet (torch port of ``mpc_tpu/parallel/batch.py``).
 
 One fleet step runs, for every lane at once: the steady-Kalman correction,
-the LinMPC step (F/q̃ build, bounds, warm-start shift, batched ADMM QP with
-the hand-written sweep kernel, receding input) and the Kalman prediction
-(``mpc_tpu`` ``batch.py:191-217``).  Parameters are stacked over the
-DISTINCT controllers only and read per lane through ``lane_ctrl``
+the LinMPC step (F/q̃ build, bounds, warm-start shift, the batched QP —
+ADMM with the hand-written sweep kernel, or Goldfarb–Idnani with the
+hand-written per-lane solve kernel and its cross-period operator carry —
+receding input) and the Kalman prediction (``mpc_tpu``
+``batch.py:191-217``).  Parameters are stacked over the DISTINCT
+controllers only and read per lane through ``lane_ctrl``
 (``grouped.py``); per-lane state lives on the device between steps.
 """
 from __future__ import annotations
@@ -12,14 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..controllers.linmpc import LinMPC, _GI_TODO, _build_step
+from ..controllers.linmpc import LinMPC, _build_step
 from ..ops.admm_kernel import admm_sweep
+from ..ops.gi_kernel import gi_solve, slot_dtype_for
 from ..ops.qp import _check_cache_penalties
+from ..ops.qp_active import gi_state_init
 from ..utils.config import resolve_device
 from ..utils.lanes import mv, take
 from .grouped import lane_ctrl as _lane_ctrl
 
-STATE_KEYS = ("x0_hat", "lastu0", "Z_tilde", "y_dual", "rho_rung")
+STATE_KEYS = ("x0_hat", "lastu0", "Z_tilde", "y_dual", "rho_rung", "qp_state")
+GI_STATE_KEYS = ("gis_idx", "gis_side", "gis_vmask", "gis_Ginv")
 
 
 def stack_params(controllers):
@@ -69,56 +74,76 @@ class BatchedLinMPC:
     ``step(ym, ry, d)`` runs the full control step for every lane.  The
     fleet has ``B = len(controllers)·reps`` lanes in the public order
     ``lane = r·n_d + c``; ``share_params=True`` is one controller shared by
-    ``reps`` lanes.  ``sweep`` (also an attribute) is the ADMM inner sweep:
-    by default the CUDA kernel on a GPU and its plain version on the CPU;
-    checks set ``ops.admm_kernel.admm_sweep_reference`` to compare the two.
+    ``reps`` lanes.  ``sweep`` (also an attribute) is the ADMM inner sweep
+    and the attribute ``gi`` the Goldfarb–Idnani per-lane solve: by
+    default the CUDA kernels on a GPU and their plain versions on the CPU;
+    checks set ``ops.admm_kernel.admm_sweep_reference`` /
+    ``ops.gi_kernel.gi_solve_reference`` to compare the two.
+
+    A fleet of ``qp_solver="active_set"`` controllers solves with GI and
+    carries each lane's active-set operators in ``state["qp_state"]``;
+    ``gi_slot_dtype`` picks float32 slots for a float32 fleet (default
+    float64, the reference's mixed precision).
     """
 
     def __init__(self, controllers: list[LinMPC], *, device=None,
                  dtype=torch.float64, reps: int = 1,
                  share_params: bool = False, mesh=None,
                  limit_solve_time: bool = False, grouped_chunks: int = 1,
-                 sweep=admm_sweep):
+                 sweep=admm_sweep, gi_slot_dtype=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded fleets are not ported yet (ROADMAP queue 1, item 10)")
         if limit_solve_time:
             raise NotImplementedError(
                 "limit_solve_time (the Ts-deadline policy) is not ported yet "
-                "(ROADMAP queue 1, item 4)")
+                "(ROADMAP queue 1, item 3)")
         if grouped_chunks != 1:
             raise NotImplementedError(
-                "grouped_chunks != 1 is not ported yet (ROADMAP queue 1, item 4)")
-        if any(c.qp_solver != "admm" for c in controllers):
-            raise NotImplementedError(_GI_TODO)
+                "grouped_chunks != 1 is not ported yet (ROADMAP queue 1, item 3)")
+        solvers = {c.qp_solver for c in controllers}
+        caps = {c.gi_max_active for c in controllers}
+        if len(solvers) != 1 or len(caps) != 1:
+            raise ValueError("a fleet's controllers must share qp_solver and "
+                             "gi_max_active")
         self._setup([c.params for c in controllers],
                     [_estimator_dict(c) for c in controllers], reps=reps,
                     share_params=share_params, device=device, dtype=dtype,
-                    sweep=sweep)
+                    sweep=sweep, gi_max_active=caps.pop(),
+                    gi_slot_dtype=gi_slot_dtype)
 
     @classmethod
     def from_params(cls, params_list, eparams_list, *, reps=1,
                     share_params=False, device=None, dtype=torch.float64,
-                    sweep=admm_sweep):
+                    sweep=admm_sweep, gi_max_active=None,
+                    gi_slot_dtype=None):
         """Fleet from ``LinMPC.params`` dicts and per-controller estimator
         dicts (NumPy arrays; the keys of ``estimator_params``), e.g. the
-        ones a ``mpc_tpu`` controller built."""
+        ones a ``mpc_tpu`` controller built.  A params dict with
+        ``gic_Pinv`` is a GI controller's; the dict does not carry its slot
+        cap, so ``gi_max_active`` (and ``gi_slot_dtype``) come here."""
         self = cls.__new__(cls)
         self._setup(params_list, eparams_list, reps=reps,
                     share_params=share_params, device=device, dtype=dtype,
-                    sweep=sweep)
+                    sweep=sweep, gi_max_active=gi_max_active,
+                    gi_slot_dtype=gi_slot_dtype)
         return self
 
     def _setup(self, params_list, eparams_list, *, reps, share_params,
-               device, dtype, sweep):
+               device, dtype, sweep, gi_max_active, gi_slot_dtype):
         if share_params and len(params_list) != 1:
             raise ValueError("share_params=True expects exactly one "
                              "controller (the shared configuration); set "
                              "reps=B for the fleet size")
-        if "qpc_Minvs" not in params_list[0]:
-            raise NotImplementedError(_GI_TODO)
-        for p in params_list:      # the step solves with the defaults
-            _check_cache_penalties(p, sigma=1e-6, rho=0.1)
+        if "gic_Pinv" in params_list[0]:
+            self.qp_solver = "active_set"
+        elif "qpc_Minvs" in params_list[0]:
+            self.qp_solver = "admm"
+            for p in params_list:      # the step solves with the defaults
+                _check_cache_penalties(p, sigma=1e-6, rho=0.1)
+        else:
+            raise ValueError("params dict has neither the ADMM cache "
+                             "(qpc_Minvs) nor the GI cache (gic_Pinv)")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.n_distinct = len(params_list)
@@ -127,6 +152,11 @@ class BatchedLinMPC:
         s = _structure({k: np.asarray(v) for k, v in params_list[0].items()})
         self.nu, self.nd, self.Hp, self.ny = s["nu"], s["nd"], s["Hp"], s["ny"]
         self.n_qp = s["nZ"] + s["n_eps"] - s["n_eq"]
+        use_as = self.qp_solver == "active_set"
+        self.gi_max_active = None if gi_max_active is None else int(gi_max_active)
+        self.gi_slots = (min(self.n_qp, self.gi_max_active)
+                         if use_as and self.gi_max_active is not None else self.n_qp)
+        self.gi_slot_dtype = slot_dtype_for(dtype, gi_slot_dtype) if use_as else None
 
         def upload(dicts, skip=()):
             out = {}
@@ -144,8 +174,11 @@ class BatchedLinMPC:
         self.lane_ctrl = _lane_ctrl(self.n_distinct, self.reps, self.device)
         self._step_raw = _build_step(
             s["nu"], s["Hc"], s["nd"], s["n_eps"], s["nZ"], s["n_ineq"],
-            s["n_eq"], s["is_ms"], s["nx_hat"], s["nw"])
+            s["n_eq"], s["is_ms"], s["nx_hat"], s["nw"],
+            qp_solver=self.qp_solver, gi_max_active=self.gi_max_active,
+            slot_dtype=self.gi_slot_dtype)
         self.sweep = sweep
+        self.gi = gi_solve
         nZt = s["nZ"] + s["n_eps"]
         z = lambda *shape: torch.zeros(shape, dtype=dtype, device=self.device)
         self._state = dict(
@@ -153,27 +186,49 @@ class BatchedLinMPC:
             Z_tilde=z(self.B, nZt),
             y_dual=z(self.B, self.params["A_stack"].shape[1]),
             rho_rung=torch.full((self.B,), 4, dtype=torch.int32,
-                                device=self.device))
+                                device=self.device),
+            # GI cross-period operator carry (per-lane active set + Ginv)
+            qp_state=(gi_state_init(self.gi_slots, self.B, self.gi_slot_dtype,
+                                    self.device) if use_as else None))
         self.last_iters = None
 
     # ------------------------------------------------------------------
     @property
     def state(self):
-        """Per-lane state as NumPy arrays (a copy)."""
-        return {k: v.cpu().numpy().copy() for k, v in self._state.items()}
+        """Per-lane state as NumPy arrays (a copy); ``qp_state`` is the dict
+        of the four ``gis_*`` arrays for GI, None for ADMM."""
+        host = lambda t: t.cpu().numpy().copy()
+        out = {k: host(v) for k, v in self._state.items() if k != "qp_state"}
+        qs = self._state["qp_state"]
+        out["qp_state"] = None if qs is None else {k: host(v) for k, v in qs.items()}
+        return out
 
     @state.setter
     def state(self, new):
         unknown = set(new) - set(STATE_KEYS)
         if unknown:
             raise KeyError(f"unknown state keys {sorted(unknown)}")
-        for k, v in new.items():
-            cur = self._state[k]
+
+        def tensor(name, v, cur):
             t = torch.as_tensor(np.array(v), device=self.device).to(cur.dtype)
             if t.shape != cur.shape:
-                raise ValueError(f"state[{k!r}] must have shape "
+                raise ValueError(f"state[{name!r}] must have shape "
                                  f"{tuple(cur.shape)}, got {tuple(t.shape)}")
-            self._state[k] = t.contiguous()
+            return t.contiguous()
+
+        for k, v in new.items():
+            cur = self._state[k]
+            if k != "qp_state":
+                self._state[k] = tensor(k, v, cur)
+            elif cur is None:
+                if v is not None:
+                    raise ValueError("state['qp_state'] is None for an ADMM fleet")
+            else:
+                if v is None or set(v) != set(GI_STATE_KEYS):
+                    raise ValueError("state['qp_state'] must hold the arrays "
+                                     f"{', '.join(GI_STATE_KEYS)}")
+                self._state[k] = {g: tensor(f"qp_state.{g}", v[g], cur[g])
+                                  for g in GI_STATE_KEYS}
 
     def _tensor(self, a, width):
         if not torch.is_tensor(a):
@@ -204,11 +259,12 @@ class BatchedLinMPC:
         x0c = x0 + EM("K_hat", v)
         # --- MPC solve ---
         zeros = lambda k: torch.zeros(self.B, k, dtype=self.dtype, device=self.device)
-        u, Z_t, y_dual, conv, _F, _obj, iters, rung = self._step_raw(
+        u, Z_t, y_dual, conv, _F, _obj, iters, rung, qps = self._step_raw(
             self.params, x0c, st["lastu0"], d0, d0.repeat(1, self.Hp),
             ry.repeat(1, self.Hp), take(self.params["Uop"], lc),
             zeros(self.params["Ks"].shape[2]), zeros(self.ny),
-            st["Z_tilde"], st["y_dual"], st["rho_rung"], lc, self.sweep)
+            st["Z_tilde"], st["y_dual"], st["rho_rung"], lc, self.sweep,
+            qp_state=st["qp_state"], gi=self.gi)
         lastu0 = u - E("uop")
         # --- estimator prediction ---
         x0n = EM("A_hat", x0c) + EM("Bu_hat", lastu0)
@@ -216,7 +272,7 @@ class BatchedLinMPC:
             x0n = x0n + EM("Bd_hat", d0)
         x0n = x0n + E("fop_m_xop")
         self._state = dict(x0_hat=x0n, lastu0=lastu0, Z_tilde=Z_t,
-                           y_dual=y_dual, rho_rung=rung)
+                           y_dual=y_dual, rho_rung=rung, qp_state=qps)
         self.last_iters = torch.stack([iters.max(), iters.sum() // self.B])
         return u, conv.sum()
 

@@ -142,7 +142,7 @@ def test_kernel_build_is_keyed_by_source_and_needs_nvcc(tmp_path, monkeypatch):
     """The library is rebuilt when a source hash changes, and a machine
     without nvcc gets an error, never a silent plain path."""
     from mpc_tpu_torch.ops import _build
-    assert [p.name for p in _build._sources()] == ["admm_sweep.cu"]
+    assert [p.name for p in _build._sources()] == ["admm_sweep.cu", "gi_solve.cu"]
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 64
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)

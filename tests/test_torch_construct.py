@@ -85,3 +85,37 @@ def test_estimator_params_match_reference(name):
     for k in ref:
         assert ref[k].shape == port[k].shape, k
         assert np.allclose(ref[k], port[k], rtol=0, atol=1e-12), k
+
+
+def _gi_controllers(pkg, transcription, gi_max_active):
+    c = pkg.LinMPC(pkg.LinModel(pkg.tf_matrix(
+        [[pkg.tf(1.9, [18.0, 1]), pkg.tf(1.5, [14.0, 1])],
+         [pkg.tf(-0.74, [8.0, 1]), pkg.tf(0.9, [9.0, 1])]]), 2.0),
+        Hp=10, Hc=2, Mwt=[1.0, 1.0], Nwt=[0.1, 0.1],
+        transcription=getattr(pkg, transcription)(), qp_solver="active_set",
+        gi_max_active=gi_max_active)
+    c.setconstraint(umin=[-10.0, -10.0], umax=[10.0, 10.0],
+                    dumin=[-4.0, -4.0], dumax=[4.0, 4.0],
+                    ymin=[-60.0, -60.0], ymax=[60.0, 60.0])
+    return c
+
+
+@pytest.mark.parametrize("transcription,cap", [("SingleShooting", None),
+                                               ("SingleShooting", 3),
+                                               ("MultipleShooting", None),
+                                               ("MultipleShooting", 2)])
+def test_gi_params_match_reference(transcription, cap):
+    """qp_solver="active_set": the same params (the GI cache gic_Pinv in
+    place of the ADMM cache, on the reduced (H_r, A_r) under
+    MultipleShooting elimination) and the same slot count."""
+    a = _gi_controllers(mpc_tpu, transcription, cap)
+    b = _gi_controllers(mpc_tpu_torch, transcription, cap)
+    assert a.params.keys() == b.params.keys()
+    assert "gic_Pinv" in b.params and "qpc_Minvs" not in b.params
+    for k in a.params:
+        x, y = np.asarray(a.params[k]), np.asarray(b.params[k])
+        assert x.shape == y.shape and x.dtype == y.dtype, k
+        assert np.allclose(x, y, rtol=0, atol=1e-12), k
+    assert (a.gi_slots, a.gi_max_active, a.n_qp) == (b.gi_slots, b.gi_max_active,
+                                                     b.n_qp)
+    assert "Goldfarb–Idnani" in repr(b)

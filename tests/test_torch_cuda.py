@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card: kernel ≡ plain version, and the fleet path.
+"""The CUDA kernels on the card: kernel ≡ plain version, and the fleet path.
 
 Needs an NVIDIA GPU; every test skips where ``torch.cuda.is_available()``
 is False.  This file imports no JAX, so it also runs on a machine without
@@ -11,6 +11,8 @@ import torch
 
 from mpc_tpu_torch.ops.admm_kernel import (LAUNCHES, admm_sweep,
                                            admm_sweep_reference)
+from mpc_tpu_torch.ops.gi_kernel import gi_solve, gi_solve_reference
+from mpc_tpu_torch.ops.qp_active import build_gi_cache, solve_qp_active
 from mpc_tpu_torch.parallel import BatchedLinMPC, random_cstr_controllers
 
 torch.set_num_threads(1)
@@ -81,3 +83,45 @@ def test_fleet_step_kernel_path_matches_plain_path_on_card():
         assert torch.isfinite(u_k).all()
         assert (u_k - u_p).abs().max().item() < 1e-3
         assert abs(int(nc_k) - int(nc_p)) <= 1
+
+
+def _gi_problem(dev, dtype, n=6, m=24, B=256, seed=0):
+    """Random QPs of the tests/test_qp.py kind, one per lane, with warm duals
+    (some junk) so the warm loop inserts and drops."""
+    rng = np.random.default_rng(seed)
+    H = rng.normal(size=(B, n, n))
+    P = H @ H.transpose(0, 2, 1) + n * np.eye(n)
+    A = rng.normal(size=(B, m, n))
+    Ax = np.einsum("bmn,bn->bm", A, rng.normal(size=(B, n)) * 0.1)
+    margin = rng.uniform(0.05, 1.0, size=(B, m))
+    l = np.where(rng.random((B, m)) < 0.3, -1e20, Ax - margin)
+    Pinv = np.stack([build_gi_cache(p, None)["gic_Pinv"] for p in P])
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    return dict(P=t(P), q=t(rng.normal(size=(B, n))), A=t(A), l=t(l),
+                u=t(Ax + margin), y0=t(rng.normal(size=(B, m)) * (rng.random((B, 1)) < 0.5)),
+                cache=dict(gic_Pinv=t(Pinv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,slots,cap", [(torch.float64, None, None),
+                                             (torch.float32, torch.float32, 3)])
+def test_gi_kernel_matches_plain_on_card(dtype, slots, cap):
+    dev = _card()
+    a = _gi_problem(dev, dtype)
+    n0 = LAUNCHES["gi_solve"]
+    out = {}
+    for fn in (gi_solve, gi_solve_reference):
+        out[fn] = solve_qp_active(a["P"], a["q"], a["A"], a["l"], a["u"], a["y0"],
+                                  cache=a["cache"], max_active=cap,
+                                  slot_dtype=slots, solve=fn)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gi_solve"] == n0 + 1
+    k, p = out[gi_solve], out[gi_solve_reference]
+    assert torch.equal(k.converged, p.converged)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    x_scale = 1.0 + p.x.abs().max().item()
+    if dtype == torch.float64:
+        assert torch.equal(k.iters, p.iters)
+        assert torch.equal(k.gi_state["gis_idx"], p.gi_state["gis_idx"])
+    both = k.converged & p.converged
+    assert (k.x - p.x)[both].abs().max().item() < tol * x_scale

@@ -5,7 +5,10 @@ params dicts go through ``BatchedLinMPC.from_params``) and run closed loops
 in the bench.py regime: every lane steps its true plant, measurement noise
 and setpoints rotate through 4 phases.  In float64 the bar is the repo's own
 fleet ≡ single-controller bar (tests/test_batch.py): u to 1e-6, the same
-converged counts, the same iteration statistics.
+converged counts, the same iteration statistics.  Every fleet kind runs
+twice: with the ADMM backend and with the Goldfarb–Idnani backend
+(``qp_solver="active_set"``, whose per-lane solve and cross-period operator
+carry the port runs through ``ops/gi_kernel.py``).
 """
 import numpy as np
 import pytest
@@ -22,13 +25,14 @@ from mpc_tpu_torch.parallel import BatchedLinMPC
 torch.set_num_threads(1)
 
 
-def _ms_controllers(pkg, n):
+def _ms_controllers(pkg, n, qp_solver="admm"):
     ctrls = []
     for c in random_cstr_controllers(n, seed=3):
         m = c.estim.model
         model = pkg.LinModel(m.A, m.Bu, m.C, m.Bd, m.Dd, m.Ts)
         mc = pkg.LinMPC(model, Hp=10, Hc=2, Mwt=[1.0, 1.0], Nwt=[0.1, 0.1],
-                        transcription=pkg.MultipleShooting())
+                        transcription=pkg.MultipleShooting(),
+                        qp_solver=qp_solver)
         mc.setconstraint(umin=[-10.0, -10.0], umax=[10.0, 10.0],
                          dumin=[-4.0, -4.0], dumax=[4.0, 4.0],
                          ymin=[-60.0, -60.0], ymax=[60.0, 60.0])
@@ -37,14 +41,16 @@ def _ms_controllers(pkg, n):
 
 
 def _both(ctrls, reps, dtype, share_params=False):
-    """The reference fleet and the port's, built from the same params."""
+    """The reference fleet and the port's, built from the same params (a GI
+    fleet carries float64 slots in both: the reference runs under x64)."""
     ref = RefFleet(ctrls, reps=reps, share_params=share_params,
                    dtype=jnp.float32 if dtype == torch.float32 else None)
     ep = estimator_params(ctrls)
     eps = [{k: v[i] for k, v in ep.items()} for i in range(len(ctrls))]
     port = BatchedLinMPC.from_params([c.params for c in ctrls], eps,
                                      reps=reps, share_params=share_params,
-                                     dtype=dtype)
+                                     dtype=dtype,
+                                     gi_max_active=ctrls[0].gi_max_active)
     return ref, port
 
 
@@ -94,7 +100,7 @@ def _run_both(ref, port, loop, K, np_dt):
     return out
 
 
-def _disturbance_controllers(n):
+def _disturbance_controllers(n, qp_solver="admm"):
     """Measured disturbance (nd = 1), hard constraints (Cwt = inf)."""
     ctrls = []
     for a in np.linspace(1.0, 0.9, n):
@@ -103,18 +109,26 @@ def _disturbance_controllers(n):
                                  np.array([[0.2], [0.0]]),
                                  np.array([[0.0], [0.1]]), 0.5)
         c = mpc_tpu.LinMPC(model, Hp=8, Hc=3, Mwt=[1.0, 0.5], Nwt=[0.2],
-                           Lwt=[0.05], Cwt=np.inf)
+                           Lwt=[0.05], Cwt=np.inf, qp_solver=qp_solver)
         c.setconstraint(umin=[-2.0], umax=[2.0], dumin=[-0.5], dumax=[0.5])
         ctrls.append(c)
     return ctrls
 
 
-FLEETS = {
-    "cstr_grouped": lambda: (random_cstr_controllers(4, seed=0), 2, False),
-    "multiple_shooting": lambda: (_ms_controllers(mpc_tpu, 2), 2, False),
-    "shared_params": lambda: (random_cstr_controllers(1, seed=2), 4, True),
-    "disturbance_hard": lambda: (_disturbance_controllers(2), 2, False),
-}
+def _fleets(qp):
+    return {
+        "cstr_grouped": lambda: (random_cstr_controllers(4, seed=0, qp_solver=qp),
+                                 2, False),
+        "multiple_shooting": lambda: (_ms_controllers(mpc_tpu, 2, qp), 2, False),
+        "shared_params": lambda: (random_cstr_controllers(1, seed=2, qp_solver=qp),
+                                  4, True),
+        "disturbance_hard": lambda: (_disturbance_controllers(2, qp), 2, False),
+    }
+
+
+# the ADMM fleets under their own names, the GI fleets as gi_<name>
+FLEETS = {**_fleets("admm"),
+          **{f"gi_{k}": v for k, v in _fleets("active_set").items()}}
 
 
 @pytest.mark.parametrize("name", sorted(FLEETS))
@@ -140,6 +154,68 @@ def test_f32_closed_loop_matches_reference():
         assert nc_r == nc_p
         assert np.all(np.isfinite(u_p))
         assert np.max(np.abs(u_r - u_p)) < 1e-3
+
+
+def test_f32_gi_closed_loop_matches_reference():
+    """float32 GI fleets with float64 slots (the reference's mixed mode
+    under x64, the port's default): u to 1e-3, the same converged counts."""
+    ctrls = random_cstr_controllers(4, seed=0, qp_solver="active_set")
+    ref, port = _both(ctrls, 2, torch.float32)
+    assert port.gi_slot_dtype == torch.float64
+    assert port.state["qp_state"]["gis_Ginv"].dtype == np.float64
+    for u_r, u_p, nc_r, nc_p, *_ in _run_both(ref, port, _Loop(ctrls, 2), 6,
+                                              np.float32):
+        assert nc_r == nc_p == port.B
+        assert np.all(np.isfinite(u_p))
+        assert np.max(np.abs(u_r - u_p)) < 1e-3
+
+
+def test_gi_fleet_serving_stability():
+    """The port's counterpart of tests/test_batch.py:157-191: a 40-step
+    rotating-setpoint float32 GI fleet on stiff 4x4 plants (B=128) stays
+    fully converged with a bounded worst-lane pivot count."""
+    rng = np.random.default_rng(0)
+    ctrls = []
+    for _ in range(4):
+        A = np.diag(rng.uniform(0.45, 0.8, 4)) + rng.normal(size=(4, 4)) * 0.02
+        A *= min(1.0, 0.85 / np.max(np.abs(np.linalg.eigvals(A))))
+        model = mpc_tpu_torch.LinModel(mpc_tpu_torch.ss(
+            A, np.eye(4) + 0.5 * rng.normal(size=(4, 4)), np.eye(4),
+            np.zeros((4, 4)), 2.0), 2.0)
+        c = mpc_tpu_torch.LinMPC(model, Hp=10, Hc=3, Mwt=np.ones(4),
+                                 Nwt=np.ones(4), Cwt=1e3, qp_solver="active_set")
+        c.setconstraint(umin=np.full(4, -10.0), umax=np.full(4, 10.0),
+                        dumin=np.full(4, -4.0), dumax=np.full(4, 4.0),
+                        ymin=np.full(4, -60.0), ymax=np.full(4, 60.0))
+        ctrls.append(c)
+    B = 128
+    bat = BatchedLinMPC(ctrls, dtype=torch.float32, reps=B // 4)
+    ym0 = rng.normal(size=(B, 4)) * 0.5
+    ry0 = rng.normal(size=(B, 4)) * 2.0
+    seq = [(ym0 + rng.normal(size=(B, 4)) * 0.1, ry0 + rng.normal(size=(B, 4)) * 0.2)
+           for _ in range(4)]
+    worst = 0
+    for k in range(40):
+        u, nc = bat.step(*seq[k % 4])
+        worst = max(worst, int(bat.last_iters[0]))
+        assert int(nc) == B, (k, int(nc))
+    assert worst < 60, worst
+
+
+def test_gi_cap_matches_uncapped():
+    """tests/test_batch.py:218-239: a gi_max_active=3 fleet reproduces the
+    uncapped one while the lanes' active sets fit the cap."""
+    fleets = [BatchedLinMPC(mpc_tpu_torch.parallel.random_cstr_controllers(
+        4, Hp=8, Hc=2, seed=4, qp_solver="active_set", gi_max_active=cap))
+        for cap in (None, 3)]
+    assert [f.gi_slots for f in fleets] == [fleets[0].n_qp, 3]
+    rng = np.random.default_rng(2)
+    for k in range(4):
+        ym = rng.normal(size=(4, 2)) * 0.5
+        ry = rng.normal(size=(4, 2))
+        (ua, na), (ub, nb) = (f.step(ym, ry) for f in fleets)
+        assert int(na) == 4 and int(nb) == 4, k
+        assert torch.allclose(ua, ub, rtol=0, atol=1e-7), k
 
 
 def test_multistep_equals_repeated_steps():
@@ -176,10 +252,10 @@ def test_public_lane_order_is_replica_major():
         assert torch.allclose(u[lanes], u1, rtol=0, atol=1e-12), r
 
 
-def test_state_round_trip_continues_reference_run():
-    """Reference state copied into the port through the ``state`` setter:
-    the next step agrees, and the getter returns NumPy copies."""
-    ctrls = random_cstr_controllers(2, seed=6)
+def _round_trip(qp_solver):
+    """Two reference periods, the reference's whole state (``qp_state``
+    included) through the port's setter, then one more period of each."""
+    ctrls = random_cstr_controllers(2, seed=6, qp_solver=qp_solver)
     ref, port = _both(ctrls, 2, torch.float64)
     loop = _Loop(ctrls, 2)
     x = loop.x
@@ -187,30 +263,50 @@ def test_state_round_trip_continues_reference_run():
         ym, ry, d = loop.inputs(k, x)
         u, _ = ref.step(jnp.asarray(ym), jnp.asarray(ry))
         x = loop.advance(x, np.asarray(u), d)
-    port.state = {k: np.asarray(v) for k, v in ref.state.items()
-                  if k != "qp_state"}
+    host = lambda v: (None if v is None else {g: np.asarray(a) for g, a in v.items()}
+                      if isinstance(v, dict) else np.asarray(v))
+    port.state = {k: host(v) for k, v in ref.state.items()}
     ym, ry, _ = loop.inputs(2, x)
     u_r, _ = ref.step(jnp.asarray(ym), jnp.asarray(ry))
     u_p, _ = port.step(ym, ry)
     assert np.max(np.abs(np.asarray(u_r) - u_p.numpy())) < 1e-6
+    return ref, port
+
+
+def test_state_round_trip_continues_reference_run():
+    """Reference state copied into the port through the ``state`` setter:
+    the next step agrees, and the getter returns NumPy copies."""
+    _, port = _round_trip("admm")
     st = port.state
-    assert set(st) == {"x0_hat", "lastu0", "Z_tilde", "y_dual", "rho_rung"}
-    assert st["rho_rung"].dtype == np.int32
+    assert set(st) == {"x0_hat", "lastu0", "Z_tilde", "y_dual", "rho_rung",
+                       "qp_state"}
+    assert st["rho_rung"].dtype == np.int32 and st["qp_state"] is None
     st["x0_hat"][:] = 1e3            # a copy: the fleet is untouched
     assert np.abs(port.state["x0_hat"]).max() < 1e3
     with pytest.raises(ValueError, match="shape"):
         port.state = {"lastu0": np.zeros((1, 2))}
+    with pytest.raises(ValueError, match="ADMM"):
+        port.state = {"qp_state": {}}
 
 
-@pytest.mark.parametrize("option", ["active_set", "mesh", "grouped_chunks",
+def test_gi_state_round_trip_continues_reference_run():
+    """The same with GI fleets: the carried operator state (idx, side,
+    vmask, Ginv) crosses packages, and the next period's state agrees."""
+    ref, port = _round_trip("active_set")
+    qr, qp = ref.state["qp_state"], port.state["qp_state"]
+    for k in ("gis_idx", "gis_side", "gis_vmask"):
+        assert np.array_equal(np.asarray(qr[k]), qp[k]), k
+    assert np.max(np.abs(np.asarray(qr["gis_Ginv"]) - qp["gis_Ginv"])) < 1e-9
+    with pytest.raises(ValueError, match="gis_"):
+        port.state = {"qp_state": None}
+
+
+@pytest.mark.parametrize("option", ["mesh", "grouped_chunks",
                                     "limit_solve_time"])
 def test_unported_options_raise(option):
     ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(2, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if option == "active_set":
-            mpc_tpu_torch.parallel.random_cstr_controllers(
-                1, qp_solver="active_set")
-        elif option == "mesh":
+        if option == "mesh":
             BatchedLinMPC(ctrls, mesh=object())
         elif option == "grouped_chunks":
             BatchedLinMPC(ctrls, reps=2, grouped_chunks=2)
