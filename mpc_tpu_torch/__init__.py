@@ -3,19 +3,25 @@
 A second package beside ``mpc_tpu`` (the JAX reference), with the same
 module layout and names.  It imports torch, NumPy and SciPy, never JAX.
 
-Ported so far: the batched LinMPC serving step — the construct-time NumPy
-constructors (lti, LinModel, SteadyKalmanFilter, transcriptions, LinMPC params
-and the ADMM and Goldfarb–Idnani solver caches), the cached batched ADMM QP
-solve with its polish, the batched Goldfarb–Idnani active-set solve with
-its cross-period operator carry, and ``parallel.BatchedLinMPC`` — with the
-ADMM inner sweep and the whole per-lane GI solve as hand-written CUDA
-kernels for Hopper (``csrc/admm_sweep.cu``, ``csrc/gi_solve.cu``).
+Ported so far: the linear-MPC path of the reference — lti, LinModel, the
+linear estimators (SteadyKalmanFilter, KalmanFilter, Luenberger,
+InternalModel, ManualEstimator, host NumPy at run time), LinMPC with
+``moveinput``/``getinfo``/``setmodel``, custom constraints and the
+Ts-deadline policy, ``sim``, the ADMM QP (cached and in-solve setup, with
+its polish) and the Goldfarb–Idnani active-set QP (cached or in-solve P⁻¹,
+with its cross-period operator carry), and ``parallel.BatchedLinMPC`` — with
+the ADMM inner sweep and the whole per-lane GI solve as hand-written CUDA
+kernels for Hopper (``csrc/admm_sweep.cu``, ``csrc/gi_solve.cu``) that every
+QP, single controller or fleet, goes through on the GPU.
 """
 from .utils import tf, delay, ss, tf_matrix, StateSpace, TransferFunction
 from .utils.config import BIG, resolve_device
 from .models import SimModel, LinModel
-from .estimators import StateEstimator, SteadyKalmanFilter
+from .estimators import (StateEstimator, SteadyKalmanFilter, KalmanFilter,
+                         Luenberger, InternalModel, ManualEstimator,
+                         default_nint)
 from .controllers import (PredictiveController, LinMPC, SingleShooting,
-                          MultipleShooting)
+                          MultipleShooting, info2debugstr)
+from .sim import sim, SimResult
 
 __version__ = "0.1.0"

@@ -7,27 +7,30 @@ bounds, Hessian, row stack, and the ADMM solver cache or, with
 per-period step is ``_build_step``: a torch function over a leading lane
 axis (F/q̃ build → constraint RHS → warm-start shift → batched QP, ADMM or
 GI → receding input), which the fleet (``parallel/batch.py``) runs for
-every lane at once.
-
-Not ported yet (see ROADMAP): the single-controller ``moveinput``/``getinfo``
-and ``setmodel``, custom linear constraints in the runtime step, and
-estimators other than the SteadyKalmanFilter.
+every lane at once and ``moveinput`` runs for one controller as a batch of
+one lane, on ``device`` in ``dtype`` (float64 by default, the reference
+under x64; float32 is its f32 mode).  The estimator stays on the host.
 """
 from __future__ import annotations
+
+import logging
+import time
+import warnings
 
 import numpy as np
 import torch
 
-from ..estimators import StateEstimator, SteadyKalmanFilter
+from ..estimators import InternalModel, StateEstimator, SteadyKalmanFilter
 from ..models import LinModel
 from ..ops.admm_kernel import admm_sweep
 from ..ops.gi_kernel import gi_solve
 from ..ops.qp import build_solver_cache, solve_qp
-from ..ops.qp_active import build_gi_cache, solve_qp_active
-from ..utils.config import BIG
+from ..ops.qp_active import build_gi_cache, gi_state_init, solve_qp_active
+from ..utils.config import BIG, resolve_device
 from ..utils.lanes import mtv, mv, take
 from ..utils.linalg import repeatdiag
-from .base import PredictiveController, default_Hp, estimate_delays
+from .base import (PredictiveController, default_Hp, estimate_delays,
+                   info2debugstr)
 from .construct import (ControllerWeights, init_quadprog, relax_DU,
                         relax_terminal, relax_U, relax_Y)
 from .transcription import (MultipleShooting, SingleShooting,
@@ -47,7 +50,8 @@ class LinMPC(PredictiveController):
                  Mwt=None, Nwt=None, Lwt=None, M_Hp=None, N_Hc=None, L_Hp=None,
                  Cwt=1e5, transcription: TranscriptionMethod | None = None,
                  Wy=None, Wu=None, Wd=None, Wr=None, qp_solver="admm",
-                 gi_max_active=None, **estim_kwargs):
+                 gi_max_active=None, dtype=None, device=None,
+                 limit_solve_time=False, **estim_kwargs):
         if qp_solver not in ("admm", "active_set"):
             raise ValueError("qp_solver must be 'admm' or 'active_set'")
         self.qp_solver = qp_solver
@@ -55,15 +59,17 @@ class LinMPC(PredictiveController):
         # active set overflows it report converged=False
         self.gi_max_active = (None if gi_max_active is None
                               else int(gi_max_active))
+        # the step's data dtype (None: float64) and device (None: the CPU;
+        # a CUDA device that is not there raises)
+        self.dtype = torch.float64 if dtype is None else dtype
+        if self.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+        self.device = resolve_device(device)
         if isinstance(model_or_estim, StateEstimator):
             estim = model_or_estim
             model = estim.model
             if not isinstance(model, LinModel):
                 raise TypeError("estim.model type must be a LinModel")
-            if not isinstance(estim, SteadyKalmanFilter):
-                raise NotImplementedError(
-                    "only the SteadyKalmanFilter is ported so far (ROADMAP "
-                    f"queue 1, item 6); got {type(estim).__name__}")
         else:
             model = model_or_estim
             if not isinstance(model, LinModel):
@@ -79,7 +85,6 @@ class LinMPC(PredictiveController):
         Hp = default_Hp(model) if Hp is None else int(Hp)
         nk_delays = estimate_delays(model)
         if Hp <= nk_delays:
-            import warnings
             warnings.warn(f"prediction horizon Hp ({Hp}) <= estimated number "
                           f"of delays in model ({nk_delays}), the closed-loop "
                           "system may be unstable or zero-gain (unresponsive)")
@@ -92,14 +97,31 @@ class LinMPC(PredictiveController):
         self.n_eps = self.weights.n_eps
         self.Wy, self.Wu, self.Wd, self.Wr, self.nw = _validate_custom_lincon(
             model, Wy, Wu, Wd, Wr)
-        self._solved_once = False
+        # Ts-deadline policy (limit_solve_time, general.jl:109-121): the
+        # iteration budget of the next solve comes from Ts and an EWMA of the
+        # measured per-iteration wall cost; an overrun raises deadline_miss
+        self.limit_solve_time = bool(limit_solve_time)
+        self._iter_cost = None      # EWMA seconds per QP iteration
+        self._deadline_miss = False
+        self._solve_time = None
+        self._budget_dev = (None, None)
+        self._p_dev, self._p_ver = None, None   # params on the device, version
+        self._lane = torch.zeros(1, dtype=torch.int32, device=self.device)
         self._build()
+        # runtime state
         self.Uop = np.tile(model.uop, Hp)
         self.Yop = np.tile(model.yop, Hp)
+        self.Dop = np.tile(model.dop, Hp)
         self.Z_tilde = np.zeros(self.nZt)
         self.y_dual = np.zeros(self.A_stack.shape[0])
         self.rho_rung = 4      # ρ-ladder rung, carried across periods
         self.lastu0 = np.zeros(nu)
+        self.d0 = np.zeros(nd)
+        self.D_hat_0 = np.zeros(nd * Hp)
+        self.R_hat_y = np.tile(model.yop, Hp)
+        self.R_hat_u = self.Uop.copy()
+        self.ry = model.yop.copy()
+        self._last = {}
 
     # ------------------------------------------------------------------
     def _build(self):
@@ -109,9 +131,14 @@ class LinMPC(PredictiveController):
         nu, ny, nd, nx_hat = model.nu, model.ny, model.nd, estim.nx_hat
         tr = self.transcription
         n_eps = self.n_eps
-        A_hat, Bu_hat, C_hat = estim.A_hat, estim.Bu_hat, estim.C_hat
-        Bd_hat, Dd_hat = estim.Bd_hat, estim.Dd_hat
-        xop_hat, fop_hat = estim.xop_hat, estim.fop_hat
+        if isinstance(estim, InternalModel):
+            A_hat, Bu_hat, C_hat = model.A, model.Bu, model.C
+            Bd_hat, Dd_hat = model.Bd, model.Dd
+            xop_hat, fop_hat = model.xop, model.fop
+        else:
+            A_hat, Bu_hat, C_hat = estim.A_hat, estim.Bu_hat, estim.C_hat
+            Bd_hat, Dd_hat = estim.Bd_hat, estim.Dd_hat
+            xop_hat, fop_hat = estim.xop_hat, estim.fop_hat
         (E, G, J, K, V, B, ex, gx, jx, kx, vx, bx) = init_predmat(
             tr, A_hat, Bu_hat, C_hat, Bd_hat, Dd_hat, xop_hat, fop_hat, Hp, Hc, nb)
         ES, GS, JS, KS, VS, BS = init_defectmat(
@@ -209,10 +236,14 @@ class LinMPC(PredictiveController):
             self.Y0max = np.full(ny * Hp, BIG)
             self.x0min = np.full(nx_hat, -BIG)
             self.x0max = np.full(nx_hat, BIG)
-        # stochastic prediction: zero for the Kalman estimators (only the
-        # InternalModel fills Ks/Ps)
-        Ks_l = np.zeros((ny * Hp, estim.nxs))
-        Ps_l = np.zeros((ny * Hp, ny))
+        # stochastic prediction (InternalModel only)
+        if isinstance(estim, InternalModel):
+            Ks_l, Ps_l = _init_stochpred(estim, Hp)
+        else:
+            Ks_l = np.zeros((ny * Hp, estim.nxs))
+            Ps_l = np.zeros((ny * Hp, ny))
+        # bumped on every params mutation; moveinput uploads once per version
+        self._params_version = getattr(self, "_params_version", 0) + 1
         self.params = dict(
             H=H, E_t=E_t, G=G, J=J, K=K, V=V, B=B,
             gx=gx, jx=jx, kx=kx, vx=vx, bx=bx,
@@ -233,6 +264,19 @@ class LinMPC(PredictiveController):
             **self._elim,
         )
         self._rebuild_qp_cache()
+        self._step = _build_step(
+            nu, Hc, nd, n_eps, self.nZ, self.n_ineq, self.n_eq,
+            isinstance(tr, MultipleShooting), nx_hat, self.nw,
+            qp_solver=self.qp_solver, gi_max_active=self.gi_max_active)
+        # GI cross-period operator state (one lane, kept on the device): valid
+        # only for the CURRENT (H, A), so any rebuild resets it
+        if self.qp_solver == "active_set":
+            st = gi_state_init(self.gi_slots, 1, torch.float64, self.device)
+            self._qp_state = {k: v[0] for k, v in st.items()}
+        else:
+            self._qp_state = None
+        self.rho_rung = 4           # a rebuild restarts the ρ ladder's rung
+        self._solved_once = False
 
     # ------------------------------------------------------------------
     def _rebuild_qp_cache(self):
@@ -357,7 +401,197 @@ class LinMPC(PredictiveController):
             # a bound crossing ±BIG changes the ADMM row classification
             # (and with it the cached ρ-ladder) — rebuild the cache
             self._rebuild_qp_cache()
+            self._params_version += 1
         return self
+
+    # ------------------------------------------------------------------
+    def setmodel(self, model=None, Mwt=None, Nwt=None, Lwt=None, **cov):
+        """Hot-swap the plant model / weights (execute.jl:579-799): rebuilds
+        all prediction and constraint matrices with unchanged shapes."""
+        if model is not None:
+            old = self.estim.model
+            if (model.nu, model.nx, model.ny, model.nd) != (old.nu, old.nx, old.ny, old.nd):
+                raise ValueError("new model must have the same dimensions")
+            # convert runtime bound data to absolute, re-derive with new ops
+            Umin = self.U0min + self.Uop
+            Umax = self.U0max + self.Uop
+            Ymin = self.Y0min + self.Yop
+            Ymax = self.Y0max + self.Yop
+            xmin = self.x0min + self.estim.xop_hat
+            xmax = self.x0max + self.estim.xop_hat
+            lastu_abs = self.lastu0 + old.uop  # rebase below with the new uop
+            _setmodel_estimator(self.estim, model, **cov)
+            self.Uop = np.tile(model.uop, self.Hp)
+            self.Yop = np.tile(model.yop, self.Hp)
+            self.Dop = np.tile(model.dop, self.Hp)
+            self.U0min[:] = _clipinf(Umin - self.Uop)
+            self.U0max[:] = _clipinf(Umax - self.Uop)
+            self.Y0min[:] = _clipinf(Ymin - self.Yop)
+            self.Y0max[:] = _clipinf(Ymax - self.Yop)
+            self.x0min[:] = _clipinf(xmin - self.estim.xop_hat)
+            self.x0max[:] = _clipinf(xmax - self.estim.xop_hat)
+            self.lastu0 = lastu_abs - model.uop
+        if Mwt is not None or Nwt is not None or Lwt is not None:
+            w = self.weights
+            model_ = self.estim.model
+            self.weights = ControllerWeights(
+                model_.nu, model_.ny, self.Hp, self.Hc,
+                Mwt if Mwt is not None else np.diag(w.M_Hp)[:model_.ny],
+                Nwt if Nwt is not None else np.diag(w.N_Hc)[:model_.nu],
+                Lwt if Lwt is not None else np.diag(w.L_Hp)[:model_.nu],
+                Cwt=w.Cwt)
+        self._build()
+        return self
+
+    # ------------------------------------------------------------------
+    def moveinput(self, ry=None, d=None, D_hat=None, R_hat_y=None,
+                  R_hat_u=None, lastu=None, Dhat=None, Rhaty=None, Rhatu=None):
+        """Solve the MPC problem, return u(k) (execute.jl:59-80).
+
+        One period is ``_build_step`` on a batch of one lane on the
+        controller's device: the params go up once per version, the
+        period's inputs in one copy, and the outputs come back in one copy,
+        which ends the solve's wall time (``getinfo()["solve_time"]``)."""
+        estim, model = self.estim, self.estim.model
+        if estim.direct and not estim.prepared:
+            warnings.warn("preparestate should be called before moveinput with "
+                          "current estimators")
+        D_hat = D_hat if D_hat is not None else Dhat
+        R_hat_y = R_hat_y if R_hat_y is not None else Rhaty
+        R_hat_u = R_hat_u if R_hat_u is not None else Rhatu
+        ry, d, D_hat, R_hat_y, R_hat_u, lastu = self._prepare_args(
+            ry, d, D_hat, R_hat_y, R_hat_u, lastu)
+        self.lastu0 = lastu - model.uop
+        self.d0 = d - model.dop
+        self.D_hat_0 = D_hat - self.Dop
+        self.ry, self.R_hat_y, self.R_hat_u = ry, R_hat_y, R_hat_u
+        # stochastic prediction inputs (InternalModel)
+        if isinstance(estim, InternalModel):
+            xs_hat, ys_full = estim.xs_hat, estim.ys_hat
+        else:
+            xs_hat = np.zeros(self.params["Ks"].shape[1])
+            ys_full = np.zeros(model.ny)
+        if self.nw:
+            y_now = np.asarray(estim.evaloutput(d if model.nd else None), float)
+        else:
+            y_now = np.zeros(model.ny)
+        dev, dt = self.device, self.dtype
+        if self._p_ver != self._params_version:
+            def put(a):
+                t = torch.as_tensor(np.asarray(a)[None], device=dev)
+                return t.to(dt) if t.is_floating_point() else t
+            self._p_dev = {k: put(v) for k, v in self.params.items()}
+            self._p_ver = self._params_version
+        # Ts-deadline iteration budget for THIS solve (floor 50: the budget
+        # must never forbid the warm-started typical case; 2**30 = unlimited)
+        if self.limit_solve_time and self._iter_cost:
+            budget = int(np.clip(0.8 * model.Ts / self._iter_cost, 50, 2**30))
+        else:
+            budget = 2**30
+        if self._budget_dev[0] != budget:
+            self._budget_dev = (budget, torch.tensor(budget, dtype=torch.int32,
+                                                     device=dev))
+        t0_solve = time.perf_counter()
+        ins = [estim.x0_hat, self.lastu0, self.d0, self.D_hat_0, R_hat_y,
+               R_hat_u, xs_hat, ys_full, self.Z_tilde, self.y_dual, ry, y_now,
+               [self.rho_rung]]
+        flat = torch.as_tensor(np.concatenate(ins)[None], dtype=dt).to(dev)
+        (x0_t, lastu0_t, d0_t, Dh_t, Ry_t, Ru_t, xs_t, ys_t, Z_t, y_t, ry_t,
+         yn_t, rung_t) = torch.split(flat, [len(a) for a in ins], dim=1)
+        # the carried GI operator state stays on the device
+        qs = (None if self._qp_state is None
+              else {k: v[None] for k, v in self._qp_state.items()})
+        u, Z_t, y_dual, converged, F, obj, iters, rung, qp_state = self._step(
+            self._p_dev, x0_t, lastu0_t, d0_t, Dh_t, Ry_t, Ru_t, xs_t, ys_t,
+            Z_t, y_t, rung_t[:, 0].to(torch.int32), self._lane, qp_state=qs,
+            ry=ry_t, y_now=yn_t, iter_budget=self._budget_dev[1])
+        if qp_state is not None:
+            self._qp_state = {k: v[0] for k, v in qp_state.items()}
+        out = torch.cat([u, Z_t, y_dual, F, obj[:, None], iters[:, None].to(dt),
+                         converged[:, None].to(dt), rung[:, None].to(dt)],
+                        1)[0].cpu().numpy()
+        wall = time.perf_counter() - t0_solve
+        sizes = np.cumsum([model.nu, self.nZt, self.A_stack.shape[0], F.shape[1]])
+        u, Z_h, y_h, F_h, rest = np.split(out, sizes)
+        self.lastu0_at_solve = self.lastu0.copy()
+        self.Z_tilde = Z_h.copy()
+        self.y_dual = y_h.copy()
+        self.rho_rung = int(rest[3])
+        it = int(rest[1])
+        if self._solved_once and it > 0:
+            # EWMA of seconds per iteration, on periods after the first
+            c = wall / it
+            self._iter_cost = c if self._iter_cost is None else \
+                0.7 * self._iter_cost + 0.3 * c
+        self._solve_time = wall
+        self._deadline_miss = bool(self.limit_solve_time
+                                   and self._solved_once
+                                   and wall > model.Ts)
+        self._last = dict(F=F_h.copy(), converged=bool(rest[2]),
+                          obj=float(rest[0]), d=d, D_hat=D_hat,
+                          iters=it, iter_budget=budget,
+                          x0_hat=estim.x0_hat.copy())
+        self._solved_once = True
+        if not self._last["converged"]:
+            warnings.warn("MPC solver did not converge; applying shifted warm "
+                          "start (graceful degradation)")
+            logging.getLogger("mpc_tpu_torch").debug(info2debugstr(self.getinfo()))
+        u = u.copy()
+        self.lastu0 = u - model.uop
+        return u
+
+    # ------------------------------------------------------------------
+    def getinfo(self):
+        """Optimum diagnostics (execute.jl:145-198)."""
+        model, estim = self.estim.model, self.estim
+        nu, ny = model.nu, model.ny
+        Z_t = self.Z_tilde
+        info = {}
+        eps = float(Z_t[-1]) if self.n_eps else 0.0
+        DU = Z_t[:nu * self.Hc]
+        lastu0 = getattr(self, "lastu0_at_solve", self.lastu0)
+        U0 = self.params["Pu_t"] @ Z_t + self.params["Tu"] @ lastu0
+        Y0 = self.params["E_t"] @ Z_t + self._last["F"]
+        info["DeltaU"] = info["ΔU"] = np.asarray(DU)
+        info["epsilon"] = info["ϵ"] = eps
+        info["J"] = self._last["obj"]
+        info["U"] = np.asarray(U0) + self.Uop
+        info["u"] = info["U"][:nu]
+        info["d"] = self._last.get("d")
+        info["Dhat"] = info["D̂"] = self._last.get("D_hat")
+        info["xhat"] = info["x̂"] = estim.x0_hat + estim.xop_hat
+        info["Yhat"] = info["Ŷ"] = np.asarray(Y0) + self.Yop
+        info["Rhaty"] = info["R̂y"] = self.R_hat_y
+        info["Rhatu"] = info["R̂u"] = self.R_hat_u
+        info["lastu"] = lastu0 + model.uop
+        # current output estimate ŷ and stochastic predictions Ŷs
+        # (execute.jl:179-182)
+        d_now = self._last.get("d")
+        info["yhat"] = info["ŷ"] = np.asarray(
+            estim.evaloutput(d_now if model.nd else None), float)
+        if isinstance(estim, InternalModel):
+            info["Yhats"] = info["Ŷs"] = np.asarray(
+                self.params["Ks"] @ estim.xs_hat
+                + self.params["Ps"] @ estim.ys_hat)
+        else:
+            info["Yhats"] = info["Ŷs"] = np.zeros(ny * self.Hp)
+        # terminal state x̂(k+Hp) = ẽx̂ Z̃ + fx̂ (linconstraint!, :806-821)
+        x0s = self._last.get("x0_hat")
+        if x0s is not None:
+            p = self.params
+            fx = p["bx"] + p["kx"] @ x0s + p["vx"] @ lastu0
+            if model.nd:
+                fx = fx + p["gx"] @ self.d0 + p["jx"] @ self.D_hat_0
+            info["xhatend"] = info["x̂end"] = (
+                np.asarray(p["ex_t"]) @ Z_t + fx + estim.xop_hat)
+        info["converged"] = self._last["converged"]
+        info["iters"] = self._last.get("iters")
+        # Ts-deadline diagnostics: solve wall time, the iteration budget of
+        # this solve, and whether the deadline was missed
+        info["solve_time"] = self._solve_time
+        info["iter_budget"] = self._last.get("iter_budget")
+        info["deadline_miss"] = self._deadline_miss
+        return info
 
     def __repr__(self):
         model = self.estim.model
@@ -394,6 +628,29 @@ def _validate_custom_lincon(model, Wy, Wu, Wd, Wr):
             pad(Wr, ny, "Wr"), nw)
 
 
+def _init_stochpred(estim, Hp):
+    """Ks, Ps: Ŷs = Ks x̂s + Ps ŷs, all-output form (construct.jl:1236-1267)."""
+    As, Bs_hat, Cs = estim.As, estim.Bs_hat, estim.Cs
+    ny = estim.model.ny
+    nxs = estim.nxs
+    Ks = np.zeros((ny * Hp, nxs))
+    Ps = np.zeros((ny * Hp, ny))
+    Apow = np.eye(nxs)
+    for i in range(1, Hp + 1):
+        Ms = Cs @ Apow @ Bs_hat          # Cs As^(i-1) B̂s
+        rows = slice(ny * (i - 1), ny * i)
+        Ks[rows, :] = Cs @ Apow @ As - Ms @ Cs  # Cs As^i − Ms Cs
+        Ps[rows, :] = Ms
+        Apow = Apow @ As
+    return Ks, Ps
+
+
+def _setmodel_estimator(estim, model, **cov):
+    """Delegate to the public estimator API (execute.jl:440-544)."""
+    estim.setmodel(model, Qhat=cov.get("Q_hat", cov.get("Qhat")),
+                   Rhat=cov.get("R_hat", cov.get("Rhat")))
+
+
 # ---------------------------------------------------------------------------
 def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
                 qp_solver="admm", gi_max_active=None, slot_dtype=None):
@@ -406,17 +663,15 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
     ADMM.  With ``qp_solver="active_set"`` the QP is the Goldfarb–Idnani
     solve (``gi_max_active`` slots, ``slot_dtype`` slot precision), which
     carries ``qp_state`` across periods and seeds from ``y_prev`` only when
-    no ``qp_state`` is given.
+    no ``qp_state`` is given.  Custom linear constraints (``nw`` > 0) need
+    the setpoint ``ry`` and the current output estimate ``y_now``, (B, ny)
+    each.  ``iter_budget`` (int or tensor) caps the QP's iterations.
     """
-    if nw:
-        raise NotImplementedError(
-            "custom linear constraints (Wy/Wu/Wd/Wr) in the runtime step wait "
-            "for the single-controller moveinput port (ROADMAP queue 1, item 4)")
     use_as = qp_solver == "active_set"
 
     def step(p, x0_hat, lastu0, d0, D_hat_0, R_hat_y, R_hat_u, xs_hat, ys_hat,
              Z_prev, y_prev, rung_prev, lane_ctrl, sweep=admm_sweep,
-             qp_state=None, gi=gi_solve):
+             qp_state=None, gi=gi_solve, ry=None, y_now=None, iter_budget=None):
         B = x0_hat.shape[0]
         dt, dev = x0_hat.dtype, x0_hat.device
         L = lambda k: take(p[k], lane_ctrl)
@@ -439,6 +694,22 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
         fx = L("bx") + M("kx", x0_hat) + M("vx", lastu0)
         if nd:
             fx = fx + M("gx", d0) + M("jx", D_hat_0)
+        # --- custom linear constraints Fw (relaxW + linconstraint_custom!,
+        # execute.jl:337-366) ---
+        if nw:
+            if ry is None or y_now is None:
+                raise ValueError("custom linear constraints need the step's "
+                                 "ry and y_now")
+            Ue_t = torch.cat([Tu_lastu0 + L("Uop"), lastu0 + L("Uop")[:, :nu]], -1)
+            Fw = M("Wu_bar", Ue_t)
+            if nd:
+                De_t = torch.cat([d0 + L("dop_w"), D_hat_0 + L("Dop_w")], -1)
+                Fw = Fw + M("Wd_bar", De_t)
+            Fw = Fw + M("Wr_bar", torch.cat([ry, R_hat_y], -1))
+            Fw = Fw + M("Wy_bar", torch.cat([y_now, F + L("Yop")], -1))
+            bW = torch.cat([-L("Wmin_b") + Fw, L("Wmax_b") - Fw], -1)
+        else:
+            bW = F.new_zeros(B, 0)
         # --- inequality RHS b (transcription.jl:824-842 order) ---
         b = torch.cat([
             -L("U0min") + Tu_lastu0,
@@ -447,6 +718,7 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
             L("DUmax"),
             -L("Y0min") + F,
             L("Y0max") - F,
+            bW,
             -L("x0min") + fx,
             L("x0max") - fx,
         ], -1)
@@ -477,8 +749,8 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
             return solve_qp_active(
                 P, q_, A, l_, u_, None if qp_state is not None else y0,
                 lane_ctrl=lane_ctrl, cache={"gic_Pinv": p["gic_Pinv"]},
-                state0=qp_state, max_active=gi_max_active,
-                slot_dtype=slot_dtype, solve=gi)
+                state0=qp_state, iter_budget=iter_budget,
+                max_active=gi_max_active, slot_dtype=slot_dtype, solve=gi)
 
         if not use_as:
             cache = {k: p[k] for k in ADMM_CACHE_KEYS}
@@ -498,7 +770,8 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
                 v0 = Mt("Nnull", Zs - Zp)
                 sol = solve_qp(p["H_r"], q_r, p["A_r"], l_r, u_r, x0=v0,
                                y0=y0r, rung0=rung_prev, cache=cache,
-                               lane_ctrl=lane_ctrl, sweep=sweep)
+                               lane_ctrl=lane_ctrl, iter_budget=iter_budget,
+                               sweep=sweep)
             Z_sol = Zp + M("Nnull", sol.x)
             y_full = torch.cat([sol.y, full(n_eq, 0.0)], -1)
             obj = (sol.obj + 0.5 * torch.sum(Zp * M("H", Zp), -1)
@@ -509,7 +782,8 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
         else:
             sol = solve_qp(p["H"], q, p["A_stack"], l, u_vec, x0=Zs,
                            y0=y_prev, rung0=rung_prev, cache=cache,
-                           lane_ctrl=lane_ctrl, sweep=sweep)
+                           lane_ctrl=lane_ctrl, iter_budget=iter_budget,
+                           sweep=sweep)
         Z_t = torch.where(sol.converged[:, None], sol.x, Zs)
         # --- receding horizon input (getinput!, execute.jl:536-546),
         # clamped to the (soft-relaxed) actuator box for hard safety ---

@@ -1,9 +1,13 @@
 from .base import StateEstimator
 from .construct import (augment_model, default_nint, init_estimstoch,
                         init_integrators)
-from .kalman import SteadyKalmanFilter
+from .kalman import KalmanFilter, SteadyKalmanFilter
+from .luenberger import Luenberger
+from .internal_model import InternalModel
+from .manual import ManualEstimator
 
 __all__ = [
-    "StateEstimator", "SteadyKalmanFilter",
+    "StateEstimator", "SteadyKalmanFilter", "KalmanFilter", "Luenberger",
+    "InternalModel", "ManualEstimator",
     "default_nint", "init_estimstoch", "init_integrators", "augment_model",
 ]

@@ -1,18 +1,25 @@
-"""StateEstimator base, construct half (counterpart of
-``mpc_tpu/estimators/base.py``).
+"""StateEstimator base (counterpart of ``mpc_tpu/estimators/base.py``).
 
-Construct-time matrices live in NumPy on the host.  The port runs the
-estimator's correct/predict inside the batched fleet step
-(``parallel/batch.py``), so only the augmentation that builds Â, B̂u, Ĉ,
-B̂d, D̂d and the operating points is carried here.
+Construct-time matrices and the single-stream runtime both live in NumPy
+float64 on the host, as in the reference's single-stream path
+(``mpc_tpu/estimators/kalman.py:162-166``): a correction or prediction is a
+handful of tiny matrix products, cheaper on the host than a round trip to a
+device.  Only the controller's QP step runs on the device.  The stateful
+``preparestate``/``updatestate``/``evaloutput`` reproduce the reference
+protocol (``estimator/execute.jl:303-387``), ``direct`` timing included.
+The batched fleet applies the SteadyKalmanFilter's gain itself
+(``parallel/batch.py``).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..models import SimModel
+from ..models import LinModel, SimModel
 from .construct import (augment_model, default_nint, init_estimstoch,
                         validate_ym)
+
+_NONLIN = ("nonlinear models are not ported yet (ROADMAP queue 1, item 6: "
+           "nonlinmodel)")
 
 
 class StateEstimator:
@@ -41,7 +48,162 @@ class StateEstimator:
         else:
             self.Cm_hat = self.Ddm_hat = None
         self.direct = bool(direct)
+        self.prepared = False
         self.x0_hat = np.zeros(self.nx_hat)
+
+    # ------------------------------------------------------------------
+    # augmented dynamics (host NumPy)
+    def f_hat(self, x0_hat, u0, d0):
+        """Augmented state update WITHOUT the +f̂op−x̂op term
+        (estimator/execute.jl:64-109)."""
+        if not isinstance(self.model, LinModel):
+            raise NotImplementedError(_NONLIN)
+        r = self.A_hat @ x0_hat + self.Bu_hat @ u0
+        if self.model.nd:
+            r = r + self.Bd_hat @ d0
+        return r
+
+    def h_hat(self, x0_hat, d0):
+        if not isinstance(self.model, LinModel):
+            raise NotImplementedError(_NONLIN)
+        r = self.C_hat @ x0_hat
+        if self.model.nd:
+            r = r + self.Dd_hat @ d0
+        return r
+
+    def h_hat_m(self, x0_hat, d0):
+        y = self.h_hat(x0_hat, d0)
+        return y[np.asarray(self.i_ym, int)]
+
+    # ------------------------------------------------------------------
+    # hooks implemented by concrete estimators
+    def _correct(self, y0m, d0):
+        raise NotImplementedError
+
+    def _predict(self, u0, d0):
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    # reference protocol (execute.jl:303-387)
+    def _remove_op(self, ym, d, u=None):
+        d = np.zeros(0) if d is None else np.asarray(d, float).ravel()
+        if d.shape != (self.model.nd,):
+            raise ValueError(f"d size {d.shape} ≠ meas. dist. size ({self.model.nd},)")
+        d0 = d - self.model.dop
+        y0m = None
+        if ym is not None:
+            ym = np.asarray(ym, float).ravel()
+            if ym.shape != (self.nym,):
+                raise ValueError(f"ym size {ym.shape} ≠ measured output size ({self.nym},)")
+            y0m = ym - self.model.yop[self.i_ym]
+        if u is not None:
+            u = np.asarray(u, float).ravel()
+            if u.shape != (self.model.nu,):
+                raise ValueError(f"u size {u.shape} ≠ manip. input size ({self.model.nu},)")
+            return y0m, d0, u - self.model.uop
+        return y0m, d0
+
+    def preparestate(self, ym=None, d=None):
+        if self.direct:
+            y0m, d0 = self._remove_op(ym if ym is not None else np.full(self.nym, np.nan), d)
+            self._correct(y0m, d0)
+        self.prepared = True
+        return self.x0_hat + self.xop_hat
+
+    def updatestate(self, u, ym=None, d=None):
+        ymv = ym if ym is not None else np.full(self.nym, np.nan)
+        y0m, d0, u0 = self._remove_op(ymv, d, u)  # dim errors before protocol
+        if self.direct and not self.prepared:
+            raise RuntimeError("preparestate must be called before updatestate with direct=True")
+        if not self.direct:
+            self._correct(y0m, d0)
+        self._predict(u0, d0)
+        self.prepared = False
+        return self.x0_hat + self.xop_hat
+
+    def evaloutput(self, d=None):
+        d = np.zeros(0) if d is None else np.asarray(d, float).ravel()
+        d0 = d - self.model.dop
+        y0 = np.asarray(self.h_hat(self.x0_hat, d0), float)
+        return y0 + self.model.yop
+
+    __call__ = evaloutput
+
+    def initstate(self, u, ym, d=None):
+        """Steady-state init (execute.jl:208-259) for LinModel; else no-op."""
+        y0m, d0, u0 = self._remove_op(ym, d, u)
+        if isinstance(self.model, LinModel):
+            rhs = self.Bu_hat @ u0 + self.fop_hat - self.xop_hat
+            if self.model.nd:
+                rhs = rhs + self.Bd_hat @ d0
+            yrhs = y0m - self.Ddm_hat @ d0
+            M = np.vstack([np.eye(self.nx_hat) - self.A_hat, self.Cm_hat])
+            self.x0_hat = np.linalg.lstsq(M, np.concatenate([rhs, yrhs]), rcond=None)[0]
+        self._init_cov()
+        self.prepared = False
+        return self.x0_hat + self.xop_hat
+
+    def _init_cov(self):
+        pass
+
+    def setstate(self, x_hat, P_hat=None):
+        x_hat = np.asarray(x_hat, float).ravel()
+        if x_hat.shape != (self.nx_hat,):
+            raise ValueError(f"x̂ size must be ({self.nx_hat},)")
+        self.x0_hat = x_hat - self.xop_hat
+        if P_hat is not None:
+            self._set_cov(np.asarray(P_hat, float))
+        return self
+
+    def _set_cov(self, P_hat):
+        raise ValueError(f"{type(self).__name__} does not compute an estimation "
+                         "covariance matrix P̂.")
+
+    # ------------------------------------------------------------------
+    def setmodel(self, model=None, Qhat=None, Rhat=None, **alias):
+        """Swap the LinModel data and augmented matrices at run time
+        (``setmodel!``, estimator/execute.jl:440-544).  x̂ is rebased to the
+        new operating point; dimensions and Ts must match."""
+        Qhat = Qhat if Qhat is not None else alias.pop("Q_hat", None)
+        Rhat = Rhat if Rhat is not None else alias.pop("R_hat", None)
+        if alias:
+            raise TypeError(f"unknown setmodel arguments {list(alias)}")
+        old = self.model
+        model = model if model is not None else old
+        if model is not old:
+            if not (isinstance(model, LinModel) and isinstance(old, LinModel)):
+                raise ValueError("Only LinModel can be modified in setmodel")
+            for a in ("Ts", "nu", "nx", "ny", "nd"):
+                if getattr(model, a) != getattr(old, a):
+                    raise ValueError(f"model.{a} must be {getattr(old, a)}")
+        if Qhat is not None or Rhat is not None:
+            # same validation as construction (2_test_state_estim.jl:1745-1746)
+            from .construct import validate_covariances
+            validate_covariances(
+                self.nx_hat, self.nym,
+                Qhat if Qhat is not None else self.Q_hat,
+                Rhat if Rhat is not None else self.R_hat)
+        self._update_model(model, Qhat, Rhat)
+        return self
+
+    def _update_model(self, model, Qhat, Rhat):
+        """Default: re-augment the swapped model (setmodel_estimator!,
+        estimator/execute.jl:524-544)."""
+        self.model = model
+        (A_hat, Bu_hat, C_hat, Bd_hat, Dd_hat, xop_hat, fop_hat) = augment_model(
+            model, self.As, self.Cs_u, self.Cs_y, verify_obsv=False)
+        x_abs = self.x0_hat + self.xop_hat
+        self.A_hat, self.Bu_hat, self.C_hat = A_hat, Bu_hat, C_hat
+        self.Bd_hat, self.Dd_hat = Bd_hat, Dd_hat
+        self.xop_hat, self.fop_hat = xop_hat, fop_hat
+        if C_hat is not None:
+            self.Cm_hat = C_hat[np.asarray(self.i_ym, int), :]
+            self.Ddm_hat = Dd_hat[np.asarray(self.i_ym, int), :]
+        self.x0_hat = x_abs - xop_hat
+        if Qhat is not None:
+            self.Q_hat = np.asarray(Qhat, float)
+        if Rhat is not None:
+            self.R_hat = np.asarray(Rhat, float)
 
     def __repr__(self):
         return (f"{type(self).__name__} estimator with a sample time "

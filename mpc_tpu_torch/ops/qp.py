@@ -17,8 +17,14 @@ test, written over a leading lane axis instead of under ``vmap``.
 * The inner sweep is ``ops/admm_kernel.py::admm_sweep``: the hand-written
   CUDA kernel on the GPU, its plain version on the CPU.
 
-Only the CACHED path (``cache=build_solver_cache(...)``, what every
-``LinMPC`` step uses) is ported; the in-solve Ruiz/ρ-ladder path raises.
+Two setups feed the same loop: the CACHED one (``cache=
+build_solver_cache(...)``, what every ``LinMPC`` step uses) scales with the
+cached Ruiz diagonals and reuses the cached ρ-ladder inverses; the UNCACHED
+one equilibrates each lane's (P, q, A) and builds its ladder in the solve
+(``n_lad`` rungs, plain torch: ``torch.linalg.inv`` and one Newton step),
+then sweeps with per-lane ``Minv`` and per-lane ``A``.  ``solve_qp`` also
+takes one unbatched QP, the reference's call form; ``solve_qp_batch`` takes
+a leading lane axis on every argument.
 """
 from __future__ import annotations
 
@@ -95,6 +101,39 @@ def build_solver_cache(P, A, eq_mask, loose_mask, *,
                 qpc_sigma=np.float64(sigma), qpc_rho=np.float64(rho))
 
 
+def _rho_vec(eq, loose, rho):
+    """Per-row ρ from the equality/loose masks (classified on the ORIGINAL
+    bounds: equilibration must not flip a row's class)."""
+    return torch.where(eq, 1e3 * rho, torch.where(loose, 1e-6 * rho, rho))
+
+
+def _ruiz_equilibrate(P, q, A, iters=10):
+    """Modified Ruiz equilibration of [[P, Aᵀ], [A, 0]] per lane (OSQP §5.1),
+    ``mpc_tpu.ops.qp._ruiz_equilibrate`` over a leading lane axis: P (B, n,
+    n), q (B, n), A (B, m, n) with m ≥ 1.  Returns scaled (P̄, q̄, Ā) and
+    the diagonal scalings (D, E, c) with P̄ = c·D P D, q̄ = c·D q,
+    Ā = E A D."""
+    D = torch.ones_like(q)
+    E = A.new_ones(A.shape[:2])
+    c = q.new_ones(q.shape[0])
+    for _ in range(int(iters)):
+        # column norms of [P; A] → D; tiny norms keep scale 1
+        col = torch.maximum(P.abs().amax(1), A.abs().amax(1))
+        d = torch.where(col < 1e-10, 1.0, 1.0 / torch.sqrt(torch.clamp(col, 1e-12, 1e12)))
+        row = A.abs().amax(2)
+        e = torch.where(row < 1e-10, 1.0, 1.0 / torch.sqrt(torch.clamp(row, 1e-12, 1e12)))
+        P = (d[:, :, None] * P) * d[:, None, :]
+        q = d * q
+        A = (e[:, :, None] * A) * d[:, None, :]
+        # cost normalization
+        gamma = 1.0 / torch.clamp(torch.maximum(P.abs().amax(1).mean(-1),
+                                                q.abs().amax(-1)), 1e-12, 1e12)
+        P = gamma[:, None, None] * P
+        q = gamma[:, None] * q
+        D, E, c = D * d, E * e, c * gamma
+    return P, q, A, D, E, c
+
+
 def _ninf(v):
     """Per-lane ∞-norm over the last axis (0 for an empty axis)."""
     if v.shape[-1] == 0:
@@ -121,30 +160,43 @@ def _check_cache_penalties(cache, sigma, rho):
 
 def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
              sigma=1e-6, rho=0.1, alpha=1.6, max_iter=None, tol=1e-6,
-             tol_final=1e-7, check_every=10, polish=True, polish_iters=3,
-             polish_delta=1e-11, polish_rounds=2, rung0=None,
-             sweep=admm_sweep):
-    """Solve a batch of dense QPs with the cached ADMM backend.
+             tol_final=1e-7, check_every=10, scaling=10, polish=True,
+             polish_iters=3, polish_delta=1e-11, polish_rounds=2, rung0=None,
+             iter_budget=None, n_lad=9, sweep=admm_sweep):
+    """Solve a batch of dense QPs by ADMM, or one QP.
 
-    ``P`` (n_d, n, n), ``A`` (n_d, m, n) and every ``cache`` entry are
-    stacked over distinct controllers; ``q`` (B, n), ``l``/``u`` (B, m) and
-    the warm starts ``x0`` (B, n), ``y0`` (B, m), ``rung0`` (B,) are per
-    lane.  ``lane_ctrl`` (B,) int32 maps lanes to controllers; ``None``
-    means n_d == B, one controller per lane.
+    Batched: ``P`` (n_d, n, n) and ``A`` (n_d, m, n) (and every ``cache``
+    entry) are stacked over distinct controllers; ``q`` (B, n), ``l``/``u``
+    (B, m) and the warm starts ``x0`` (B, n), ``y0`` (B, m), ``rung0`` (B,)
+    are per lane.  ``lane_ctrl`` (B,) int32 maps lanes to controllers;
+    ``None`` means n_d == B, one controller per lane.  Unbatched (``q`` of
+    shape (n,)): one QP in the reference's call form, every argument
+    without the lane axis; the result is unbatched too.
 
-    ``max_iter=None`` means 2000 iterations, CLAMPED to 250 for float32
-    inputs, as in the reference.  ``sweep`` is the inner ADMM sweep
+    ``cache=None`` runs the in-solve setup: per-lane Ruiz equilibration
+    (``scaling`` sweeps, with the live max|q| in the cost normalization)
+    and an ``n_lad``-rung ρ ladder (half-span 2 decades from 5 rungs up, 1
+    below).  ``max_iter=None`` means 2000 iterations, CLAMPED to 250 for
+    float32 inputs, as in the reference; ``iter_budget`` (int or (B,) ints)
+    is ANDed with it at run time.  ``sweep`` is the inner ADMM sweep
     (``admm_sweep``; checks pass ``admm_sweep_reference``).
     """
-    if cache is None:
-        raise NotImplementedError(
-            "the uncached in-solve Ruiz/ρ-ladder path of solve_qp is not "
-            "ported yet (ROADMAP queue 1, item 2); pass cache=build_solver_cache(...)")
-    _check_cache_penalties(cache, sigma, rho)
+    if q.dim() == 1:
+        one = lambda t: None if t is None else torch.as_tensor(t, device=q.device)[None]
+        if cache is not None:
+            cache = {k: one(v) for k, v in cache.items()}
+        sol = solve_qp(one(P), one(q), one(A), one(l), one(u), one(x0), one(y0),
+                       cache=cache, sigma=sigma, rho=rho, alpha=alpha,
+                       max_iter=max_iter, tol=tol, tol_final=tol_final,
+                       check_every=check_every, scaling=scaling, polish=polish,
+                       polish_iters=polish_iters, polish_delta=polish_delta,
+                       polish_rounds=polish_rounds, rung0=one(rung0),
+                       iter_budget=iter_budget, n_lad=n_lad, sweep=sweep)
+        return sol._replace(**{f: getattr(sol, f)[0] for f in sol._fields[:7]})
+    if cache is not None:
+        _check_cache_penalties(cache, sigma, rho)
     B, n = q.shape
     m = l.shape[1]
-    if m == 0:
-        raise ValueError("solve_qp needs at least one constraint row")
     dt, dev = q.dtype, q.device
     default_iters = max_iter is None
     if default_iters:
@@ -160,40 +212,79 @@ def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
         polish_iters = max(polish_iters, 8)
         if default_iters:
             max_iter = min(max_iter, 250)
-    if lane_ctrl is None:
-        lane_ctrl = torch.arange(B, dtype=torch.int32, device=dev)
     x = torch.zeros(B, n, dtype=dt, device=dev) if x0 is None else x0
     y = torch.zeros(B, m, dtype=dt, device=dev) if y0 is None else y0
+    rung_c = torch.full((B,), 4, dtype=torch.int32, device=dev)
+    if m == 0:
+        # unconstrained: the Newton step alone
+        P_l = take(P, lane_ctrl)
+        xs = torch.linalg.solve(P_l, -q)
+        obj = 0.5 * torch.sum(xs * mv(P_l, xs), -1) + torch.sum(q * xs, -1)
+        return QPSolution(xs, y, q.new_zeros(B, 0), torch.isfinite(xs).all(-1),
+                          torch.zeros(B, dtype=torch.int32, device=dev), obj, rung_c)
+    if lane_ctrl is None or cache is None:
+        # the uncached setup is per lane: each lane is its own controller
+        P, A = take(P, lane_ctrl), take(A, lane_ctrl)
+        lane_ctrl = torch.arange(B, dtype=torch.int32, device=dev)
 
     P_orig, q_orig, A_orig, l_orig, u_orig = P, q, A, l, u
     fin_l = l > -_BIG
     fin_u = u < _BIG
-    # step-invariant setup from the cache: scale the data with the cached
-    # diagonals (per distinct controller) and reuse the ladder inverses
-    eq_mask = take(cache["qpc_eq"], lane_ctrl)
-    D = cache["qpc_D"].to(dt)
-    Esc = cache["qpc_E"].to(dt)
-    c = cache["qpc_c"].to(dt)
-    P = (c[:, None, None] * D[:, :, None]) * P * D[:, None, :]
-    A = (Esc[:, :, None] * A) * D[:, None, :]
-    Dl, El, cl = take(D, lane_ctrl), take(Esc, lane_ctrl), take(c, lane_ctrl)[:, None]
-    q = cl * Dl * q
+    if cache is not None:
+        # step-invariant setup from the cache: scale the data with the
+        # cached diagonals (per distinct controller), reuse the ladder
+        eq_mask = take(cache["qpc_eq"], lane_ctrl)
+        D = cache["qpc_D"].to(dt)
+        Esc = cache["qpc_E"].to(dt)
+        c = cache["qpc_c"].to(dt)
+        P = (c[:, None, None] * D[:, :, None]) * P * D[:, None, :]
+        A = (Esc[:, :, None] * A) * D[:, None, :]
+        Dl, El, cl = take(D, lane_ctrl), take(Esc, lane_ctrl), take(c, lane_ctrl)[:, None]
+        q = cl * Dl * q
+        rhovs_lad = cache["qpc_rhovs"].to(dt)
+        Minvs_lad = cache["qpc_Minvs"].to(dt)
+        N_LAD = rhovs_lad.shape[1]
+        span = 4.0
+    else:
+        # in-solve setup, per lane (mpc_tpu/ops/qp.py:293-337)
+        eq_mask = (u - l) < 1e-12
+        loose_mask = (u >= _BIG) & (l <= -_BIG)
+        if scaling:
+            P, q, A, Dl, El, c = _ruiz_equilibrate(P, q, A, iters=scaling)
+            cl = c[:, None]
+        else:
+            Dl, El, cl = torch.ones_like(q), torch.ones_like(l), q.new_ones(B, 1)
+        # ρ ladder of Newton-refined inverses of P + σI + Aᵀ diag(ρ) A
+        N_LAD = int(n_lad)
+        half_span = 2.0 if N_LAD >= 5 else 1.0
+        lad = torch.as_tensor(rho * np.logspace(-half_span, half_span, N_LAD),
+                              dtype=dt, device=dev)
+        rhovs_lad = _rho_vec(eq_mask[:, None, :], loose_mask[:, None, :],
+                             lad[None, :, None])
+        eye = torch.eye(n, dtype=dt, device=dev)
+        Ms = (P[:, None] + sigma * eye
+              + A.transpose(-1, -2)[:, None] @ (rhovs_lad[..., None] * A[:, None]))
+        Minvs_lad = torch.linalg.inv(Ms)
+        Minvs_lad = Minvs_lad @ (2.0 * eye - Ms @ Minvs_lad)
+        span = 4.0 if N_LAD >= 5 else 2.0
     l = torch.clamp(El * l, -2e18, 2e18)
     u = torch.clamp(El * u, -2e18, 2e18)
     x = x / Dl
     y = cl * y / El
-    rhovs_lad = cache["qpc_rhovs"].to(dt)
-    Minvs_lad = cache["qpc_Minvs"].to(dt)
-    N_LAD = rhovs_lad.shape[1]
 
     A_l = take(A, lane_ctrl)          # per-lane views for the batched matvecs
     P_l = take(P, lane_ctrl)
     Dinv, Einv, cinv = 1.0 / Dl, 1.0 / El, 1.0 / cl[:, 0]
-    log_step = 4.0 / max(N_LAD - 1, 1)
+    log_step = span / max(N_LAD - 1, 1)
     if rung0 is None:
         j = torch.full((B,), (N_LAD - 1) // 2, dtype=torch.int32, device=dev)
     else:
         j = torch.clamp(rung0.to(torch.int32), 0, N_LAD - 1)
+    max_it = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
+    if iter_budget is not None:
+        # the run-time cap of the Ts-deadline policy
+        budget = torch.as_tensor(iter_budget, device=dev).to(torch.int32)
+        max_it = torch.minimum(max_it, budget.expand(B))
 
     z = torch.clamp(mv(A_l, x), l, u)
     qnorm = torch.clamp(_ninf(Dinv * q), min=1.0)
@@ -220,7 +311,7 @@ def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
     best = torch.full((B,), float("inf"), dtype=dt, device=dev)
     stall = torch.zeros(B, dtype=torch.int32, device=dev)
     lane_idx = lane_ctrl.long()
-    active = ~exit_ & (it < max_iter)
+    active = ~exit_ & (it < max_it)
     while bool(active.any()):
         y_prev = y.clone()
         rhov = rhovs_lad[lane_idx, j.long()].contiguous()
@@ -267,7 +358,7 @@ def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
         best = torch.where(active, best_n, best)
         stall = torch.where(active, stall_n, stall)
         done = torch.where(active, done_n, done)
-        active = ~exit_ & (it < max_iter)
+        active = ~exit_ & (it < max_it)
 
     if polish:
         x, y, z = _polish(P_l, q, A_l, l, u, x, y, fin_l, fin_u, eq_mask,
@@ -296,6 +387,12 @@ def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
     converged = (kkt_ok | done) & ~infeas
     obj = 0.5 * torch.sum(x * mv(P_orig, x, lane_ctrl), -1) + torch.sum(q_orig * x, -1)
     return QPSolution(x, y, z, converged, it, obj, j)
+
+
+def solve_qp_batch(P, q, A, l, u, x0=None, y0=None, **kw):
+    """Batched solve with a leading lane axis on every argument (one QP per
+    lane): the counterpart of ``mpc_tpu.ops.qp.solve_qp_batch``."""
+    return solve_qp(P, q, A, l, u, x0, y0, **kw)
 
 
 def _polish(P, q, A, l, u, x, y, fin_l, fin_u, eq_mask, iters=3,

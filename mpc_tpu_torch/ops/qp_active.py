@@ -21,8 +21,12 @@ axis instead of under ``vmap``.
   mixed mode under x64) or float32 slots when ``slot_dtype=torch.float32``
   (the reference's pure-f32 session).
 
-Only the CACHED path (``cache=build_gi_cache(...)``, what every ``LinMPC``
-step uses) is ported: P⁻¹ comes from the cache, P only enters ``obj``.
+P⁻¹ comes from the cache (``cache=build_gi_cache(...)``, what every
+``LinMPC`` step uses) or, with ``cache=None``, from an in-solve inverse per
+distinct controller: the unrolled Gauss–Jordan of ``utils/small_linalg.py``
+in the slot dtype for n ≤ 8, a Cholesky solve in the data dtype cast to the
+slot dtype above (the reference's ``qp_active.py:206-219``).  The solve
+itself is ``gi_solve`` either way.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils.lanes import mv
+from ..utils.small_linalg import inv_spd_small
 from .gi_kernel import gi_solve, slot_dtype_for
 from .qp import QPSolution, _BIG
 
@@ -60,13 +65,14 @@ def gi_state_init(n_slots, batch, slot_dtype=torch.float64, device=None):
                 gis_Ginv=eye.expand(batch, n_slots, n_slots).contiguous())
 
 
-def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, cache,
+def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, cache=None,
                     state0=None, iter_budget=None, max_active=None,
                     max_pivots=150, tol=1e-9, slot_dtype=None, solve=gi_solve):
     """Solve a batch of dense QPs by dual active set.
 
     ``P`` (n_d, n, n), ``A`` (n_d, m, n) and ``cache["gic_Pinv"]`` (n_d, n, n)
-    are stacked over distinct controllers; ``q`` (B, n), ``l``/``u`` (B, m)
+    are stacked over distinct controllers (``cache=None``: P⁻¹ is computed
+    here, see the module docstring); ``q`` (B, n), ``l``/``u`` (B, m)
     and ``y0`` (B, m) are per lane.  ``lane_ctrl`` (B,) int32 maps lanes to
     controllers; ``None`` means n_d == B.
 
@@ -81,10 +87,6 @@ def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, cache,
     Returns a :class:`QPSolution` with ``rung`` 4 on every lane and the new
     ``gi_state``; ``gis_Ginv`` is in the slot dtype.
     """
-    if cache is None or "gic_Pinv" not in cache:
-        raise NotImplementedError(
-            "the uncached in-solve P⁻¹ path of solve_qp_active is not ported "
-            "(ROADMAP queue 1, item 2); pass cache=build_gi_cache(...)")
     B, n = q.shape
     m = l.shape[1]
     dt, dev = q.dtype, q.device
@@ -129,7 +131,13 @@ def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, cache,
             widx[:, :k] = topi.to(torch.int32)
             sgn = torch.where(torch.gather(y0, 1, topi) > 0, 1, -1)
             wside[:, :k] = torch.where(hot, sgn, 0).to(torch.int32)
-    Pinv = cache["gic_Pinv"].to(hi).contiguous()
+    if cache is not None:
+        Pinv = cache["gic_Pinv"].to(hi).contiguous()
+    elif n <= 8:
+        Pinv = inv_spd_small(P.to(hi)).contiguous()
+    else:
+        eye = torch.eye(n, dtype=dt, device=dev).expand(P.shape)
+        Pinv = torch.cholesky_solve(eye, torch.linalg.cholesky(P)).to(hi).contiguous()
     args = [t.contiguous() for t in (A, lane_ctrl, q, l, u)]
     x_hi, lam, it, conv = solve(Pinv, *args, idx, side, vmask, Ginv, widx,
                                 wside, wcnt, warm, max_it, tol)

@@ -8,8 +8,12 @@ receding input) and the Kalman prediction (``mpc_tpu``
 ``batch.py:191-217``).  Parameters are stacked over the DISTINCT
 controllers only and read per lane through ``lane_ctrl``
 (``grouped.py``); per-lane state lives on the device between steps.
+``limit_solve_time`` is the Ts-deadline policy of the reference's fleet
+(``mpc_tpu/parallel/batch.py:87-99, 369-490``).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -93,11 +97,7 @@ class BatchedLinMPC:
                  sweep=admm_sweep, gi_slot_dtype=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh-sharded fleets are not ported yet (ROADMAP queue 1, item 10)")
-        if limit_solve_time:
-            raise NotImplementedError(
-                "limit_solve_time (the Ts-deadline policy) is not ported yet "
-                "(ROADMAP queue 1, item 3)")
+                "mesh-sharded fleets are not ported yet (ROADMAP queue 1, item 11)")
         if grouped_chunks != 1:
             raise NotImplementedError(
                 "grouped_chunks != 1 is not ported yet (ROADMAP queue 1, item 3)")
@@ -111,6 +111,8 @@ class BatchedLinMPC:
                     share_params=share_params, device=device, dtype=dtype,
                     sweep=sweep, gi_max_active=caps.pop(),
                     gi_slot_dtype=gi_slot_dtype)
+        self.Ts = float(controllers[0].estim.model.Ts)
+        self.limit_solve_time = bool(limit_solve_time)
 
     @classmethod
     def from_params(cls, params_list, eparams_list, *, reps=1,
@@ -191,6 +193,18 @@ class BatchedLinMPC:
             qp_state=(gi_state_init(self.gi_slots, self.B, self.gi_slot_dtype,
                                     self.device) if use_as else None))
         self.last_iters = None
+        # Ts-deadline policy (limit_solve_time=True; needs Ts, so only the
+        # constructor from controllers turns it on): the QP iteration budget
+        # of the next period comes from Ts and an EWMA of the measured wall
+        # cost per iteration of the slowest lane
+        self.Ts = None
+        self.limit_solve_time = False
+        self._iter_cost = None
+        self.last_step_time = None
+        self.last_iter_budget = None
+        self.last_deadline_miss = False
+        self.deadline_miss_count = 0
+        self._mstep_shapes = set()
 
     # ------------------------------------------------------------------
     @property
@@ -238,10 +252,16 @@ class BatchedLinMPC:
             raise ValueError(f"expected shape ({self.B}, {width}), got {tuple(t.shape)}")
         return t
 
-    def step(self, ym, ry, d=None):
-        """One control period for every lane: returns ``(u, n_conv)`` with
-        ``u`` (B, nu) and ``n_conv`` the number of converged QPs, both on the
-        fleet's device.  ``last_iters`` holds the QP iterations' [max, mean]."""
+    def _budget(self, iter_cost):
+        """The iteration budget from a per-iteration cost (floor 50; 2**30
+        means unlimited)."""
+        if iter_cost:
+            return int(np.clip(0.8 * self.Ts / iter_cost, 50, 2**30))
+        return 2**30
+
+    def _period(self, ym, ry, d, budget):
+        """One control period for every lane under an iteration budget;
+        returns ``(u, conv)`` on the device and sets ``last_iters``."""
         ym = self._tensor(ym, self.nym)
         ry = self._tensor(ry, self.ny)
         d = (torch.zeros(self.B, self.nd, dtype=self.dtype, device=self.device)
@@ -264,7 +284,8 @@ class BatchedLinMPC:
             ry.repeat(1, self.Hp), take(self.params["Uop"], lc),
             zeros(self.params["Ks"].shape[2]), zeros(self.ny),
             st["Z_tilde"], st["y_dual"], st["rho_rung"], lc, self.sweep,
-            qp_state=st["qp_state"], gi=self.gi)
+            qp_state=st["qp_state"], gi=self.gi,
+            iter_budget=None if budget >= 2**30 else budget)
         lastu0 = u - E("uop")
         # --- estimator prediction ---
         x0n = EM("A_hat", x0c) + EM("Bu_hat", lastu0)
@@ -274,6 +295,34 @@ class BatchedLinMPC:
         self._state = dict(x0_hat=x0n, lastu0=lastu0, Z_tilde=Z_t,
                            y_dual=y_dual, rho_rung=rung, qp_state=qps)
         self.last_iters = torch.stack([iters.max(), iters.sum() // self.B])
+        return u, conv
+
+    def step(self, ym, ry, d=None):
+        """One control period for every lane: returns ``(u, n_conv)`` with
+        ``u`` (B, nu) and ``n_conv`` the number of converged QPs, both on the
+        fleet's device.  ``last_iters`` holds the QP iterations' [max, mean].
+
+        With ``limit_solve_time`` every step ends in a host copy of
+        ``last_iters`` and records ``last_step_time``, ``last_iter_budget``,
+        ``last_deadline_miss`` and ``deadline_miss_count``; the first step
+        neither seeds the cost EWMA nor counts as a miss."""
+        budget = self._budget(self._iter_cost if self.limit_solve_time else None)
+        t0 = time.perf_counter()
+        u, conv = self._period(ym, ry, d, budget)
+        self.last_iter_budget = budget
+        if self.limit_solve_time:
+            # the lockstep cost per iteration is set by the slowest lane
+            it_max = float(self.last_iters[0].item())
+            wall = time.perf_counter() - t0
+            first = self.last_step_time is None
+            if not first and it_max > 0:
+                c = wall / it_max
+                self._iter_cost = c if self._iter_cost is None else \
+                    0.7 * self._iter_cost + 0.3 * c
+            self.last_step_time = wall
+            self.last_deadline_miss = (not first) and wall > self.Ts
+            if self.last_deadline_miss:
+                self.deadline_miss_count += 1
         return u, conv.sum()
 
     def multistep(self, ym_seq, ry_seq, d_seq=None):
@@ -282,11 +331,39 @@ class BatchedLinMPC:
         ``ym_seq``/``ry_seq``: (K, B, nym)/(K, B, ny); ``d_seq``: optional
         (K, B, nd).  Returns ``(U, n_conv)`` with ``U`` (K, B, nu) and
         ``n_conv`` (K,); ``last_iters`` is the final period's.
-        """
-        U, NC = [], []
+
+        With ``limit_solve_time`` the policy runs once per call, as the
+        reference's in-graph scan does: the budget comes from the cost EWMA
+        at the call's start, a period counts as a miss when its max
+        iterations times that cost exceed Ts, and one host copy at the end
+        updates the EWMA from the call's wall time (a call with a new (K, B)
+        shape neither updates it nor counts misses)."""
+        ic = self._iter_cost if self.limit_solve_time and self._iter_cost else 0.0
+        budget = self._budget(ic)
+        t0 = time.perf_counter()
+        U, NC, IT = [], [], []
         for k in range(len(ym_seq)):
-            u, nc = self.step(ym_seq[k], ry_seq[k],
-                              None if d_seq is None else d_seq[k])
+            u, conv = self._period(ym_seq[k], ry_seq[k],
+                                   None if d_seq is None else d_seq[k], budget)
             U.append(u)
-            NC.append(nc)
+            NC.append(conv.sum())
+            IT.append(self.last_iters[0])
+        self.last_iter_budget = budget
+        if self.limit_solve_time:
+            it_max = torch.stack(IT).cpu().numpy().astype(float)
+            wall = time.perf_counter() - t0
+            K = len(it_max)
+            miss = (it_max * ic > self.Ts) if ic > 0 else np.zeros(K, bool)
+            shape_key = (K, self.B)
+            first = (self.last_step_time is None
+                     or shape_key not in self._mstep_shapes)
+            self._mstep_shapes.add(shape_key)
+            if not first and it_max.sum() > 0:
+                c = wall / it_max.sum()
+                self._iter_cost = c if self._iter_cost is None else \
+                    0.7 * self._iter_cost + 0.3 * c
+            self.last_step_time = wall / K
+            self.last_deadline_miss = bool(miss[-1])
+            if not first:
+                self.deadline_miss_count += int(miss.sum())
         return torch.stack(U), torch.stack(NC)

@@ -125,3 +125,53 @@ def test_gi_kernel_matches_plain_on_card(dtype, slots, cap):
         assert torch.equal(k.gi_state["gis_idx"], p.gi_state["gis_idx"])
     both = k.converged & p.converged
     assert (k.x - p.x)[both].abs().max().item() < tol * x_scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp_solver,kernel", [("admm", "admm_sweep"),
+                                              ("active_set", "gi_solve")])
+def test_readme_sim_on_card_matches_cpu(qp_solver, kernel):
+    """The README flow (README.md:9-21) in float64 with ``device="cuda"``
+    against the same ``sim`` on the CPU (the plain versions): u and y to
+    1e-6, and every period's QP through the kernel."""
+    import mpc_tpu_torch as mt
+    dev = _card()
+    G = mt.tf_matrix([[mt.tf(2, [10, 1]) * mt.delay(20)], [mt.tf(10, [4, 1])]])
+    res = {}
+    for d in (dev, None):
+        ctrl = mt.LinMPC(mt.LinModel(G, 1.0), Mwt=[1, 0], Nwt=[0.1],
+                         qp_solver=qp_solver, device=d)
+        ctrl.setconstraint(ymax=[np.inf, 35])
+        n0 = LAUNCHES[kernel]
+        res[d] = mt.sim(ctrl, 40, [5, 0])
+        if d is not None:
+            assert LAUNCHES[kernel] >= n0 + 40
+    for k in ("U_data", "Y_data"):
+        assert np.max(np.abs(getattr(res[dev], k) - getattr(res[None], k))) < 1e-6, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,n,m", [("admm", 5, 12), ("gi", 6, 24),
+                                        ("gi", 12, 30)])
+def test_uncached_batch_kernel_matches_plain_on_card(solver, n, m):
+    """Uncached solves with per-lane P and A (each lane its own controller):
+    ``solve_qp_batch`` with the ADMM kernel against the plain sweep, and
+    ``solve_qp_active`` without a cache (Gauss–Jordan at n ≤ 8, Cholesky
+    above) with the GI kernel against the plain solve, on the card in
+    float64.  x to 1e-7·(1 + max|x|) for ADMM and 1e-9·(1 + max|x|) for GI,
+    equal iterations and flags."""
+    from mpc_tpu_torch.ops.qp import solve_qp_batch
+    dev = _card()
+    a = _gi_problem(dev, torch.float64, n=n, m=m, B=512, seed=3)
+    prob = [a[k] for k in ("P", "q", "A", "l", "u")]
+    if solver == "admm":
+        k, p = (solve_qp_batch(*prob, sweep=sw) for sw in (admm_sweep, admm_sweep_reference))
+        tol = 1e-7
+    else:
+        k, p = (solve_qp_active(*prob, a["y0"], solve=fn)
+                for fn in (gi_solve, gi_solve_reference))
+        tol = 1e-9
+    assert bool(p.converged.all())
+    assert torch.equal(k.converged, p.converged)
+    assert torch.equal(k.iters, p.iters)
+    assert (k.x - p.x).abs().max().item() < tol * (1.0 + p.x.abs().max().item())

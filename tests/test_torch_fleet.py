@@ -304,11 +304,17 @@ def test_gi_state_round_trip_continues_reference_run():
 @pytest.mark.parametrize("option", ["mesh", "grouped_chunks",
                                     "limit_solve_time"])
 def test_unported_options_raise(option):
+    """mesh and grouped_chunks raise; limit_solve_time is ported (its
+    parity cases are tests/test_torch_deadline.py) and builds a fleet with
+    the deadline bookkeeping at rest."""
     ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(2, seed=0)
+    if option == "limit_solve_time":
+        fleet = BatchedLinMPC(ctrls, limit_solve_time=True)
+        assert fleet.limit_solve_time and fleet.Ts == 2.0
+        assert fleet.last_step_time is None and fleet.deadline_miss_count == 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if option == "mesh":
             BatchedLinMPC(ctrls, mesh=object())
-        elif option == "grouped_chunks":
-            BatchedLinMPC(ctrls, reps=2, grouped_chunks=2)
         else:
-            BatchedLinMPC(ctrls, limit_solve_time=True)
+            BatchedLinMPC(ctrls, reps=2, grouped_chunks=2)

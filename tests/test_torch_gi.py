@@ -59,9 +59,10 @@ def _caches(P):
 
 def _solve_both(P, q, A, l, u, y0=None, state0=None, iter_budget=None,
                 max_active=None, lane_ctrl=None, dtype=np.float64,
-                slot_dtype=None):
+                slot_dtype=None, cached=True):
     """Reference (vmapped, per-lane copies) and port (stacked per
-    controller, read through lane_ctrl) on the same numpy inputs."""
+    controller, read through lane_ctrl) on the same numpy inputs; with
+    ``cached=False`` both compute P⁻¹ in the solve."""
     Pinv = _caches(P)
     lc = np.arange(q.shape[0]) if lane_ctrl is None else np.asarray(lane_ctrl)
     per_lane = lambda a: jnp.asarray(a[lc].astype(dtype))
@@ -70,7 +71,8 @@ def _solve_both(P, q, A, l, u, y0=None, state0=None, iter_budget=None,
 
     def one(P_, q_, A_, l_, u_, Pinv_, y0_, s0_):
         return jax_solve_qp_active(P_, q_, A_, l_, u_, y0_,
-                                   cache=dict(gic_Pinv=Pinv_), state0=s0_, **kw)
+                                   cache=dict(gic_Pinv=Pinv_) if cached else None,
+                                   state0=s0_, **kw)
 
     args = [per_lane(P), lane(q), per_lane(A), lane(l), lane(u),
             jnp.asarray(Pinv[lc])]
@@ -90,7 +92,7 @@ def _solve_both(P, q, A, l, u, y0=None, state0=None, iter_budget=None,
         t(P), t(q), t(A), t(l), t(u),
         None if y0 is None else t(y0), lane_ctrl=torch.tensor(lc, dtype=torch.int32)
         if lane_ctrl is not None else None,
-        cache=dict(gic_Pinv=torch.tensor(Pinv)),
+        cache=dict(gic_Pinv=torch.tensor(Pinv)) if cached else None,
         state0=None if state0 is None else {k: torch.tensor(np.asarray(v))
                                              for k, v in state0.items()},
         slot_dtype=slot_dtype, **kw)
@@ -122,6 +124,35 @@ def test_random_qps_match_reference(seed, n, m):
     assert np.max(np.abs(np.asarray(ref.y) - got.y.numpy())) < 1e-9
     assert np.max(np.abs(np.asarray(ref.obj) - got.obj.numpy())) < 1e-9
     assert (got.rung == 4).all()
+
+
+@pytest.mark.parametrize("seed,n,m,dtype,warm", [
+    (50, 6, 24, np.float64, False), (51, 8, 29, np.float64, True),
+    (52, 10, 24, np.float64, False), (53, 12, 30, np.float64, True),
+    (54, 4, 10, np.float32, False), (55, 12, 30, np.float32, False)],
+    ids=["gj-n6", "gj-n8-warm", "chol-n10", "chol-n12-warm", "gj-n4-f32",
+         "chol-n12-f32"])
+def test_uncached_matches_reference(seed, n, m, dtype, warm):
+    """No cache: P⁻¹ in the solve, by unrolled Gauss–Jordan in the slot
+    dtype for n ≤ 8 and by a Cholesky solve in the data dtype, cast to the
+    slot dtype, above.  float64: x to 1e-9, the same pivots (iterations),
+    flags and operator state.  float32 data (f64 slots, the reference's
+    mixed mode): the same iterations and flags, x to 1e-5·(1 + max|x|)."""
+    rng = np.random.default_rng(seed)
+    P, q, A, l, u = _stack([random_qp(rng, n, m) for _ in range(8)])
+    y0 = None
+    if warm:
+        cold, _ = _solve_both(P, q, A, l, u, cached=False)
+        y0 = np.asarray(cold.y) + 0.3 * rng.normal(size=l.shape) * (rng.random(l.shape) < 0.2)
+    ref, got = _solve_both(P, q, A, l, u, y0=y0, dtype=dtype, cached=False)
+    assert np.asarray(ref.converged).all()
+    if dtype == np.float64:
+        _assert_same(ref, got)
+        return
+    x_r = np.asarray(ref.x, np.float64)
+    assert np.array_equal(np.asarray(ref.converged), got.converged.numpy())
+    assert np.array_equal(np.asarray(ref.iters), got.iters.numpy())
+    assert np.max(np.abs(x_r - got.x.double().numpy())) < 1e-5 * (1 + np.abs(x_r).max())
 
 
 def test_unconstrained_and_shared_controller():
@@ -355,8 +386,11 @@ def test_state_init_and_argument_checks():
     P, q, A, l, u = _stack([random_qp(rng, 4, 6) for _ in range(2)])
     t = lambda a: torch.tensor(a)
     c = dict(gic_Pinv=t(_caches(P)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_qp_active(t(P), t(q), t(A), t(l), t(u), cache=None)
+    # no cache: the in-solve P⁻¹ gives the cached solve's answer
+    unc = solve_qp_active(t(P), t(q), t(A), t(l), t(u), cache=None)
+    cac = solve_qp_active(t(P), t(q), t(A), t(l), t(u), cache=c)
+    assert torch.equal(unc.iters, cac.iters)
+    assert (unc.x - cac.x).abs().max().item() < 1e-9
     with pytest.raises(TypeError, match="slot"):
         solve_qp_active(t(P), t(q), t(A), t(l), t(u), cache=c,
                         slot_dtype=torch.float32)
