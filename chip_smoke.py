@@ -8,8 +8,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 3. every kernel against its plain torch version on the card, at the shapes
    the main path gives it (inputs captured in a steady closed-loop period
    with the input bounds active: warm x, z and y, some lanes already
-   frozen), each of x, z and y held to its own bar, with both times (CUDA
-   events, median of 25 runs);
+   frozen; the 8x8/Hp=15 lanes also tiled to B=4096), each of x, z and y
+   held to its own bar, with both times (CUDA events, median of 25 runs)
+   and the kernel's device time (profiler); 3b. both kernels on every lane
+   layout, and the sweep on QPs wider than its block (n=300);
 4. the kernel's shared-memory size guard;
 5. a small float64 fleet on the card against the same fleet on the CPU
    (the plain path, which the CPU tests hold to the JAX reference);
@@ -73,7 +75,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_TOL = 1e-4      # kernel vs plain, float32: |Δ| ≤ F32_TOL·(1 + max|plain|)
                     # (the two sum over the m rows in different orders)
-GI_F64_TOL = 1e-9   # GI kernel vs plain on float64 data: x to 1e-9·(1 + max|x|)
+GI_F64_TOL = 1e-12  # GI kernel vs plain on float64 data: x to 1e-12·(1 + max|x|)
 GI_FLIPS = 4        # GI at the fleet shapes: lanes whose converged flag may
                     # differ (a near-tie in the f32 scan can change the pivot
                     # order; the optimum is unique, so x may not move)
@@ -114,6 +116,113 @@ def median_ms(torch, fn, setup, n=25):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+ADMM_KERNELS = ("admm_warp_kernel", "admm_group_kernel")
+GI_KERNELS = ("gi_solve_kernel",)
+HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s (data sheet)
+PEAK_FLOPS = {4: 67e12,    # float32 outside the tensor cores (data sheet)
+              8: 34e12}    # float64 outside the tensor cores (data sheet)
+
+
+def device_ms(torch, fn, setup, names, n=10, tries=3):
+    """Mean device time of one call of ``fn``: the durations of the
+    profiler's kernel records whose name contains one of ``names``, summed
+    over ``n`` calls (each after a fresh ``setup()``) and divided by ``n``.
+    A profile with another number of such records than calls (the profiler
+    can drop records) is taken again, up to ``tries`` times; then it fails."""
+    from torch.profiler import ProfilerActivity, profile
+    setup()
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                setup()
+                fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events() if e.device_type == cuda
+              and any(k in e.name for k in names)]
+        if len(ks) == n:
+            return sum(e.time_range.end - e.time_range.start for e in ks) / 1e3 / n
+        print(f"profiler saw {len(ks)} records of {names} in {n} calls; again", flush=True)
+    raise Fail(f"profiler saw {len(ks)} records of {names} in {n} calls, {tries} times")
+
+
+def bound(nbytes, flops, itemsize):
+    """The least time the card could take (ms) and what sets it: the bytes
+    over the memory rate or the operations over the peak rate of the type."""
+    t_b, t_f = nbytes / HBM_BPS, flops / PEAK_FLOPS[itemsize]
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def admm_bound(torch, a, iters):
+    """Bound of one sweep launch on these inputs: the active lanes read l,
+    u, z, y, x, q, their rung's Minv and ρ (each distinct (controller, rung)
+    pair once) and their controllers' A once, and write x, z, y; each does
+    4mn + 2n² + 12m + 6n flops a sweep (the two products, Minv·rhs and the
+    elementwise updates)."""
+    on = a["active"]
+    Ba = int(on.sum())
+    n, m, s = a["x"].shape[1], a["z"].shape[1], a["x"].element_size()
+    lc, rg = a["lane_ctrl"][on].long(), a["rung"][on].long()
+    n_c = int(torch.unique(lc).numel())
+    n_pair = int(torch.unique(lc * 1000 + rg).numel())
+    nbytes = s * (n_c * m * n + n_pair * (n * n + m) + Ba * (2 * n + 4 * m)
+                  + Ba * (n + 2 * m)) + Ba * 9
+    flops = Ba * int(iters) * (4 * m * n + 2 * n * n + 12 * m + 6 * n)
+    return bound(nbytes, flops, s)
+
+
+def gi_bound(torch, args, it):
+    """Bound of one GI launch on these inputs: each distinct controller's A
+    and P⁻¹ read once; per lane q, l, u, the warm list and the operator
+    state read, the state, x, λ, the count and the flag written; and per
+    pivot the lane's ~2mn + 8m + 4n² + 4·ns·n + 5·ns² flops (the scan, the
+    Gram products, the update of x and the rank-one update), over the
+    pivots ``it`` this run took."""
+    Pinv, A, lc, q, l = args[:5]
+    B, n = q.shape
+    m, ns = l.shape[1], args[6].shape[1]
+    sd, ss = A.element_size(), Pinv.element_size()
+    n_c = int(torch.unique(lc).numel())
+    state = 2 * ns * 4 + ns + ns * ns * ss
+    nbytes = (n_c * (m * n * sd + n * n * ss)
+              + B * (n * sd + 2 * m * sd + state + 2 * ns * 4 + 8)
+              + B * (state + (n + ns) * ss + 5))
+    flops = int(it.sum()) * (2 * m * n + 8 * m + 4 * n * n + 4 * ns * n + 5 * ns * ns)
+    return bound(nbytes, flops, sd)
+
+
+def admm_residency(torch, ops, _build, a):
+    """Lanes resident per SM for a sweep launch on these inputs (the
+    runtime's occupancy calculator at the launch's geometry)."""
+    from mpc_tpu_torch.ops import admm_kernel
+    n, m, s = a["x"].shape[1], a["z"].shape[1], a["x"].element_size()
+    props = torch.cuda.get_device_properties(0)
+    table, _, warps, grouped, smem = admm_kernel.launch_geometry(
+        a["lane_ctrl"], n, m, s, props.shared_memory_per_block_optin,
+        props.multi_processor_count)
+    blocks = _build.load_library().mpc_admm_blocks_per_sm(int(s == 8), int(grouped),
+                                                          table.shape[1], 32 * warps, smem)
+    return blocks * table.shape[1], dict(blocks_per_sm=blocks, lanes_per_block=table.shape[1],
+                                         threads=32 * warps, grouped=grouped,
+                                         smem_bytes=smem)
+
+
+def gi_residency(torch, _build, args):
+    from mpc_tpu_torch.ops import gi_kernel
+    Pinv, A, lc, q, l = args[:5]
+    n, m, ns = q.shape[1], l.shape[1], args[6].shape[1]
+    props = torch.cuda.get_device_properties(0)
+    table, _, warps, smem = gi_kernel.launch_geometry(
+        lc, n, m, ns, A.element_size(), Pinv.element_size(),
+        props.shared_memory_per_block_optin, props.multi_processor_count)
+    variant = {(4, 8): 0, (4, 4): 1, (8, 8): 2}[(A.element_size(), Pinv.element_size())]
+    blocks = _build.load_library().mpc_gi_blocks_per_sm(variant, warps, smem)
+    return blocks * warps, dict(blocks_per_sm=blocks, warps=warps,
+                                lanes_per_block=table.shape[1], smem_bytes=smem)
+
+
 class _Captured(Exception):
     pass
 
@@ -133,7 +242,7 @@ class Capture:
         self.sweep, self.args = sweep, None
 
     def __call__(self, *args):
-        y, active = args[9], args[10]
+        y, active = args[10], args[11]
         n_on = int(active.sum())
         if 0 < n_on <= 0.95 * active.numel() and y[active].abs().max().item() >= Y_WARM:
             self.args = [a.clone() if hasattr(a, "clone") else a for a in args]
@@ -169,8 +278,17 @@ def steady_inputs(torch, fleet, ctrls, reps, periods=4):
     return cap.args
 
 
-SWEEP_ARGS = ("Minv", "A", "lane_ctrl", "q", "l", "u", "rho", "x", "z", "y",
-              "active")
+SWEEP_ARGS = ("Minvs", "A", "lane_ctrl", "rung", "q", "l", "u", "rhovs", "x",
+              "z", "y", "active")
+LANE_ARGS = ("lane_ctrl", "rung", "q", "l", "u", "x", "z", "y", "active")
+
+
+def tile_lanes(args, k):
+    """Sweep inputs with every lane repeated ``k`` times: the same
+    controllers, each with k times as many lanes."""
+    base = dict(zip(SWEEP_ARGS, args[:12]))
+    return [base[a].repeat(k, *[1] * (base[a].dim() - 1)).contiguous() if a in LANE_ARGS
+            else base[a] for a in SWEEP_ARGS] + list(args[12:])
 
 
 def sweep_errors(torch, ops, name, args):
@@ -180,8 +298,8 @@ def sweep_errors(torch, ops, name, args):
     lanes masked off must come back bit-unchanged from both.  ``floor`` is
     the plain float32 sweep's distance to the same sweep in float64: the
     rounding noise the bar has to admit."""
-    base = dict(zip(SWEEP_ARGS, args[:11]))
-    iters, sigma, alpha = args[11:]
+    base = dict(zip(SWEEP_ARGS, args[:12]))
+    iters, sigma, alpha = args[12:]
     runs = {}
     for label, fn, dt in (("kernel", ops.admm_sweep, None),
                           ("plain", ops.admm_sweep_reference, None),
@@ -217,8 +335,8 @@ def sweep_errors(torch, ops, name, args):
 def kernel_vs_plain(torch, ops, name, args):
     """Kernel and plain sweep on the same CUDA inputs: error and times."""
     names = SWEEP_ARGS
-    base = dict(zip(names, args[:11]))
-    iters, sigma, alpha = args[11:]
+    base = dict(zip(names, args[:12]))
+    iters, sigma, alpha = args[12:]
     err = sweep_errors(torch, ops, name, args)
     torch.cuda.synchronize()
 
@@ -235,11 +353,16 @@ def kernel_vs_plain(torch, ops, name, args):
 
     ms_k = median_ms(torch, timed(ops.admm_sweep), setup)
     ms_p = median_ms(torch, timed(ops.admm_sweep_reference), setup)
+    ms_d = device_ms(torch, timed(ops.admm_sweep), setup, ADMM_KERNELS)
+    b_ms, b_by = admm_bound(torch, base, iters)
     B, n = base["x"].shape
     m = base["z"].shape[1]
     print(f"kernel time {name}: B={B} n={n} m={m} n_d={base['A'].shape[0]} "
-          f"iters={iters} kernel {ms_k:.4f} ms plain {ms_p:.4f} ms", flush=True)
-    return dict(err=err, ms=ms_k, plain_ms=ms_p)
+          f"iters={iters} kernel {ms_d:.4f} ms device (profiler), {ms_k:.4f} ms call "
+          f"(CUDA events); plain {ms_p:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+          f"roofline share {b_ms / ms_d:.4f}", flush=True)
+    return dict(err=err, ms=ms_d, call_ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by, args=base)
 
 
 def pallas_test_batch(torch, dev):
@@ -259,8 +382,9 @@ def pallas_test_batch(torch, dev):
     t = lambda a: torch.tensor(a, device=dev)
     x = torch.zeros(B, n, device=dev)
     z = torch.clamp(torch.zeros(B, m, device=dev), t(l), t(u))
-    return [t(Minv), t(A), torch.arange(B, dtype=torch.int32, device=dev),
-            t(q), t(l), t(u), t(rho), x, z, torch.zeros(B, m, device=dev),
+    return [t(Minv[:, None]), t(A), torch.arange(B, dtype=torch.int32, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev), t(q), t(l), t(u),
+            t(rho[:, None]), x, z, torch.zeros(B, m, device=dev),
             torch.ones(B, dtype=torch.bool, device=dev), 600, 1e-6, 1.6]
 
 
@@ -541,8 +665,169 @@ def gi_vs_plain(torch, ops, name, args, f64):
         holder["a"] = _clone(args)
     ms_k = median_ms(torch, lambda: ops.gi_solve(*holder["a"]), setup)
     ms_p = median_ms(torch, lambda: ops.gi_solve_reference(*holder["a"]), setup)
-    print(f"GI kernel time {name}: kernel {ms_k:.4f} ms plain {ms_p:.4f} ms", flush=True)
-    return dict(err=err, ms=ms_k, plain_ms=ms_p, entering=entering, B=B)
+    ms_d = device_ms(torch, lambda: ops.gi_solve(*holder["a"]), setup, GI_KERNELS)
+    b_ms, b_by = gi_bound(torch, args, k["it"])
+    print(f"GI kernel time {name}: kernel {ms_d:.4f} ms device (profiler), {ms_k:.4f} ms "
+          f"call (CUDA events); plain {ms_p:.4f} ms; pivots mean "
+          f"{k['it'].float().mean().item():.2f}; bound {b_ms:.4f} ms ({b_by}), roofline "
+          f"share {b_ms / ms_d:.4f}", flush=True)
+    return dict(err=err, ms=ms_d, call_ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by, entering=entering, B=B, args=args)
+
+
+def layouts(torch, dev, B=1024, seed=0):
+    """The lane → controller maps beyond the tiled fleet: one shared
+    controller (n_d = 1), one controller per lane (n_d = B, the uncached
+    solves), ragged groups of 1 to 40 lanes in shuffled order (group sizes
+    that are no multiple of a block's width) and a single lane (B = 1)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 41, size=64)
+    sizes = sizes[:np.searchsorted(np.cumsum(sizes), B) + 1]
+    ragged = np.repeat(np.arange(sizes.size), sizes)[:B]
+    rng.shuffle(ragged)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return {"n_d=1": i32(np.zeros(B)), "n_d=B": i32(np.arange(B)),
+            "ragged": i32(ragged), "B=1": i32([0])}
+
+
+def layout_sweep_inputs(torch, dev, lc, n, m, dtype, n_lad=9, seed=0):
+    """Sweep inputs on a per-controller ρ ladder, a random rung per lane,
+    a warm start and a fifth of the lanes frozen (10 sweeps)."""
+    rng = np.random.default_rng(seed)
+    lcn = lc.cpu().numpy()
+    B, n_d = lcn.size, int(lcn.max()) + 1
+    H = rng.normal(size=(n_d, n, n))
+    A = rng.normal(size=(n_d, m, n))
+    rhovs = (0.1 * np.logspace(-2, 2, n_lad))[None, :, None] * np.ones((n_d, 1, m))
+    Minvs = np.linalg.inv((H @ H.transpose(0, 2, 1) + n * np.eye(n))[:, None]
+                          + np.einsum("dmn,dkm,dmj->dknj", A, rhovs, A))
+    x = rng.normal(size=(B, n)) * 0.1
+    Ax = np.einsum("bmn,bn->bm", A[lcn], x)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    return [t(Minvs), t(A), lc, torch.tensor(rng.integers(0, n_lad, B), dtype=torch.int32,
+                                             device=dev),
+            t(rng.normal(size=(B, n))), t(Ax - 0.2), t(Ax + 0.6), t(rhovs), t(x), t(Ax),
+            t(rng.normal(size=(B, m)) * 0.5),
+            torch.tensor(rng.random(B) >= 0.2, device=dev), 10, 1e-6, 1.6]
+
+
+def gi_layout_inputs(torch, ops, dev, lc, n=6, m=24, cap=3, seed=0):
+    """float64 GI solve inputs of gi_random_inputs' kind with P and A per
+    controller of ``lc`` (bounds per lane, around its controller's rows) and
+    junk dual warm starts on half the lanes."""
+    rng = np.random.default_rng(seed)
+    lcn = lc.cpu().numpy()
+    B, n_d = lcn.size, int(lcn.max()) + 1
+    H = rng.normal(size=(n_d, n, n))
+    P = H @ H.transpose(0, 2, 1) + n * np.eye(n)
+    A = rng.normal(size=(n_d, m, n))
+    Ax = np.einsum("bmn,bn->bm", A[lcn], rng.normal(size=(B, n)) * 0.1)
+    margin = rng.uniform(0.05, 1.0, size=(B, m))
+    l = np.where(rng.random((B, m)) < 0.3, -1e20, Ax - margin)
+    Pinv = np.linalg.inv(P)
+    Pinv = Pinv @ (2.0 * np.eye(n) - P @ Pinv)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    y0 = t(rng.normal(size=(B, m)) * (rng.random((B, 1)) < 0.5))
+    rec = {}
+
+    def capture(*args):
+        rec["args"] = _clone(args)
+        return ops.gi_solve_reference(*args)
+    ops.solve_qp_active(t(P), t(rng.normal(size=(B, n))), t(A), t(l), t(Ax + margin), y0,
+                        lane_ctrl=lc, cache=dict(gic_Pinv=t(Pinv)), max_active=cap,
+                        solve=capture)
+    return rec["args"]
+
+
+def sweep_layout_check(torch, ops, dev, lname, lc, n, m, dt, warp_lanes):
+    """The sweep kernel against its plain version on ``layout_sweep_inputs``
+    for the lane map ``lc``, with ``admm_kernel.WARP_LANES_PER_SM`` set to
+    ``warp_lanes`` for the call: x, z, y to F32_TOL·(1 + max|plain|) in
+    float32 and 1e-10 in float64, frozen lanes bit-unchanged.  Returns the
+    largest error."""
+    from mpc_tpu_torch.ops import admm_kernel
+    default = admm_kernel.WARP_LANES_PER_SM
+    variant = "warp a lane" if n <= 32 and warp_lanes == 0 else "lanes in step"
+    admm_kernel.WARP_LANES_PER_SM = warp_lanes
+    args = layout_sweep_inputs(torch, dev, lc, n, m, dt)
+    base = dict(zip(SWEEP_ARGS, args[:12]))
+    runs = {}
+    try:
+        for label, fn in (("kernel", ops.admm_sweep), ("plain", ops.admm_sweep_reference)):
+            a = {k: v.clone() for k, v in base.items()}
+            fn(*(a[k] for k in SWEEP_ARGS), *args[12:])
+            runs[label] = a
+        torch.cuda.synchronize()
+    finally:
+        admm_kernel.WARP_LANES_PER_SM = default
+    off = ~base["active"]
+    errs = []
+    for k in ("x", "z", "y"):
+        ker, pln = runs["kernel"][k], runs["plain"][k]
+        err = (ker - pln).abs().max().item()
+        tol = (F32_TOL * (1.0 + pln.abs().max().item())
+               if dt == torch.float32 else 1e-10)
+        check(np.isfinite(err) and err <= tol, f"sweep layout {lname} n={n} m={m} "
+              f"{dt}: {k} differs by {err:.3e} > {tol:.3e}")
+        for label in runs:
+            check(torch.equal(runs[label][k][off], base[k][off]),
+                  f"sweep layout {lname} n={n}: the {label} sweep moved frozen {k}")
+        errs.append(err)
+    print(f"sweep layout {lname}: B={lc.numel()} n_d={int(lc.max()) + 1} n={n} "
+          f"m={m} {dt} ({variant}): {int(base['active'].sum())} lanes active, frozen lanes "
+          f"unchanged, max |kernel - plain| x/z/y "
+          + " ".join(f"{e:.3e}" for e in errs), flush=True)
+    return max(errs)
+
+
+def layout_phase(torch, ops, dev):
+    """3b: each kernel against its plain version on every lane layout of
+    ``layouts``: the sweep at the headline (n=5, m=101) shape in float32
+    and float64, each in both variants (a warp a lane and the lanes in step,
+    forced through ``admm_kernel.WARP_LANES_PER_SM``), and at the 8x8/Hp=15
+    (n=33, m=577) shape in float32 (F32_TOL·(1 + max|plain|) on each of x,
+    z, y; 1e-10 in float64), frozen lanes bit-unchanged; then QPs wider than
+    the lanes-in-step block's 256 threads (n=300, m=20, one controller, B=1
+    and B=2112: one lane and two lanes a block) in both types; the GI
+    solve on float64 random QPs (n=6, m=24, cap 3): equal flags, iterations
+    and active sets, x to 1e-12·(1 + max|x|)."""
+    from mpc_tpu_torch.ops import admm_kernel
+    worst = {"admm_sweep": 0.0, "gi_solve": 0.0}
+    default = admm_kernel.WARP_LANES_PER_SM
+    i32 = lambda k: torch.zeros(k, dtype=torch.int32, device=dev)
+    for lname, lc in (("wide B=1", i32(1)), ("wide n_d=1", i32(2112))):
+        for dt in (torch.float32, torch.float64):
+            worst["admm_sweep"] = max(worst["admm_sweep"], sweep_layout_check(
+                torch, ops, dev, lname, lc, 300, 20, dt, default))
+    for lname, lc in layouts(torch, dev).items():
+        for n, m, dt, warp_lanes in ((5, 101, torch.float32, 0), (5, 101, torch.float32, 10**9),
+                                     (33, 577, torch.float32, default),
+                                     (5, 101, torch.float64, 0), (5, 101, torch.float64, 10**9)):
+            worst["admm_sweep"] = max(worst["admm_sweep"], sweep_layout_check(
+                torch, ops, dev, lname, lc, n, m, dt, warp_lanes))
+        if lname == "n_d=B":
+            continue          # the GI random_f64 case is this layout at B=4096
+        args = gi_layout_inputs(torch, ops, dev, lc)
+        out = {}
+        for label, fn in (("kernel", ops.gi_solve), ("plain", ops.gi_solve_reference)):
+            a = _clone(args)
+            x, _, it, conv = fn(*a)
+            out[label] = (x, it, conv, a[6])
+        torch.cuda.synchronize()
+        (xk, itk, ck, ik), (xp, itp, cp, ip) = out["kernel"], out["plain"]
+        err = (xk - xp).abs().max().item()
+        tol = 1e-12 * (1.0 + xp.abs().max().item())
+        B = lc.numel()
+        print(f"GI layout {lname}: B={B} n_d={int(lc.max()) + 1} f64 n=6 m=24 cap 3: "
+              f"converged {int(ck.sum())}/{B}, equal flags {int((ck == cp).sum())}, "
+              f"iterations {int((itk == itp).sum())}, active sets "
+              f"{int((ik == ip).all(1).sum())}; max |x kernel - x plain| {err:.3e} "
+              f"(tol {tol:.3e})", flush=True)
+        check(torch.equal(ck, cp) and torch.equal(itk, itp) and torch.equal(ik, ip),
+              f"GI layout {lname}: flags, iterations or active sets differ")
+        check(np.isfinite(err) and err <= tol, f"GI layout {lname}: x differs by {err:.3e}")
+        worst["gi_solve"] = max(worst["gi_solve"], err)
+    return worst
 
 
 SOLVERS = (("admm", "admm_sweep", "sweep"), ("active_set", "gi_solve", "gi"))
@@ -809,7 +1094,7 @@ def main():
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build['seconds']:.2f} s)")
     for line in _build.last_build["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
     # --- 5. small float64 fleet: card (kernel) vs CPU (plain) ------------
@@ -840,16 +1125,23 @@ def main():
                                              pallas_test_batch(torch, dev)),
         "headline": kernel_vs_plain(torch, ops, "headline", head_args),
         "large_8x8_hp15": kernel_vs_plain(torch, ops, "large_8x8_hp15", large_args),
+        # the same lanes x16 (B=4096): the lanes-in-step variant's shared A
+        # reads, two lanes a block
+        "large_8x8_hp15_B4096": kernel_vs_plain(torch, ops, "large_8x8_hp15_B4096",
+                                                tile_lanes(large_args, 16)),
     }
+
+    # --- 3b. every lane layout, kernel vs plain ----------------------------
+    layout_worst = layout_phase(torch, ops, dev)
 
     # --- 4. size guards ----------------------------------------------------
     n, m, Bg = 64, 1024, 2
     z = lambda *s, dt=torch.float32: torch.zeros(s, device=dev, dtype=dt)
     zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
     try:
-        ops.admm_sweep(z(Bg, n, n), z(1, m, n), zi(Bg),
-                       z(Bg, n), z(Bg, m), z(Bg, m), z(Bg, m) + 1, z(Bg, n), z(Bg, m),
-                       z(Bg, m), torch.ones(Bg, dtype=torch.bool, device=dev), 1, 1e-6, 1.6)
+        ops.admm_sweep(z(1, 1, n, n), z(1, m, n), zi(Bg), zi(Bg), z(Bg, n), z(Bg, m),
+                       z(Bg, m), z(1, 1, m) + 1, z(Bg, n), z(Bg, m), z(Bg, m),
+                       torch.ones(Bg, dtype=torch.bool, device=dev), 1, 1e-6, 1.6)
         raise Fail("size guard: n=64, m=1024 float32 was not refused")
     except ValueError as err:
         print(f"size guard: n={n} m={m} refused ({err})")
@@ -865,6 +1157,7 @@ def main():
 
     # --- 6. the ADMM main path -------------------------------------------
     admm_launches, _ = drive(torch, ops, "headline-ADMM", fleet, loop, 12)
+    per_period = {"headline-ADMM": admm_launches["admm_sweep"] / 16}
     check(admm_launches["admm_sweep"] > 0,
           "headline-ADMM main path: the ADMM kernel was never launched")
 
@@ -912,6 +1205,7 @@ def main():
         launches, _ = drive(torch, ops, name, gfleet, gloop, n_step)
         check(launches["gi_solve"] > 0, f"{name} main path: the GI kernel was never launched")
         gi_launches += launches["gi_solve"]
+        per_period[name] = launches["gi_solve"] / (n_step + 4)
         plain_period(torch, name, gfleet, gloop, "gi", ops.gi_solve, ops.gi_solve_reference)
         del gfleet
 
@@ -928,24 +1222,40 @@ def main():
     print(f"single-README: moveinput median ADMM {readme['admm']['moveinput_ms']:.3f} ms, "
           f"GI {readme['active_set']['moveinput_ms']:.3f} ms (float64, B=1)", flush=True)
 
-    head = checks["headline"]
-    print(json.dumps({"kernels": [{
-        "name": "admm_sweep", "route": "cuda",
-        "source": "mpc_tpu_torch/csrc/admm_sweep.cu",
-        "replaces": "mpc_tpu/ops/pallas_qp.py:31",
-        "launches": admm_launches["admm_sweep"],
-        "max_abs_err": max([c["err"] for c in checks.values()]
-                           + [readme["admm"]["err"], unc["admm"]["err"]]),
-        "ms": head["ms"], "plain_ms": head["plain_ms"]}, {
-        "name": "gi_solve", "route": "cuda",
-        "source": "mpc_tpu_torch/csrc/gi_solve.cu",
-        "replaces": "docs/pallas_gi_experiment.py:84 + mpc_tpu/ops/qp_active.py:407",
-        "launches": gi_launches,
-        "max_abs_err": max([c["err"] for c in gi_checks.values()]
-                           + [readme["active_set"]["err"], unc["gi n=6"]["err"],
-                              unc["gi n=12"]["err"]]),
-        "ms": gi_checks["headline-GI"]["ms"],
-        "plain_ms": gi_checks["headline-GI"]["plain_ms"]}]}))
+    # --- the kernels line: times, bounds and residency at the main paths' shapes
+    head, hgi, lgi = checks["headline"], gi_checks["headline-GI"], gi_checks["large-GI"]
+    res = {"admm headline": admm_residency(torch, ops, _build, head["args"]),
+           "admm 8x8": admm_residency(torch, ops, _build, checks["large_8x8_hp15"]["args"]),
+           "admm 8x8 B=4096": admm_residency(torch, ops, _build,
+                                             checks["large_8x8_hp15_B4096"]["args"]),
+           "gi headline-GI": gi_residency(torch, _build, hgi["args"]),
+           "gi large-GI": gi_residency(torch, _build, lgi["args"])}
+    for k, (lanes, geo) in res.items():
+        print(f"residency {k}: {lanes} lanes per SM ({geo})", flush=True)
+    print(f"launches per period: {per_period}", flush=True)
+    shares = {k: c["bound_ms"] / c["ms"] for k, c in
+              list(checks.items()) + list(gi_checks.items())}
+    print(f"roofline shares: {json.dumps(shares)}", flush=True)
+
+    def entry(name, source, replaces, launches, err, c, lpp, lanes):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": None,
+                "roofline_share": c["bound_ms"] / c["ms"],
+                "launches_per_period": lpp, "resident_lanes_per_sm": lanes}
+    print(json.dumps({"kernels": [
+        entry("admm_sweep", "mpc_tpu_torch/csrc/admm_sweep.cu",
+              "mpc_tpu/ops/pallas_qp.py:31", admm_launches["admm_sweep"],
+              max([c["err"] for c in checks.values()]
+                  + [readme["admm"]["err"], unc["admm"]["err"], layout_worst["admm_sweep"]]),
+              head, per_period["headline-ADMM"], res["admm headline"][0]),
+        entry("gi_solve", "mpc_tpu_torch/csrc/gi_solve.cu",
+              "docs/pallas_gi_experiment.py:84 + mpc_tpu/ops/qp_active.py:407", gi_launches,
+              max([c["err"] for c in gi_checks.values()]
+                  + [readme["active_set"]["err"], unc["gi n=6"]["err"],
+                     unc["gi n=12"]["err"], layout_worst["gi_solve"]]),
+              hgi, per_period["headline-GI"], res["gi headline-GI"][0])]}))
     print(f"total {time.perf_counter() - t_start:.1f} s after the card check")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,38 +12,58 @@
 //   z   ← clip(ẑ + y/ρ, l, u)
 //   y   ← y + ρ∘(ẑ − z)
 //
-// Layout: one thread block per lane.  The lane's A (read through lane_ctrl
-// from the n_d distinct controllers, so every replica of a controller reads
-// the same rows out of L2), its Minv, q, l, u, ρ and the iterates x, z, y go
-// into dynamic shared memory once, all `iters` sweeps run there, and x, z, y
-// are written back once.  Threads stride over the m constraint rows for A·x̃,
-// the projection and the dual update; Aᵀ(ρ∘z − y) is a per-column warp-shuffle
-// reduction over the rows followed by a sum over the block's warps.
+// Layout: one thread block per group of lanes of ONE controller (the table of
+// utils/lanes.py::lane_blocks).  The block copies the controller's A into
+// shared memory once with asynchronous copies (cp.async) for all its lanes.
+// Each lane reads its Minv and ρ from the controller's ρ ladder through its
+// rung: Minvs (n_d, n_lad, n, n) and rhovs (n_d, n_lad, m), so no per-lane
+// copy of either is gathered in device memory.  Two variants, chosen by
+// ops/admm_kernel.py::launch_geometry:
 //
-// What bounds it: per sweep a lane does ~2mn + n² multiply-adds, 4mn + 2n²
-// flops (2,070 at the 2x2 Hp=10 headline, n=5, m=101), behind four block
-// barriers, and reads A twice from shared memory, so a sweep is a
-// few microseconds of dependent shared-memory latency, not bandwidth or FLOPs.
-// The design answers that with many independent lanes in flight (B blocks of
-// at most 256 threads, small enough that several share an SM) and with device
-// memory touched only at the start and the end of a launch.  Lanes whose
-// `active` flag is 0 return at once and leave x, z, y untouched: that is the
-// lockstep freeze of the reference's vmapped while_loop.
+// * admm_warp_kernel, n ≤ 32 and a batch of at least 8 lanes per SM: one
+//   warp per lane, warp-synchronous, up to 16 lanes a block.  A lane's l, u,
+//   ρ, z, y and Minv live in the warp's slice of shared memory; thread j < n
+//   holds xⱼ and qⱼ in registers.  Aᵀv, v = ρ∘z − y, is split over ⌊32/n⌋
+//   row classes × n columns (one partial sum a thread), then summed per
+//   column; Minv·rhs is a thread per output; A·x̃ and the projection are a
+//   thread per row.  Three __syncwarp() a sweep, no block barrier after the
+//   load.
+// * admm_group_kernel, n > 32 or a smaller batch: the block's ACTIVE lanes
+//   run the `iters` sweeps in step on 256 threads.  Aᵀv and A·x̃ are small
+//   products over those lanes, register-tiled: a thread reads one A element
+//   from shared memory and applies it to every lane of the block (kGroup =
+//   2 accumulators), so A is read once per pair of lanes instead of once
+//   per lane.  Block barriers separate the three phases of a sweep.  Two
+//   lanes a block only while the batch leaves two blocks per SM: at
+//   8x8/Hp=15, B=256, that is one lane a block, 8 warps on it; at B=4096,
+//   two.  Four or eight lanes a block (one block an SM) were slower there.
+//   The tensor cores are not used: f32 would need TF32, which keeps ~3 digits
+//   against the kernel's 1e-4·(1 + max|plain|) bar, and the f64 path (DMMA,
+//   mma.sync m8n8k4) is left for later work.
+//
+// What bounds it on this card (NVIDIA H100 SXM: 3.35 TB/s, 67 TFLOP/s f32):
+// per lane and sweep ~4mn + 2n² flops (2,070 at the 2x2 Hp=10 headline, n=5,
+// m=101; 83.5k at 8x8 Hp=15, n=33, m=577), against one read of l, u, z, y,
+// x, q (and the ladder entries) and one write of x, z, y per launch: ~2.4 µs
+// of device memory at the headline (B=4096, 10 sweeps), ~2.8 µs of f32 FMA
+// at 8x8 (B=256).  The sweeps run from shared memory as chains of dependent
+// shared-memory reads, so the kernel is bound by latency per lane; the design
+// answers with many independent lanes in flight (32 per SM at the headline:
+// 2 blocks of 16 warps, as the occupancy calculator gives them) and A loaded
+// once per block.  Lanes whose `active` flag is 0 are skipped and leave x,
+// z, y untouched: that is the lockstep freeze of the reference's vmapped
+// while_loop.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// Upper bound on warps per block (ops/_build.py::MAX_WARPS); the host picks
-// at most 256 threads.  The host-side working-set formula
-// (ops/admm_kernel.py::smem_bytes) uses it too.
-constexpr int kMaxWarps = 8;
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
+constexpr int kMaxWarps = 16;   // ops/_build.py::MAX_WARPS
+constexpr int kWarpMinBlocks = 2;   // blocks of kMaxWarps warps an SM holds (64 registers)
+constexpr int kGroup = 2;       // lanes in step in a block, at most (ops/admm_kernel.py::GROUP)
+constexpr int kGroupThreads = 256;
+constexpr int kMaxParts = 16;  // row classes of the grouped Aᵀv split, at most
 
 template <typename T>
 __device__ __forceinline__ T clip(T v, T lo, T hi) {
@@ -52,136 +72,350 @@ __device__ __forceinline__ T clip(T v, T lo, T hi) {
 }
 
 template <typename T>
-__global__ void admm_sweep_kernel(const T* __restrict__ Minv, const T* __restrict__ A,
-                                  const int32_t* __restrict__ lane_ctrl,
-                                  const T* __restrict__ q, const T* __restrict__ l,
-                                  const T* __restrict__ u, const T* __restrict__ rho,
-                                  T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
-                                  const uint8_t* __restrict__ active, int n, int m,
-                                  int iters, T sigma, T alpha) {
-  const int b = blockIdx.x;
-  if (!active[b]) return;
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int count, int t, int nt) {
+  for (int e = t; e < count; e += nt) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sA = reinterpret_cast<T*>(smem_raw);  // m*n, row-major
-  T* sM = sA + (size_t)m * n;              // n*n, row-major
-  T* sq = sM + (size_t)n * n;              // n
-  T* sx = sq + n;                          // n
-  T* srhs = sx + n;                        // n
-  T* sxt = srhs + n;                       // n
-  T* sl = sxt + n;                         // m
-  T* su = sl + m;                          // m
-  T* srho = su + m;                        // m
-  T* sz = srho + m;                        // m
-  T* sy = sz + m;                          // m
-  T* sred = sy + m;                        // kMaxWarps*n
+__host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
 
+// shared memory, in the order of ops/admm_kernel.py::smem_bytes
+template <typename T>
+__host__ __device__ size_t warp_slice(int n, int m) {
+  return align16(sizeof(T) * (5 * (size_t)m + n * n + 2 * n + (32 / n) * n));
+}
+template <typename T>
+__host__ __device__ size_t group_lane(int n, int m) {
+  return align16(sizeof(T) * (6 * (size_t)m + 4 * n));
+}
+// row classes of the grouped Aᵀv split: as many as the threads allow, up to
+// kMaxParts, so that small n does not end in a long serial sum of partials;
+// one when n > kGroupThreads, each thread then taking several columns
+__host__ __device__ inline int group_parts(int n) {
+  const int p = kGroupThreads / n;
+  return p < 1 ? 1 : (p > kMaxParts ? kMaxParts : p);
+}
+template <typename T>
+__host__ __device__ size_t group_part(int n, int width) {
+  return align16(sizeof(T) * (size_t)group_parts(n) * width * n);
+}
+
+// ---- one warp per lane (n ≤ 32) ------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(32 * kMaxWarps, kWarpMinBlocks)
+admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
+                 const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
+                 int width, const int32_t* __restrict__ rung, const T* __restrict__ q,
+                 const T* __restrict__ l, const T* __restrict__ u, const T* __restrict__ rhovs,
+                 T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
+                 const uint8_t* __restrict__ active, int n, int m, int n_lad, int iters,
+                 T sigma, T alpha) {
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int nwarps = nt >> 5;
-  const size_t bn = (size_t)b * n;
-  const size_t bm = (size_t)b * m;
+  const int c = block_ctrl[blockIdx.x];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sA = reinterpret_cast<T*>(smem_raw);                       // m*n
+  unsigned char* wsm = smem_raw + align16(sizeof(T) * (size_t)m * n) + warp * warp_slice<T>(n, m);
+  T* sl = reinterpret_cast<T*>(wsm);   // m
+  T* su = sl + m;                      // m
+  T* srho = su + m;                    // m
+  T* sz = srho + m;                    // m
+  T* sy = sz + m;                      // m
+  T* sM = sy + m;                      // n*n  the lane's Minv
+  T* srhs = sM + n * n;                // n
+  T* sxt = srhs + n;                   // n    x̃
+  T* spart = sxt + n;                  // (32/n)*n partial sums of Aᵀv
 
-  const T* Ab = A + (size_t)lane_ctrl[b] * m * n;
-  for (int i = tid; i < m * n; i += nt) sA[i] = Ab[i];
-  const T* Mb = Minv + (size_t)b * n * n;
-  for (int i = tid; i < n * n; i += nt) sM[i] = Mb[i];
-  for (int j = tid; j < n; j += nt) {
-    sq[j] = q[bn + j];
-    sx[j] = x[bn + j];
-  }
-  for (int i = tid; i < m; i += nt) {
-    sl[i] = l[bm + i];
-    su[i] = u[bm + i];
-    srho[i] = rho[bm + i];
-    sz[i] = z[bm + i];
-    sy[i] = y[bm + i];
-  }
+  copy_async(sA, A + (size_t)c * m * n, m * n, tid, blockDim.x);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
 
+  const int b = warp < width ? table[(size_t)blockIdx.x * width + warp] : -1;
+  if (b < 0 || !active[b]) return;
+  const size_t bn = (size_t)b * n, bm = (size_t)b * m;
+  const size_t rg = (size_t)c * n_lad + rung[b];
+  copy_async(sl, l + bm, m, lane, 32);
+  copy_async(su, u + bm, m, lane, 32);
+  copy_async(srho, rhovs + rg * m, m, lane, 32);
+  copy_async(sz, z + bm, m, lane, 32);
+  copy_async(sy, y + bm, m, lane, 32);
+  copy_async(sM, Minvs + rg * n * n, n * n, lane, 32);
+  __pipeline_commit();
+  T xj = T(0), qj = T(0);
+  if (lane < n) {
+    xj = x[bn + lane];
+    qj = q[bn + lane];
+  }
+  __pipeline_wait_prior(0);
+  __syncwarp();
+
+  const int parts = 32 / n;            // row classes of the Aᵀv split
+  const int pj = lane % n, pp = lane / n;
   const T one_m_alpha = T(1) - alpha;
   for (int it = 0; it < iters; ++it) {
-    // Aᵀ(ρ∘z − y): this thread's rows, then the warp, per column
-    for (int j = 0; j < n; ++j) {
+    // Aᵀv: thread (pp, pj) sums the rows i ≡ pp (mod parts) of column pj
+    if (pp < parts) {
       T acc = T(0);
-      for (int i = tid; i < m; i += nt) acc += sA[(size_t)i * n + j] * (srho[i] * sz[i] - sy[i]);
-      acc = warp_sum(acc);
-      if (lane == 0) sred[warp * n + j] = acc;
+#pragma unroll 4
+      for (int i = pp; i < m; i += parts)
+        acc += sA[(size_t)i * n + pj] * (srho[i] * sz[i] - sy[i]);
+      spart[pp * n + pj] = acc;
     }
-    __syncthreads();
-    for (int j = tid; j < n; j += nt) {
+    __syncwarp();
+    if (lane < n) {
       T s = T(0);
-      for (int w = 0; w < nwarps; ++w) s += sred[w * n + j];
-      srhs[j] = sigma * sx[j] - sq[j] + s;
+      for (int p = 0; p < parts; ++p) s += spart[p * n + lane];
+      srhs[lane] = sigma * xj - qj + s;
     }
-    __syncthreads();
-    for (int j = tid; j < n; j += nt) {
+    __syncwarp();
+    if (lane < n) {
       T s = T(0);
-      for (int k = 0; k < n; ++k) s += sM[(size_t)j * n + k] * srhs[k];
-      sxt[j] = s;
-      sx[j] = alpha * s + one_m_alpha * sx[j];
+      for (int k = 0; k < n; ++k) s += sM[lane * n + k] * srhs[k];
+      sxt[lane] = s;
+      xj = alpha * s + one_m_alpha * xj;
     }
-    __syncthreads();
-    for (int i = tid; i < m; i += nt) {
+    __syncwarp();
+    for (int i = lane; i < m; i += 32) {
       T zt = T(0);
+#pragma unroll 4
       for (int j = 0; j < n; ++j) zt += sA[(size_t)i * n + j] * sxt[j];
       const T zp = alpha * zt + one_m_alpha * sz[i];
       const T zn = clip(zp + sy[i] / srho[i], sl[i], su[i]);
-      sy[i] = sy[i] + srho[i] * (zp - zn);
+      const T yn = sy[i] + srho[i] * (zp - zn);
+      sy[i] = yn;
       sz[i] = zn;
     }
-    __syncthreads();
+    __syncwarp();
   }
-
-  for (int j = tid; j < n; j += nt) x[bn + j] = sx[j];
-  for (int i = tid; i < m; i += nt) {
+  if (lane < n) x[bn + lane] = xj;
+  for (int i = lane; i < m; i += 32) {
     z[bm + i] = sz[i];
     y[bm + i] = sy[i];
   }
 }
 
+// ---- the block's active lanes in step (n > 32, or a small batch) -------------
+// W lane slices (the table's width): the block's active lanes fill the
+// first nact, and the products run over all W with no per-lane test in the
+// inner loops; a slice past nact computes on whatever it holds and is never
+// read back.
+template <typename T, int W>
+__global__ void __launch_bounds__(kGroupThreads)
+admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
+                  const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
+                  int width, const int32_t* __restrict__ rung, const T* __restrict__ q,
+                  const T* __restrict__ l, const T* __restrict__ u, const T* __restrict__ rhovs,
+                  T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
+                  const uint8_t* __restrict__ active, int n, int m, int n_lad, int iters,
+                  T sigma, T alpha) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int c = block_ctrl[blockIdx.x];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_lane[W];
+  __shared__ int s_nact;
+  T* sA = reinterpret_cast<T*>(smem_raw);                       // m*n
+  unsigned char* lanes0 = smem_raw + align16(sizeof(T) * (size_t)m * n);
+  const size_t lane_bytes = group_lane<T>(n, m);
+  T* spart = reinterpret_cast<T*>(lanes0 + W * lane_bytes);     // parts*W*n
+  // lane w's slice: l, u, ρ, z, y, v = ρ∘z − y (m each), then x, q, rhs, x̃ (n each)
+  T* S[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) S[w] = reinterpret_cast<T*>(lanes0 + w * lane_bytes);
+
+  if (tid == 0) {
+    int k = 0;
+    for (int s = 0; s < width; ++s) {
+      const int b = table[(size_t)blockIdx.x * width + s];
+      if (b >= 0 && active[b]) s_lane[k++] = b;
+    }
+    s_nact = k;
+  }
+  __syncthreads();
+  const int nact = s_nact;
+  if (nact == 0) return;
+  copy_async(sA, A + (size_t)c * m * n, m * n, tid, nt);
+  for (int w = 0; w < nact; ++w) {
+    const size_t b = s_lane[w];
+    const size_t rg = (size_t)c * n_lad + rung[b];
+    copy_async(S[w], l + b * m, m, tid, nt);
+    copy_async(S[w] + m, u + b * m, m, tid, nt);
+    copy_async(S[w] + 2 * m, rhovs + rg * m, m, tid, nt);
+    copy_async(S[w] + 3 * m, z + b * m, m, tid, nt);
+    copy_async(S[w] + 4 * m, y + b * m, m, tid, nt);
+    copy_async(S[w] + 6 * m, x + b * n, n, tid, nt);
+    copy_async(S[w] + 6 * m + n, q + b * n, n, tid, nt);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int e = tid; e < nact * m; e += nt) {
+    T* L = S[e / m];
+    const int i = e % m;
+    L[5 * m + i] = L[2 * m + i] * L[3 * m + i] - L[4 * m + i];
+  }
+  __syncthreads();
+
+  const int parts = group_parts(n);
+  const T one_m_alpha = T(1) - alpha;
+  for (int it = 0; it < iters; ++it) {
+    // Aᵀv over the block's lanes: split (pp, pj) sums the rows
+    // i ≡ pp (mod parts) of column pj for every lane, one A read for all;
+    // a thread takes one split, or several when n > kGroupThreads
+    for (int e = tid; e < parts * n; e += nt) {
+      const int pp = e / n, pj = e - pp * n;
+      T acc[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[w] = T(0);
+#pragma unroll 2
+      for (int i = pp; i < m; i += parts) {
+        const T a = sA[(size_t)i * n + pj];
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[w] += a * S[w][5 * m + i];
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) spart[((size_t)pp * W + w) * n + pj] = acc[w];
+    }
+    __syncthreads();
+    for (int e = tid; e < nact * n; e += nt) {
+      const int w = e / n, j = e % n;
+      T* L = S[w];
+      T s = T(0);
+      for (int p = 0; p < parts; ++p) s += spart[((size_t)p * W + w) * n + j];
+      L[6 * m + 2 * n + j] = sigma * L[6 * m + j] - L[6 * m + n + j] + s;
+    }
+    __syncthreads();
+    // x̃ = Minv rhs, each lane with its rung's Minv (read through L1)
+    for (int e = tid; e < nact * n; e += nt) {
+      const int w = e / n, j = e % n;
+      T* L = S[w];
+      const T* M = Minvs + ((size_t)c * n_lad + rung[s_lane[w]]) * n * n + (size_t)j * n;
+      T s = T(0);
+#pragma unroll 4
+      for (int k = 0; k < n; ++k) s += __ldg(M + k) * L[6 * m + 2 * n + k];
+      L[6 * m + 3 * n + j] = s;
+      L[6 * m + j] = alpha * s + one_m_alpha * L[6 * m + j];
+    }
+    __syncthreads();
+    // A·x̃ and the projection: a thread per row, one A read for all lanes
+    for (int i = tid; i < m; i += nt) {
+      T acc[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[w] = T(0);
+#pragma unroll 2
+      for (int j = 0; j < n; ++j) {
+        const T a = sA[(size_t)i * n + j];
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[w] += a * S[w][6 * m + 3 * n + j];
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        T* L = S[w];
+        const T rho = L[2 * m + i], yo = L[4 * m + i];
+        const T zp = alpha * acc[w] + one_m_alpha * L[3 * m + i];
+        const T zn = clip(zp + yo / rho, L[i], L[m + i]);
+        const T yn = yo + rho * (zp - zn);
+        L[4 * m + i] = yn;
+        L[3 * m + i] = zn;
+        L[5 * m + i] = rho * zn - yn;
+      }
+    }
+    __syncthreads();
+  }
+  for (int w = 0; w < nact; ++w) {
+    const size_t b = s_lane[w];
+    for (int j = tid; j < n; j += nt) x[b * n + j] = S[w][6 * m + j];
+    for (int i = tid; i < m; i += nt) {
+      z[b * m + i] = S[w][3 * m + i];
+      y[b * m + i] = S[w][4 * m + i];
+    }
+  }
+}
+
+// the group kernel for a table `width` (≤ kGroup) wide
 template <typename T>
-int launch(const void* Minv, const void* A, const void* lane_ctrl, const void* q,
-           const void* l, const void* u, const void* rho, void* x, void* z, void* y,
-           const void* active, int B, int n, int m, int iters, int threads,
-           int smem_bytes, double sigma, double alpha, void* stream) {
-  if (B <= 0 || iters <= 0) return 0;
-  if (threads <= 0 || threads % 32 != 0 || threads > 32 * kMaxWarps) return (int)cudaErrorInvalidValue;
+const void* group_kernel(int width) {
+  return width <= 1 ? (const void*)admm_group_kernel<T, 1> : (const void*)admm_group_kernel<T, 2>;
+}
+
+template <typename T>
+int launch(const void* Minvs, const void* A, const void* table, const void* block_ctrl,
+           const void* rung, const void* q, const void* l, const void* u, const void* rhovs,
+           void* x, void* z, void* y, const void* active, int n_blocks, int width, int warps,
+           int grouped, int n, int m, int n_lad, int iters, int smem_bytes, double sigma,
+           double alpha, void* stream) {
+  if (n_blocks <= 0 || iters <= 0) return 0;
+  if (n < 1 || m < 1 || n_lad < 1 || width < 1) return (int)cudaErrorInvalidValue;
+  if (!grouped && n > 32) return (int)cudaErrorInvalidValue;
+  const bool by_warp = !grouped;
+  size_t need;
+  int threads;
+  if (by_warp) {
+    if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+    need = align16(sizeof(T) * (size_t)m * n) + warps * warp_slice<T>(n, m);
+    threads = 32 * warps;
+  } else {
+    if (width > kGroup) return (int)cudaErrorInvalidValue;
+    need = align16(sizeof(T) * (size_t)m * n) + width * group_lane<T>(n, m) +
+           group_part<T>(n, width);
+    threads = kGroupThreads;
+  }
+  if ((size_t)smem_bytes != need) return (int)cudaErrorInvalidValue;
+  const void* fn = by_warp ? (const void*)admm_warp_kernel<T> : group_kernel<T>(width);
   if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(admm_sweep_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  admm_sweep_kernel<T><<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(Minv), static_cast<const T*>(A),
-      static_cast<const int32_t*>(lane_ctrl), static_cast<const T*>(q),
-      static_cast<const T*>(l), static_cast<const T*>(u), static_cast<const T*>(rho),
-      static_cast<T*>(x), static_cast<T*>(z), static_cast<T*>(y),
-      static_cast<const uint8_t*>(active), n, m, iters, static_cast<T>(sigma),
-      static_cast<T>(alpha));
+  using Kern = void (*)(const T*, const T*, const int32_t*, const int32_t*, int, const int32_t*,
+                        const T*, const T*, const T*, const T*, T*, T*, T*, const uint8_t*, int,
+                        int, int, int, T, T);
+  auto kern = reinterpret_cast<Kern>(const_cast<void*>(fn));
+  kern<<<n_blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(Minvs), static_cast<const T*>(A),
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(block_ctrl), width,
+      static_cast<const int32_t*>(rung), static_cast<const T*>(q), static_cast<const T*>(l),
+      static_cast<const T*>(u), static_cast<const T*>(rhovs), static_cast<T*>(x),
+      static_cast<T*>(z), static_cast<T*>(y), static_cast<const uint8_t*>(active), n, m, n_lad,
+      iters, static_cast<T>(sigma), static_cast<T>(alpha));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mpc_admm_sweep_f32(const void* Minv, const void* A, const void* lane_ctrl,
-                                  const void* q, const void* l, const void* u,
-                                  const void* rho, void* x, void* z, void* y,
-                                  const void* active, int B, int n, int m, int iters,
-                                  int threads, int smem_bytes, double sigma, double alpha,
-                                  void* stream) {
-  return launch<float>(Minv, A, lane_ctrl, q, l, u, rho, x, z, y, active, B, n, m, iters,
-                       threads, smem_bytes, sigma, alpha, stream);
-}
+#define MPC_ADMM_ENTRY(NAME, T)                                                               \
+  extern "C" int NAME(const void* Minvs, const void* A, const void* table,                    \
+                      const void* block_ctrl, const void* rung, const void* q, const void* l, \
+                      const void* u, const void* rhovs, void* x, void* z, void* y,            \
+                      const void* active, int n_blocks, int width, int warps, int grouped,    \
+                      int n, int m, int n_lad, int iters, int smem_bytes, double sigma,       \
+                      double alpha, void* stream) {                                           \
+    return launch<T>(Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y, active,      \
+                     n_blocks, width, warps, grouped, n, m, n_lad, iters, smem_bytes, sigma,  \
+                     alpha, stream);                                                          \
+  }
 
-extern "C" int mpc_admm_sweep_f64(const void* Minv, const void* A, const void* lane_ctrl,
-                                  const void* q, const void* l, const void* u,
-                                  const void* rho, void* x, void* z, void* y,
-                                  const void* active, int B, int n, int m, int iters,
-                                  int threads, int smem_bytes, double sigma, double alpha,
-                                  void* stream) {
-  return launch<double>(Minv, A, lane_ctrl, q, l, u, rho, x, z, y, active, B, n, m, iters,
-                        threads, smem_bytes, sigma, alpha, stream);
+MPC_ADMM_ENTRY(mpc_admm_sweep_f32, float)
+MPC_ADMM_ENTRY(mpc_admm_sweep_f64, double)
+
+// Blocks of `threads` threads and `smem_bytes` of shared memory resident on
+// one SM (the runtime's occupancy calculator) for a variant and a table
+// `width`: one warp a lane, or (`grouped`) the lanes in step.  Returns −1 on
+// an error.
+extern "C" int mpc_admm_blocks_per_sm(int f64, int grouped, int width, int threads,
+                                      int smem_bytes) {
+  const void* fn = !grouped ? (f64 ? (const void*)admm_warp_kernel<double>
+                                   : (const void*)admm_warp_kernel<float>)
+                            : (f64 ? group_kernel<double>(width) : group_kernel<float>(width));
+  // as a launch does: raise the kernel's shared-memory limit above the default
+  // 48 KB only (a lower setting would refuse a later, larger launch)
+  if (smem_bytes > 48 * 1024 &&
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
+          cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem_bytes) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
 }

@@ -11,53 +11,63 @@
 // The plain torch version of the same contract is
 // mpc_tpu_torch/ops/gi_kernel.py::gi_solve_reference.
 //
-// Layout: one thread block per lane (blockIdx.x = lane), which runs that
-// lane's whole solve and exits on its own `done` or iteration cap: no lockstep
-// tail and no host synchronisation per pivot.  lane_ctrl[lane] picks the
-// controller whose A (data type) and P⁻¹ (slot type) are loaded once into
-// dynamic shared memory, beside l, u, the row norms (computed in-block), Ginv,
-// x, λ, the slot table Aact and the slot-space scratch.  Mixed precision is the
-// reference's (qp_active.py:187-204): the scan, its scale, v[j] and eps_d are
-// in the data type TD; x, λ, P⁻¹, Ginv and every pivot decision are in the slot
-// type TS (float64 on Hopper is native, so the f64 slot space of the TPU design
-// needs no emulation here).
+// Layout: one thread block per group of lanes of ONE controller (the table of
+// utils/lanes.py::lane_blocks, at most 32 lanes and ⌈B/SMs⌉ rounded up to a
+// power of two, so a small batch still spreads over the SMs), one warp per
+// lane, up to 16 warps.  The block copies the controller's A (data type TD)
+// and P⁻¹ (slot type TS) into shared memory once with asynchronous copies
+// (cp.async), computes the row norms ‖aᵢ‖ once, and passes one
+// __syncthreads(); from then on every warp runs a lane's whole solve on its
+// own and takes the block's next lane from a counter in shared memory when
+// it is done (a persistent block: no warp waits for the block's slowest
+// lane).  A lane's l, u, Ginv, x, λ, the slot table Aact and its slot-space
+// vectors live in the warp's own slice of shared memory.
 //
-// Per main-loop iteration: threads stride over the m rows for aᵢ·x_d, the
-// scaled violation and a block-wide argmax (warp shuffles, then one value per
-// warp in shared memory, ties to the lower row); the (n, n) and (ns, ns)
-// matvecs go with threads over output rows; the ns² rank-one update with
-// threads over entries.  The scalar decisions (t1, t2, do_add, do_drop,
-// restart, ...) are taken by thread 0, which holds the loop's scalar state in
-// registers and broadcasts through shared memory, with __syncthreads() between
-// phases.  Every argmax/argmin breaks ties toward the lower index, and NaN
-// counts as the extreme, as jnp.argmax/argmin do.
+// Warp-synchronous solve: the lane's scalar carry (it, done, p, the step
+// lengths, every pivot decision) is held by all 32 threads of the warp in
+// registers, each computing it from the same shared vectors, so it is the
+// same in every thread and no value is broadcast through shared memory.  The
+// vector phases stride the 32 threads over rows, variables or slots (two
+// outputs a thread in one pass above n = 32) and end in __syncwarp(); the
+// scan takes up to four rows a thread at once and its argmax is a butterfly
+// of warp shuffles that leaves the winner (value, row, aᵢ·x) in every thread.
+// There is no block barrier inside the warm or the main loop, and each warp
+// leaves on its own `done` or cap.  Mixed precision is the reference's
+// (qp_active.py:187-204): the scan, its scale and eps_d in the data type TD;
+// x, λ, P⁻¹, Ginv and every pivot decision in the slot type TS.  Each row's
+// aᵢ·x is one thread's sum in j order, every other sum keeps its order, and
+// every argmax/argmin breaks ties toward the lower index with NaN as the
+// extreme, as jnp.argmax/argmin do: on an H100 the kernel returns the same
+// bits as the one-block-per-lane design it replaces.
 //
-// What bounds it on this card: at headline shapes (n=5, m=101, ns=5) the
-// per-iteration latency of ~9 barriers in one small block, not bytes or FLOPs;
-// at large shapes (n=33, m=577, ns=8) the scan's m·n reads of A from shared
-// memory (19k per iteration).  The design answers with many independent lanes
-// in flight (B blocks of ≤ 256 threads; ~90 KB of shared memory at the large
-// shape, so two blocks share an SM), device memory touched only at the start
-// and the end of a launch, and per-lane exits so a slow lane never holds a
-// fast one.  A TMA/wgmma redesign is left to later work.
+// What bounds it on this card (NVIDIA H100 SXM: 3.35 TB/s, 67 TFLOP/s f32):
+// at headline-GI (B=4096, n=5, m=101) the bytes, ~6.5 MB read and written,
+// ~2 µs; at large-GI (n=33, m=577, 8 slots, f32) the scan's ~2mn flops per
+// pivot over the pivots a run takes, ~11 µs.  The kernel is far from either:
+// per pivot a lane runs a few dependent chains through shared memory (the
+// scan, P⁻¹aₚ, the Gram step, the x update), so it is bound by latency, and
+// a launch lasts as long as its slowest lanes (31 pivots at large-GI against
+// a mean of 3.7).  The design answers with residency and sharing: A is read
+// from device memory once per block instead of once per lane, and 32 lanes
+// are in flight per SM at the headline shapes (2 blocks of 16 warps, 64
+// registers a thread, some spill) and 16 at large-GI (one block of 16 warps
+// in 202 KB of shared memory, 128 registers), against 2 in the one-block-per-
+// lane design (206–211 registers).  The tensor cores are not used for the
+// scan: each lane pivots on its own private x, so the products are
+// matrix-vector, not matrix-matrix, and TF32 would move the f32 scan's argmax.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxWarps = 8;      // ops/_build.py::MAX_WARPS
-constexpr int kSlotScalars = 8;   // ops/gi_kernel.py::_SLOT_SCALARS
-constexpr int kIntScalars = 16;   // ops/gi_kernel.py::_INT_SCALARS
+constexpr int kMaxWarps = 16;     // ops/_build.py::MAX_WARPS
+constexpr int kSmemPerSM = 228 * 1024;   // shared memory of one SM
+constexpr int kSmemPerBlock = 1024;      // reserved by the runtime per block
+constexpr unsigned kFull = 0xffffffffu;
 constexpr double kBig = 1e18;     // ops.qp._BIG: bounds beyond are infinite
 constexpr double kTiny = 1e-30;
-
-// slot-type scalar cells
-enum { F_SPF, F_T, F_C1, F_C2, F_LAMPN, F_PIV };
-// int scalar cells
-enum { I_LIVE, I_INS, I_CAND, I_CSIDE, I_MODE, I_APP, I_KW, I_P, I_KB, I_FLAGS };
-// I_FLAGS bits of a main-loop iteration
-enum { B_ADD = 1, B_DROP = 2, B_RESTART = 4, B_UPDX = 8, B_KEEPSTEP = 16 };
 
 // jnp.maximum / jnp.minimum: NaN propagates
 template <typename T>
@@ -82,29 +92,153 @@ __device__ __forceinline__ bool before_min(T a, int ia, T b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
-template <typename TD, typename TS>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
-                const int32_t* __restrict__ lane_ctrl, const TD* __restrict__ q,
-                const TD* __restrict__ l, const TD* __restrict__ u,
-                int32_t* __restrict__ idx_g, int32_t* __restrict__ side_g,
-                uint8_t* __restrict__ vmask_g, TS* __restrict__ Ginv_g,
-                const int32_t* __restrict__ widx_g, const int32_t* __restrict__ wside_g,
-                const int32_t* __restrict__ wcnt_g, const int32_t* __restrict__ max_it_g,
-                TS* __restrict__ x_out, TS* __restrict__ lam_out,
-                int32_t* __restrict__ it_out, uint8_t* __restrict__ conv_out,
-                int n, int m, int ns, int warm, double tol) {
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nt >> 5;
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int count, int t, int nt) {
+  for (int e = t; e < count; e += nt) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
+}
 
-  // ---- shared memory, in the order of ops/gi_kernel.py::smem_bytes ----------
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TS* sP = reinterpret_cast<TS*>(smem_raw);  // n*n  P⁻¹
-  TS* sG = sP + n * n;                       // ns*ns Ginv
+__host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
+
+// A's rows in shared memory start on 16 bytes: n rounded up to 4 floats or 2
+// doubles, so the scan reads a row and x four floats or two doubles at a time
+template <typename TD>
+__host__ __device__ constexpr int row_stride(int n) {
+  return (n + int(16 / sizeof(TD)) - 1) / int(16 / sizeof(TD)) * int(16 / sizeof(TD));
+}
+
+// Shared memory of the block, in the order of ops/gi_kernel.py::smem_bytes:
+// the controller's part (P⁻¹, A, row norms), then one slice per warp.
+template <typename TD, typename TS>
+__host__ __device__ size_t ctrl_bytes(int n, int m) {
+  return align16(sizeof(TS) * n * n) + sizeof(TD) * (size_t)m * row_stride<TD>(n) +
+         align16(sizeof(TD) * m);
+}
+template <typename TD, typename TS>
+__host__ __device__ size_t warp_bytes(int n, int m, int ns) {
+  return align16(sizeof(TS) * (ns * ns + 5 * n + 6 * ns)) +
+         align16(sizeof(TD) * (row_stride<TD>(n) + 2 * m + ns * n)) +
+         align16(sizeof(int) * 3 * ns);
+}
+
+// aᵢ·x of R rows at once in the data type: each row one thread's sum in j
+// order (the same multiply-adds, in the same order, as one row and one
+// element at a time), the rows' chains interleaved so that a thread has R
+// independent multiply-adds in flight; 16 bytes of each row and of x are
+// read at a time
+template <int R, typename TD>
+__device__ __forceinline__ void rows_dot(const TD* __restrict__ A, int lda, const int* r,
+                                         const TD* __restrict__ x, int n, TD* ax) {
+  const TD* a[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    a[k] = A + (size_t)r[k] * lda;
+    ax[k] = TD(0);
+  }
+  int j = 0;
+  if constexpr (sizeof(TD) == 4) {
+    for (; j + 4 <= n; j += 4) {
+      const float4 x4 = *reinterpret_cast<const float4*>(x + j);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float4 a4 = *reinterpret_cast<const float4*>(a[k] + j);
+        ax[k] += a4.x * x4.x;
+        ax[k] += a4.y * x4.y;
+        ax[k] += a4.z * x4.z;
+        ax[k] += a4.w * x4.w;
+      }
+    }
+  } else {
+    for (; j + 2 <= n; j += 2) {
+      const double2 x2 = *reinterpret_cast<const double2*>(x + j);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const double2 a2 = *reinterpret_cast<const double2*>(a[k] + j);
+        ax[k] += a2.x * x2.x;
+        ax[k] += a2.y * x2.y;
+      }
+    }
+  }
+  for (; j < n; ++j) {
+    const TD xj = x[j];
+#pragma unroll
+    for (int k = 0; k < R; ++k) ax[k] += a[k][j] * xj;
+  }
+}
+
+// The violation scan (the work of kmv) over the rows lane, lane + 32, …, R
+// at a time: each thread's best (scaled violation, row, aᵢ·x), NaN first,
+// ties to the lower row.  Past m a row index is clamped to m − 1, whose
+// repeat cannot change the argmax.
+template <int R, typename TD>
+__device__ __forceinline__ void scan_rows(const TD* __restrict__ sA, int lda,
+                                          const TD* __restrict__ sxd, const TD* __restrict__ sl,
+                                          const TD* __restrict__ su, const TD* __restrict__ srn,
+                                          TD xnorm, int n, int m, int lane, TD& best, int& best_i,
+                                          TD& best_ax) {
+  const TD inf_d = static_cast<TD>(INFINITY);
+  const TD big = static_cast<TD>(kBig);
+  for (int i0 = lane; i0 < m; i0 += 32 * R) {
+    int r[R];
+    TD ax[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) r[k] = min(i0 + 32 * k, m - 1);
+    rows_dot<R>(sA, lda, r, sxd, n, ax);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int i = r[k];
+      const TD vl = sl[i] > -big ? sl[i] - ax[k] : -inf_d;
+      const TD vu = su[i] < big ? ax[k] - su[i] : -inf_d;
+      const TD scale = nan_max(srn[i] * xnorm, TD(1));
+      const TD v = nan_max(vl, vu) / scale;
+      if (before_max(v, i, best, best_i)) { best = v; best_i = i; best_ax = ax[k]; }
+    }
+  }
+}
+
+// out(k, Σ_{j<len} f(k, j)) for every k < rows: a thread per k, each sum in
+// j order.  Above 32 outputs a thread runs k and k + 32 in one pass, so that
+// the two chains overlap (the second index clamped, its sum then dropped).
+template <typename T, typename F, typename O>
+__device__ __forceinline__ void per_row(int lane, int rows, int len, F f, O out) {
+  if (rows <= 32) {
+    if (lane < rows) {
+      T s = T(0);
+#pragma unroll 4
+      for (int j = 0; j < len; ++j) s += f(lane, j);
+      out(lane, s);
+    }
+    return;
+  }
+  for (int k0 = lane; k0 < rows; k0 += 64) {
+    const int k1 = min(k0 + 32, rows - 1);
+    T s0 = T(0), s1 = T(0);
+#pragma unroll 4
+    for (int j = 0; j < len; ++j) {
+      s0 += f(k0, j);
+      s1 += f(k1, j);
+    }
+    out(k0, s0);
+    if (k0 + 32 < rows) out(k1, s1);
+  }
+}
+
+// One lane's whole solve, run by one warp.  Every thread of the warp returns
+// with the same (it, done && feas) and the lane's state written back.
+template <typename TD, typename TS>
+__device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
+                           const TD* __restrict__ srn, const TS* __restrict__ sP,
+                           const TD* __restrict__ q, const TD* __restrict__ l,
+                           const TD* __restrict__ u, int32_t* __restrict__ idx_g,
+                           int32_t* __restrict__ side_g, uint8_t* __restrict__ vmask_g,
+                           TS* __restrict__ Ginv_g, const int32_t* __restrict__ widx_g,
+                           const int32_t* __restrict__ wside_g, const int32_t* __restrict__ wcnt_g,
+                           const int32_t* __restrict__ max_it_g, TS* __restrict__ x_out,
+                           TS* __restrict__ lam_out, int32_t* __restrict__ it_out,
+                           uint8_t* __restrict__ conv_out, int n, int m, int ns, int warm,
+                           double tol) {
+  const int lane = threadIdx.x & 31;
+  // ---- the warp's slice -------------------------------------------------------
+  TS* sG = reinterpret_cast<TS*>(wsm);       // ns*ns Ginv
   TS* sx = sG + ns * ns;                     // n    x
   TS* sxun = sx + n;                         // n    unconstrained minimum
   TS* sarow = sxun + n;                      // n    pivot row, slot type
@@ -116,19 +250,15 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
   TS* sck = sr + ns;                         // ns   a row of Ginv
   TS* sdv = sck + ns;                        // ns   KKT right-hand side (warm)
   TS* slw = sdv + ns;                        // ns   KKT multipliers (warm)
-  TS* fs = slw + ns;                         // kSlotScalars
-  TD* sA = reinterpret_cast<TD*>(fs + kSlotScalars);  // m*n A
-  TD* sl = sA + m * n;                       // m
+  const int lda = row_stride<TD>(n);
+  TD* sxd = reinterpret_cast<TD*>(wsm + align16(sizeof(TS) * (ns * ns + 5 * n + 6 * ns)));
+  TD* sl = sxd + lda;                        // m    (sxd: x in the data type)
   TD* su = sl + m;                           // m
-  TD* srn = su + m;                          // m    row norms
-  TD* sAx = srn + m;                         // m    A·x_d of the last scan
-  TD* sAact = sAx + m;                       // ns*n slot table, data type
-  TD* redv = sAact + ns * n;                 // kMaxWarps
-  int* sidx = reinterpret_cast<int*>(redv + kMaxWarps);  // ns
+  TD* sAact = su + m;                        // ns*n slot table, data type
+  int* sidx = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(sxd) +
+                                     align16(sizeof(TD) * (lda + 2 * m + ns * n)));
   int* sside = sidx + ns;                    // ns
   int* svm = sside + ns;                     // ns
-  int* redi = svm + ns;                      // kMaxWarps
-  int* is = redi + kMaxWarps;                // kIntScalars
 
   const TS eps = static_cast<TS>(tol);
   const TD eps_d = static_cast<TD>(tol);
@@ -136,85 +266,75 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
   const TS inf = static_cast<TS>(INFINITY);
   const TD inf_d = static_cast<TD>(INFINITY);
   const TD big = static_cast<TD>(kBig);
+  // P⁻¹ a_r into scol and a_r into sarow, in the slot type
+  auto pivot_col = [&](int r) {
+    const TD* ar = sA + (size_t)r * lda;
+    per_row<TS>(lane, n, n, [&](int k, int j) { return sP[k * n + j] * static_cast<TS>(ar[j]); },
+                [&](int k, TS s) {
+                  scol[k] = s;
+                  sarow[k] = static_cast<TS>(ar[k]);
+                });
+  };
 
   // ---- load the lane ---------------------------------------------------------
-  const int c = lane_ctrl[b];
-  const TD* Ab = A + (size_t)c * m * n;
-  const TS* Pb = Pinv + (size_t)c * n * n;
-  for (int e = tid; e < m * n; e += nt) sA[e] = Ab[e];
-  for (int e = tid; e < n * n; e += nt) sP[e] = Pb[e];
-  for (int i = tid; i < m; i += nt) {
-    sl[i] = l[(size_t)b * m + i];
-    su[i] = u[(size_t)b * m + i];
-  }
-  for (int e = tid; e < ns * ns; e += nt) sG[e] = Ginv_g[(size_t)b * ns * ns + e];
-  for (int s = tid; s < ns; s += nt) {
+  copy_async(sl, l + (size_t)b * m, m, lane, 32);
+  copy_async(su, u + (size_t)b * m, m, lane, 32);
+  copy_async(sG, Ginv_g + (size_t)b * ns * ns, ns * ns, lane, 32);
+  __pipeline_commit();
+  for (int s = lane; s < ns; s += 32) {
     sidx[s] = idx_g[(size_t)b * ns + s];
     sside[s] = side_g[(size_t)b * ns + s];
     svm[s] = vmask_g[(size_t)b * ns + s] != 0;
     slam[s] = TS(0);
   }
-  __syncthreads();
-  for (int i = tid; i < m; i += nt) {
-    TD s2 = TD(0);
-    for (int j = 0; j < n; ++j) s2 += sA[i * n + j] * sA[i * n + j];
-    srn[i] = sqrt(s2);
-  }
-  for (int k = tid; k < n; k += nt) {
-    TS s = TS(0);
-    for (int j = 0; j < n; ++j) s += sP[k * n + j] * static_cast<TS>(q[(size_t)b * n + j]);
-    sxun[k] = -s;
-    sx[k] = -s;
-  }
-  for (int e = tid; e < ns * n; e += nt) {
+  const TD* qb = q + (size_t)b * n;
+  per_row<TS>(lane, n, n, [&](int k, int j) { return sP[k * n + j] * static_cast<TS>(qb[j]); },
+              [&](int k, TS s) {
+                sxun[k] = -s;
+                sx[k] = -s;
+              });
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  for (int e = lane; e < ns * n; e += 32) {
     const int s = e / n, j = e - s * n;
-    sAact[e] = svm[s] ? sA[sidx[s] * n + j] : TD(0);
+    sAact[e] = svm[s] ? sA[sidx[s] * lda + j] : TD(0);
   }
+  __syncwarp();
 
-  // thread 0's loop state (the reference's scalar carry)
-  int it = 0, done = 0, wpos = 0, inserting = 0;
+  // the lane's scalar carry, the same in every thread of the warp
+  int it = 0, wpos = 0;
   const int wcnt = wcnt_g[b];
   const int max_it = max_it_g[b];
-  if (tid == 0) {
-    done = !(warm || wcnt > 0);
-    is[I_LIVE] = !done && it < max_it;
-  }
-  __syncthreads();
+  int done = !(warm || wcnt > 0);
 
   // ---- warm loop: insert one pending warm row, or KKT jump + wrong-sign drop --
-  while (is[I_LIVE]) {
-    if (tid == 0) {
-      inserting = wpos < wcnt;
-      const int wsel = min(wpos, ns - 1);
-      is[I_CAND] = widx_g[(size_t)b * ns + wsel];
-      is[I_CSIDE] = wside_g[(size_t)b * ns + wsel];
-    }
-    __syncthreads();
-    const int cand = is[I_CAND];
-    for (int k = tid; k < n; k += nt) {
-      TS s = TS(0);
-      for (int j = 0; j < n; ++j) s += sP[k * n + j] * static_cast<TS>(sA[cand * n + j]);
-      scol[k] = s;
-      sarow[k] = static_cast<TS>(sA[cand * n + k]);
-    }
-    for (int s = tid; s < ns; s += nt) {
+  while (!done && it < max_it) {
+    const int inserting = wpos < wcnt;
+    const int wsel = min(wpos, ns - 1);
+    const int cand = widx_g[(size_t)b * ns + wsel];
+    const int cside = wside_g[(size_t)b * ns + wsel];
+    pivot_col(cand);
+    for (int s = lane; s < ns; s += 32) {
       TS ax = TS(0);
+#pragma unroll 4
       for (int j = 0; j < n; ++j) ax += static_cast<TS>(sAact[s * n + j]) * sxun[j];
       const TS bnd = static_cast<TS>(sside[s] > 0 ? su[sidx[s]] : sl[sidx[s]]);
       const TS sgn = svm[s] ? static_cast<TS>(sside[s]) : TS(0);
       sdv[s] = svm[s] ? sgn * (ax - bnd) : TS(0);
     }
-    __syncthreads();
-    const TS cspf = static_cast<TS>(is[I_CSIDE]);
-    for (int s = tid; s < ns; s += nt) {
+    __syncwarp();
+    const TS cspf = static_cast<TS>(cside);
+    for (int s = lane; s < ns; s += 32) {
       TS d = TS(0);
+#pragma unroll 4
       for (int j = 0; j < n; ++j) d += static_cast<TS>(sAact[s * n + j]) * scol[j];
       const TS sgn = svm[s] ? static_cast<TS>(sside[s]) : TS(0);
       sg[s] = svm[s] ? d * sgn * cspf : TS(0);
     }
-    __syncthreads();
-    for (int s = tid; s < ns; s += nt) {
+    __syncwarp();
+    for (int s = lane; s < ns; s += 32) {
       TS rr = TS(0), lw = TS(0);
+#pragma unroll 4
       for (int t = 0; t < ns; ++t) {
         rr += sG[s * ns + t] * sg[t];
         lw += sG[s * ns + t] * sdv[t];
@@ -222,367 +342,395 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
       sr[s] = svm[s] ? rr : TS(0);
       slw[s] = lw;
     }
-    __syncthreads();
-    if (tid == 0) {
-      TS gamma = TS(0), gr = TS(0);
-      for (int k = 0; k < n; ++k) gamma += sarow[k] * scol[k];
-      for (int s = 0; s < ns; ++s) gr += sg[s] * sr[s];
-      const TS sc = gamma - gr;
-      int app = 0, free_ = 0;
-      for (int s = ns - 1; s >= 0; --s)
-        if (!svm[s]) { app = s; free_ = 1; }
-      const int ins_ok = inserting && (sc > eps * (gamma > TS(1) ? gamma : TS(1))) && free_;
-      int k_w = 0;
-      TS best = svm[0] ? slw[0] : inf;
-      for (int s = 1; s < ns; ++s) {
-        const TS v = svm[s] ? slw[s] : inf;
-        if (before_min(v, s, best, k_w)) { best = v; k_w = s; }
-      }
-      const int negw = best < -eps;
-      const int kkt = !inserting;
-      const int adopt = kkt && !negw;
-      const int wdrop = kkt && negw;
-      fs[F_C1] = sc > tiny ? sc : tiny;   // jnp.maximum(sc, tiny)
-      fs[F_PIV] = sG[k_w * ns + k_w] > tiny ? sG[k_w * ns + k_w] : tiny;
-      is[I_MODE] = ins_ok ? 1 : (wdrop ? 2 : (adopt ? 3 : 0));
-      is[I_APP] = app;
-      is[I_KW] = k_w;
-      wpos += inserting;
-      it += 1;
-      done = done || adopt;
-      is[I_LIVE] = !done && it < max_it;
+    __syncwarp();
+    // the decisions, in every thread
+    TS gamma = TS(0), gr = TS(0);
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) gamma += sarow[k] * scol[k];
+#pragma unroll 4
+    for (int s = 0; s < ns; ++s) gr += sg[s] * sr[s];
+    const TS sc = gamma - gr;
+    int app = 0, free_ = 0;
+    for (int s = ns - 1; s >= 0; --s)
+      if (!svm[s]) { app = s; free_ = 1; }
+    const int ins_ok = inserting && (sc > eps * (gamma > TS(1) ? gamma : TS(1))) && free_;
+    int k_w = 0;
+    TS best = svm[0] ? slw[0] : inf;
+    for (int s = 1; s < ns; ++s) {
+      const TS v = svm[s] ? slw[s] : inf;
+      if (before_min(v, s, best, k_w)) { best = v; k_w = s; }
     }
-    __syncthreads();
-    const int mode = is[I_MODE];
-    const int k_w = is[I_KW];
+    const int negw = best < -eps;
+    const int kkt = !inserting;
+    const int adopt = kkt && !negw;
+    const int wdrop = kkt && negw;
+    const TS c1 = sc > tiny ? sc : tiny;   // jnp.maximum(sc, tiny)
+    const TS pivw = sG[k_w * ns + k_w] > tiny ? sG[k_w * ns + k_w] : tiny;
+    const int mode = ins_ok ? 1 : (wdrop ? 2 : (adopt ? 3 : 0));
+    wpos += inserting;
+    it += 1;
+    done = done || adopt;
     if (mode == 2) {
-      for (int t = tid; t < ns; t += nt) sck[t] = sG[k_w * ns + t];
+      for (int t = lane; t < ns; t += 32) sck[t] = sG[k_w * ns + t];
     } else if (mode == 3) {
-      for (int j = tid; j < n; j += nt) {
-        TS s = TS(0);
-        for (int t = 0; t < ns; ++t) {
-          const TS sgn = svm[t] ? static_cast<TS>(sside[t]) : TS(0);
-          s += static_cast<TS>(sAact[t * n + j]) * (sgn * slw[t]);
-        }
-        stmp[j] = s;
-      }
+      per_row<TS>(lane, n, ns, [&](int j, int t) {
+        const TS sgn = svm[t] ? static_cast<TS>(sside[t]) : TS(0);
+        return static_cast<TS>(sAact[t * n + j]) * (sgn * slw[t]);
+      }, [&](int j, TS s) { stmp[j] = s; });
     }
-    __syncthreads();
+    __syncwarp();
     if (mode == 1) {            // bordering insert of the warm row
-      const int app = is[I_APP];
-      const TS d = fs[F_C1];
-      for (int e = tid; e < ns * ns; e += nt) {
+      for (int e = lane; e < ns * ns; e += 32) {
         const int i = e / ns, j = e - i * ns;
         const TS wi = sr[i] - (i == app ? TS(1) : TS(0));
         const TS wj = sr[j] - (j == app ? TS(1) : TS(0));
-        sG[e] = sG[e] + wi * wj / d - ((i == app && j == app) ? TS(1) : TS(0));
+        sG[e] = sG[e] + wi * wj / c1 - ((i == app && j == app) ? TS(1) : TS(0));
       }
-      for (int j = tid; j < n; j += nt) sAact[app * n + j] = sA[cand * n + j];
-      if (tid == 0) {
+      for (int j = lane; j < n; j += 32) sAact[app * n + j] = sA[cand * lda + j];
+      if (lane == 0) {
         sidx[app] = cand;
-        sside[app] = is[I_CSIDE];
+        sside[app] = cside;
         svm[app] = 1;
       }
     } else if (mode == 2) {     // drop the most negative multiplier's slot
-      const TS piv = fs[F_PIV];
-      for (int e = tid; e < ns * ns; e += nt) {
+      for (int e = lane; e < ns * ns; e += 32) {
         const int i = e / ns, j = e - i * ns;
-        sG[e] = sG[e] - sck[i] * sck[j] / piv + ((i == k_w && j == k_w) ? TS(1) : TS(0));
+        sG[e] = sG[e] - sck[i] * sck[j] / pivw + ((i == k_w && j == k_w) ? TS(1) : TS(0));
       }
-      if (tid == 0) svm[k_w] = 0;
+      if (lane == 0) svm[k_w] = 0;
     } else if (mode == 3) {     // adopt the KKT point of the current set
-      for (int k = tid; k < n; k += nt) {
-        TS s = TS(0);
-        for (int j = 0; j < n; ++j) s += sP[k * n + j] * stmp[j];
-        sx[k] = sxun[k] - s;
-      }
-      for (int s = tid; s < ns; s += nt)
+      per_row<TS>(lane, n, n, [&](int k, int j) { return sP[k * n + j] * stmp[j]; },
+                  [&](int k, TS s) { sx[k] = sxun[k] - s; });
+      for (int s = lane; s < ns; s += 32)
         slam[s] = svm[s] ? (slw[s] > TS(0) ? slw[s] : TS(0)) : TS(0);
     }
-    __syncthreads();
+    __syncwarp();
   }
 
   // ---- main loop: violation scan + fused select and pivot step ---------------
   int p = -1, sp = 0, zrun = 0, d1 = -1, d2 = -1, vstall = 0, restarted = 0, feas = 1;
   TS slack = TS(0), lam_p = TS(0);
-  __syncthreads();  // every thread has read the warm loop's last I_LIVE
-  if (tid == 0) {
-    done = 0;
-    is[I_LIVE] = it < max_it;
-  }
-  __syncthreads();
-  while (is[I_LIVE]) {
-    // -- scan (the work of kmv): aᵢ·x_d, scaled violation, block argmax --
+  done = 0;
+  while (!done && it < max_it) {
+    // -- scan (the work of kmv): aᵢ·x_d, scaled violation, warp argmax --
+    for (int k = lane; k < n; k += 32) sxd[k] = static_cast<TD>(sx[k]);
+    __syncwarp();
     TD xs2 = TD(0);
-    for (int j = 0; j < n; ++j) {
-      const TD xd = static_cast<TD>(sx[j]);
-      xs2 += xd * xd;
-    }
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) xs2 += sxd[j] * sxd[j];
     const TD xnorm = sqrt(xs2);
-    TD best = -inf_d;
+    TD best = -inf_d, best_ax = TD(0);
     int best_i = 0x7fffffff;
-    for (int i = tid; i < m; i += nt) {
-      TD ax = TD(0);
-      for (int j = 0; j < n; ++j) ax += sA[i * n + j] * static_cast<TD>(sx[j]);
-      sAx[i] = ax;
-      const TD vl = sl[i] > -big ? sl[i] - ax : -inf_d;
-      const TD vu = su[i] < big ? ax - su[i] : -inf_d;
-      const TD scale = nan_max(srn[i] * xnorm, TD(1));
-      const TD v = nan_max(vl, vu) / scale;
-      if (before_max(v, i, best, best_i)) { best = v; best_i = i; }
-    }
+    if (m > 64)
+      scan_rows<4>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i, best_ax);
+    else if (m > 32)
+      scan_rows<2>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i, best_ax);
+    else
+      scan_rows<1>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i, best_ax);
     for (int off = 16; off > 0; off >>= 1) {
-      const TD ov = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      if (before_max(ov, oi, best, best_i)) { best = ov; best_i = oi; }
+      const TD ov = __shfl_xor_sync(kFull, best, off);
+      const int oi = __shfl_xor_sync(kFull, best_i, off);
+      const TD oa = __shfl_xor_sync(kFull, best_ax, off);
+      if (before_max(ov, oi, best, best_i)) { best = ov; best_i = oi; best_ax = oa; }
     }
-    if (lane == 0) {
-      redv[warp] = best;
-      redi[warp] = best_i;
-    }
-    __syncthreads();
-    // -- select (thread 0) --
-    int j = 0, opt = 0, cont = 0, fresh = 0, stepping = 0, sp_ = 0;
-    TS slack_ = TS(0), lam_p_ = TS(0);
-    if (tid == 0) {
-      TD bv = redv[0];
-      int bi = redi[0];
-      for (int w = 1; w < nwarps; ++w)
-        if (before_max(redv[w], redi[w], bv, bi)) { bv = redv[w]; bi = redi[w]; }
-      j = bi;
-      const TD ax = sAx[j];
-      const TD vl = sl[j] > -big ? sl[j] - ax : -inf_d;
-      const TD vu = su[j] < big ? ax - su[j] : -inf_d;
-      opt = bv <= eps_d;
-      const int j_side = vu >= vl ? 1 : -1;
-      cont = p >= 0;
-      fresh = !cont && !opt;
-      stepping = cont || fresh;
-      is[I_P] = cont ? p : j;
-      sp_ = cont ? sp : j_side;
-      const TD vj = nan_max(vl, vu);
-      slack_ = cont ? slack : static_cast<TS>(nan_max(vj, TD(0)));
-      lam_p_ = cont ? lam_p : TS(0);
-      fs[F_SPF] = static_cast<TS>(sp_);
-    }
-    __syncthreads();
+    // -- select (every thread holds the winner) --
+    const int j = best_i;
+    const TD vlj = sl[j] > -big ? sl[j] - best_ax : -inf_d;
+    const TD vuj = su[j] < big ? best_ax - su[j] : -inf_d;
+    const int opt = best <= eps_d;
+    const int j_side = vuj >= vlj ? 1 : -1;
+    const int cont = p >= 0;
+    const int fresh = !cont && !opt;
+    const int stepping = cont || fresh;
+    const int pe = cont ? p : j;
+    const int sp_ = cont ? sp : j_side;
+    const TD vj = nan_max(vlj, vuj);
+    const TS slack_ = cont ? slack : static_cast<TS>(nan_max(vj, TD(0)));
+    const TS lam_p_ = cont ? lam_p : TS(0);
+    const TS spf = static_cast<TS>(sp_);
     // -- Gram work for the pivot row (slot type) --
-    const int pe = is[I_P];
-    for (int k = tid; k < n; k += nt) {
-      TS s = TS(0);
-      for (int jj = 0; jj < n; ++jj) s += sP[k * n + jj] * static_cast<TS>(sA[pe * n + jj]);
-      scol[k] = s;
-      sarow[k] = static_cast<TS>(sA[pe * n + k]);
-    }
-    __syncthreads();
-    const TS spf = fs[F_SPF];
-    for (int s = tid; s < ns; s += nt) {
+    pivot_col(pe);
+    __syncwarp();
+    for (int s = lane; s < ns; s += 32) {
       TS d = TS(0);
+#pragma unroll 4
       for (int jj = 0; jj < n; ++jj) d += static_cast<TS>(sAact[s * n + jj]) * scol[jj];
       const TS sgn = svm[s] ? static_cast<TS>(sside[s]) : TS(0);
       sg[s] = svm[s] ? d * sgn * spf : TS(0);
     }
-    __syncthreads();
-    for (int s = tid; s < ns; s += nt) {
+    __syncwarp();
+    for (int s = lane; s < ns; s += 32) {
       TS rr = TS(0);
+#pragma unroll 4
       for (int t = 0; t < ns; ++t) rr += sG[s * ns + t] * sg[t];
       sr[s] = svm[s] ? rr : TS(0);
     }
-    __syncthreads();
-    // -- step lengths and every decision (thread 0) --
-    if (tid == 0) {
-      TS gamma = TS(0), gr = TS(0);
-      for (int k = 0; k < n; ++k) gamma += sarow[k] * scol[k];
-      for (int s = 0; s < ns; ++s) gr += sg[s] * sr[s];
-      const TS sc = gamma - gr;            // Schur complement = −sp·aᵀz
-      const TS t2 = sc > eps ? slack_ / (sc > tiny ? sc : tiny) : inf;
-      int k_b = 0;
-      TS t1 = inf;
-      for (int s = 0; s < ns; ++s) {
-        const TS ratio = (svm[s] && sr[s] > eps) ? slam[s] / (sr[s] > eps ? sr[s] : eps) : inf;
-        if (s == 0 || before_min(ratio, s, t1, k_b)) { t1 = ratio; k_b = s; }
-      }
-      TS t = nan_min(t1, t2);
-      const int infeas_raw = stepping && !isfinite(t);
-      if (!isfinite(t)) t = TS(0);
-      int app = 0, free_ = 0;
-      for (int s = ns - 1; s >= 0; --s)
-        if (!svm[s]) { app = s; free_ = 1; }
-      const int fin2 = isfinite(t2);
-      const int full = (t2 <= t1) && fin2 && free_;
-      const int do_add = stepping && full && !infeas_raw;
-      const int do_drop = stepping && !full && (t1 <= t2) && !infeas_raw && isfinite(t1);
-      const int overflow_raw = stepping && !free_ && fin2 && (t2 <= t1) && !infeas_raw;
-      const int zero_run = (stepping && t <= tiny) ? zrun + 1 : 0;
-      const int rehit = fresh && (j == d1 || j == d2);
-      const int vst = rehit ? vstall + 1 : (fresh ? 0 : vstall);
-      const int restart = !restarted && (zero_run > ns + 2 || vst >= 4 || infeas_raw || overflow_raw);
-      const int infeasible = infeas_raw && restarted;
-      const int overflow = overflow_raw && restarted;
-      const TS piv = sG[k_b * ns + k_b] > tiny ? sG[k_b * ns + k_b] : tiny;
-      const TS lam_p_new = lam_p_ + t;
-      const TS slack_new0 = slack_ - t * sc;
-      const TS slack_new = slack_new0 > TS(0) ? slack_new0 : TS(0);
-      fs[F_T] = t;
-      fs[F_C1] = do_add ? TS(1) / (sc > tiny ? sc : tiny) : (do_drop ? TS(-1) / piv : TS(0));
-      fs[F_C2] = do_add ? TS(-1) : (do_drop ? TS(1) : TS(0));
-      fs[F_LAMPN] = lam_p_new;
-      is[I_KB] = k_b;
-      is[I_APP] = app;
-      is[I_FLAGS] = (do_add ? B_ADD : 0) | (do_drop ? B_DROP : 0) | (restart ? B_RESTART : 0) |
-                    (stepping && !infeas_raw && !overflow_raw ? B_UPDX : 0) |
-                    (stepping && !overflow_raw ? B_KEEPSTEP : 0);
-      // the scalar carry (d2 before d1: it takes the old d1)
-      const int idx_kb = sidx[k_b];
-      p = do_drop ? pe : -1;
-      sp = do_drop ? sp_ : 0;
-      slack = do_drop ? slack_new : TS(0);
-      lam_p = do_drop ? lam_p_new : TS(0);
-      zrun = zero_run;
-      d2 = do_drop ? d1 : d2;
-      d1 = do_drop ? idx_kb : d1;
-      vstall = vst;
-      it += 1;
-      done = done || infeasible || overflow || (!cont && opt);
-      feas = feas && !infeasible && !overflow;
-      if (restart) {            // the cold restart overrides all but `it`
-        p = -1;
-        sp = 0;
-        slack = TS(0);
-        lam_p = TS(0);
-        zrun = 0;
-        d1 = -1;
-        d2 = -1;
-        vstall = 0;
-      }
-      restarted = restarted || restart;
-      is[I_CSIDE] = sp_;
-      is[I_LIVE] = !done && it < max_it;
+    __syncwarp();
+    // -- step lengths and every decision (every thread) --
+    TS gamma = TS(0), gr = TS(0);
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) gamma += sarow[k] * scol[k];
+#pragma unroll 4
+    for (int s = 0; s < ns; ++s) gr += sg[s] * sr[s];
+    const TS sc = gamma - gr;            // Schur complement = −sp·aᵀz
+    const TS t2 = sc > eps ? slack_ / (sc > tiny ? sc : tiny) : inf;
+    int k_b = 0;
+    TS t1 = inf;
+    for (int s = 0; s < ns; ++s) {
+      const TS ratio = (svm[s] && sr[s] > eps) ? slam[s] / (sr[s] > eps ? sr[s] : eps) : inf;
+      if (s == 0 || before_min(ratio, s, t1, k_b)) { t1 = ratio; k_b = s; }
     }
-    __syncthreads();
-    const int flags = is[I_FLAGS];
-    const int k_b = is[I_KB];
-    for (int t = tid; t < ns; t += nt) sck[t] = sG[k_b * ns + t];
-    for (int jj = tid; jj < n; jj += nt) {
-      TS s = TS(0);
-      for (int t = 0; t < ns; ++t) {
-        const TS sgn = svm[t] ? static_cast<TS>(sside[t]) : TS(0);
-        s += static_cast<TS>(sAact[t * n + jj]) * (sr[t] * sgn);
-      }
-      stmp[jj] = s;
+    TS t = nan_min(t1, t2);
+    const int infeas_raw = stepping && !isfinite(t);
+    if (!isfinite(t)) t = TS(0);
+    int app = 0, free_ = 0;
+    for (int s = ns - 1; s >= 0; --s)
+      if (!svm[s]) { app = s; free_ = 1; }
+    const int fin2 = isfinite(t2);
+    const int full = (t2 <= t1) && fin2 && free_;
+    const int do_add = stepping && full && !infeas_raw;
+    const int do_drop = stepping && !full && (t1 <= t2) && !infeas_raw && isfinite(t1);
+    const int overflow_raw = stepping && !free_ && fin2 && (t2 <= t1) && !infeas_raw;
+    const int zero_run = (stepping && t <= tiny) ? zrun + 1 : 0;
+    const int rehit = fresh && (j == d1 || j == d2);
+    const int vst = rehit ? vstall + 1 : (fresh ? 0 : vstall);
+    const int restart = !restarted && (zero_run > ns + 2 || vst >= 4 || infeas_raw || overflow_raw);
+    const int infeasible = infeas_raw && restarted;
+    const int overflow = overflow_raw && restarted;
+    const TS piv = sG[k_b * ns + k_b] > tiny ? sG[k_b * ns + k_b] : tiny;
+    const TS lam_p_new = lam_p_ + t;
+    const TS slack_new0 = slack_ - t * sc;
+    const TS slack_new = slack_new0 > TS(0) ? slack_new0 : TS(0);
+    const TS c1 = do_add ? TS(1) / (sc > tiny ? sc : tiny) : (do_drop ? TS(-1) / piv : TS(0));
+    const TS c2 = do_add ? TS(-1) : (do_drop ? TS(1) : TS(0));
+    const int upd_x = stepping && !infeas_raw && !overflow_raw;
+    const int keep_step = stepping && !overflow_raw;
+    // the scalar carry (d2 before d1: it takes the old d1)
+    const int idx_kb = sidx[k_b];
+    p = do_drop ? pe : -1;
+    sp = do_drop ? sp_ : 0;
+    slack = do_drop ? slack_new : TS(0);
+    lam_p = do_drop ? lam_p_new : TS(0);
+    zrun = zero_run;
+    d2 = do_drop ? d1 : d2;
+    d1 = do_drop ? idx_kb : d1;
+    vstall = vst;
+    it += 1;
+    done = done || infeasible || overflow || (!cont && opt);
+    feas = feas && !infeasible && !overflow;
+    if (restart) {            // the cold restart overrides all but `it`
+      p = -1;
+      sp = 0;
+      slack = TS(0);
+      lam_p = TS(0);
+      zrun = 0;
+      d1 = -1;
+      d2 = -1;
+      vstall = 0;
     }
-    __syncthreads();
-    if (flags & B_RESTART) {
-      for (int k = tid; k < n; k += nt) sx[k] = sxun[k];
-      for (int e = tid; e < ns * ns; e += nt) sG[e] = (e / ns == e % ns) ? TS(1) : TS(0);
-      for (int e = tid; e < ns * n; e += nt) sAact[e] = TD(0);
-      for (int s = tid; s < ns; s += nt) {
+    restarted = restarted || restart;
+    for (int s = lane; s < ns; s += 32) sck[s] = sG[k_b * ns + s];
+    per_row<TS>(lane, n, ns, [&](int jj, int tt) {
+      const TS sgn = svm[tt] ? static_cast<TS>(sside[tt]) : TS(0);
+      return static_cast<TS>(sAact[tt * n + jj]) * (sr[tt] * sgn);
+    }, [&](int jj, TS s) { stmp[jj] = s; });
+    __syncwarp();
+    if (restart) {
+      for (int k = lane; k < n; k += 32) sx[k] = sxun[k];
+      for (int e = lane; e < ns * ns; e += 32) sG[e] = (e / ns == e % ns) ? TS(1) : TS(0);
+      for (int e = lane; e < ns * n; e += 32) sAact[e] = TD(0);
+      for (int s = lane; s < ns; s += 32) {
         slam[s] = TS(0);
         sidx[s] = 0;
         sside[s] = 0;
         svm[s] = 0;
       }
     } else {
-      const TS t = fs[F_T];
-      const int add = flags & B_ADD, drop = flags & B_DROP;
-      const int app = is[I_APP];
-      if (flags & B_UPDX) {
-        for (int k = tid; k < n; k += nt) {
-          TS s = TS(0);
-          for (int jj = 0; jj < n; ++jj) s += sP[k * n + jj] * stmp[jj];
-          sx[k] = sx[k] + t * (s - spf * scol[k]);
-        }
-      }
+      if (upd_x)
+        per_row<TS>(lane, n, n, [&](int k, int jj) { return sP[k * n + jj] * stmp[jj]; },
+                    [&](int k, TS s) { sx[k] = sx[k] + t * (s - spf * scol[k]); });
       // unified rank-one update: Ginv + c1·aaᵀ + c2·bbᵀ
-      const TS c1 = fs[F_C1], c2 = fs[F_C2];
-      for (int e = tid; e < ns * ns; e += nt) {
+      for (int e = lane; e < ns * ns; e += 32) {
         const int i = e / ns, jj = e - i * ns;
-        const TS ai = add ? sr[i] - (i == app ? TS(1) : TS(0)) : sck[i];
-        const TS aj = add ? sr[jj] - (jj == app ? TS(1) : TS(0)) : sck[jj];
-        const TS bi = (i == (add ? app : k_b)) ? TS(1) : TS(0);
-        const TS bj = (jj == (add ? app : k_b)) ? TS(1) : TS(0);
+        const TS ai = do_add ? sr[i] - (i == app ? TS(1) : TS(0)) : sck[i];
+        const TS aj = do_add ? sr[jj] - (jj == app ? TS(1) : TS(0)) : sck[jj];
+        const TS bi = (i == (do_add ? app : k_b)) ? TS(1) : TS(0);
+        const TS bj = (jj == (do_add ? app : k_b)) ? TS(1) : TS(0);
         sG[e] = sG[e] + c1 * (ai * aj) + c2 * (bi * bj);
       }
-      if (add)
-        for (int jj = tid; jj < n; jj += nt) sAact[app * n + jj] = sA[pe * n + jj];
+      if (do_add)
+        for (int jj = lane; jj < n; jj += 32) sAact[app * n + jj] = sA[pe * lda + jj];
       // multipliers and slot bits, one thread per slot (reads before writes)
-      const TS lam_p_new = fs[F_LAMPN];
-      for (int s = tid; s < ns; s += nt) {
+      for (int s = lane; s < ns; s += 32) {
         const TS lo = slam[s] - t * sr[s];
         const TS lam_step = svm[s] ? (lo > TS(0) ? lo : TS(0)) : slam[s];
-        if (add) {
+        if (do_add) {
           slam[s] = s == app ? lam_p_new : lam_step;
           if (s == app) {
             svm[s] = 1;
             sidx[s] = pe;
-            sside[s] = is[I_CSIDE];
+            sside[s] = sp_;
           }
-        } else if (drop) {
+        } else if (do_drop) {
           slam[s] = lam_step * (TS(1) - (s == k_b ? TS(1) : TS(0)));
           if (s == k_b) svm[s] = 0;
-        } else if (flags & B_KEEPSTEP) {
+        } else if (keep_step) {
           slam[s] = lam_step;
         }
       }
     }
-    __syncthreads();
+    __syncwarp();
   }
 
   // ---- write back ---------------------------------------------------------------
-  for (int k = tid; k < n; k += nt) x_out[(size_t)b * n + k] = sx[k];
-  for (int s = tid; s < ns; s += nt) {
+  for (int k = lane; k < n; k += 32) x_out[(size_t)b * n + k] = sx[k];
+  for (int s = lane; s < ns; s += 32) {
     lam_out[(size_t)b * ns + s] = slam[s];
     idx_g[(size_t)b * ns + s] = sidx[s];
     side_g[(size_t)b * ns + s] = sside[s];
     vmask_g[(size_t)b * ns + s] = static_cast<uint8_t>(svm[s] != 0);
   }
-  for (int e = tid; e < ns * ns; e += nt) Ginv_g[(size_t)b * ns * ns + e] = sG[e];
-  if (tid == 0) {
+  for (int e = lane; e < ns * ns; e += 32) Ginv_g[(size_t)b * ns * ns + e] = sG[e];
+  if (lane == 0) {
     it_out[b] = it;
     conv_out[b] = static_cast<uint8_t>(done && feas);
   }
+  __syncwarp();   // the slice is reused by the warp's next lane
 }
 
+// MINB blocks of kMaxWarps warps fit an SM's registers: 2 (64 registers a
+// thread) where two blocks' shared memory fits an SM, else 1 (128)
+template <typename TD, typename TS, int MINB>
+__global__ void __launch_bounds__(32 * kMaxWarps, MINB)
+gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
+                const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
+                int width, const TD* __restrict__ q, const TD* __restrict__ l,
+                const TD* __restrict__ u, int32_t* __restrict__ idx_g,
+                int32_t* __restrict__ side_g, uint8_t* __restrict__ vmask_g,
+                TS* __restrict__ Ginv_g, const int32_t* __restrict__ widx_g,
+                const int32_t* __restrict__ wside_g, const int32_t* __restrict__ wcnt_g,
+                const int32_t* __restrict__ max_it_g, TS* __restrict__ x_out,
+                TS* __restrict__ lam_out, int32_t* __restrict__ it_out,
+                uint8_t* __restrict__ conv_out, int n, int m, int ns, int warm, double tol) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c = block_ctrl[blockIdx.x];
+  const int32_t* lanes = table + (size_t)blockIdx.x * width;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int next_slot;
+  const int lda = row_stride<TD>(n);
+  TS* sP = reinterpret_cast<TS*>(smem_raw);                       // n*n P⁻¹
+  TD* sA = reinterpret_cast<TD*>(smem_raw + align16(sizeof(TS) * n * n));  // m*lda A
+  TD* srn = sA + (size_t)m * lda;                                 // m row norms
+  unsigned char* wsm = smem_raw + ctrl_bytes<TD, TS>(n, m) + warp * warp_bytes<TD, TS>(n, m, ns);
+
+  // ---- the controller's part, once per block ---------------------------------
+  const TD* Ac = A + (size_t)c * m * n;
+  for (int e = tid; e < m * n; e += nt) {
+    const int i = e / n, j = e - i * n;
+    __pipeline_memcpy_async(sA + (size_t)i * lda + j, Ac + e, sizeof(TD));
+  }
+  copy_async(sP, Pinv + (size_t)c * n * n, n * n, tid, nt);
+  __pipeline_commit();
+  if (tid == 0) next_slot = nt >> 5;
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int i = tid; i < m; i += nt) {
+    TD s2 = TD(0);
+    for (int j = 0; j < n; ++j) s2 += sA[i * lda + j] * sA[i * lda + j];
+    srn[i] = sqrt(s2);
+  }
+  __syncthreads();
+
+  // ---- each warp solves lanes until the block's list is used up ----------------
+  int slot = warp;
+  while (slot < width) {
+    const int b = lanes[slot];
+    if (b < 0) break;        // −1 pads the end of the list
+    solve_lane<TD, TS>(b, wsm, sA, srn, sP, q, l, u, idx_g, side_g, vmask_g, Ginv_g,
+                       widx_g, wside_g, wcnt_g, max_it_g, x_out, lam_out, it_out, conv_out,
+                       n, m, ns, warm, tol);
+    int nxt = 0;
+    if (lane == 0) nxt = atomicAdd(&next_slot, 1);
+    slot = __shfl_sync(kFull, nxt, 0);
+  }
+}
+
+inline bool two_blocks(int smem_bytes) { return 2 * (smem_bytes + kSmemPerBlock) <= kSmemPerSM; }
+
 template <typename TD, typename TS>
-int launch(const void* Pinv, const void* A, const void* lane_ctrl, const void* q, const void* l,
-           const void* u, void* idx, void* side, void* vmask, void* Ginv, const void* widx,
-           const void* wside, const void* wcnt, const void* max_it, void* x, void* lam, void* it,
-           void* conv, int B, int n, int m, int ns, int warm, int threads, int smem_bytes,
-           double tol, void* stream) {
-  if (B <= 0) return 0;
-  if (threads <= 0 || threads % 32 != 0 || threads > 32 * kMaxWarps) return (int)cudaErrorInvalidValue;
+int launch(const void* Pinv, const void* A, const void* table, const void* block_ctrl,
+           const void* q, const void* l, const void* u, void* idx, void* side, void* vmask,
+           void* Ginv, const void* widx, const void* wside, const void* wcnt,
+           const void* max_it, void* x, void* lam, void* it, void* conv, int n_blocks,
+           int width, int warps, int n, int m, int ns, int warm, int smem_bytes, double tol,
+           void* stream) {
+  if (n_blocks <= 0) return 0;
+  if (warps <= 0 || warps > kMaxWarps || width < 1) return (int)cudaErrorInvalidValue;
   if (ns < 1 || ns > n) return (int)cudaErrorInvalidValue;
+  const size_t need = ctrl_bytes<TD, TS>(n, m) + warps * warp_bytes<TD, TS>(n, m, ns);
+  if ((size_t)smem_bytes != need) return (int)cudaErrorInvalidValue;
+  auto kern = two_blocks(smem_bytes) ? gi_solve_kernel<TD, TS, 2> : gi_solve_kernel<TD, TS, 1>;
   if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(gi_solve_kernel<TD, TS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  gi_solve_kernel<TD, TS><<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<n_blocks, 32 * warps, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TS*>(Pinv), static_cast<const TD*>(A),
-      static_cast<const int32_t*>(lane_ctrl), static_cast<const TD*>(q),
-      static_cast<const TD*>(l), static_cast<const TD*>(u), static_cast<int32_t*>(idx),
-      static_cast<int32_t*>(side), static_cast<uint8_t*>(vmask), static_cast<TS*>(Ginv),
-      static_cast<const int32_t*>(widx), static_cast<const int32_t*>(wside),
-      static_cast<const int32_t*>(wcnt), static_cast<const int32_t*>(max_it),
-      static_cast<TS*>(x), static_cast<TS*>(lam), static_cast<int32_t*>(it),
-      static_cast<uint8_t*>(conv), n, m, ns, warm, tol);
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(block_ctrl), width,
+      static_cast<const TD*>(q), static_cast<const TD*>(l), static_cast<const TD*>(u),
+      static_cast<int32_t*>(idx), static_cast<int32_t*>(side), static_cast<uint8_t*>(vmask),
+      static_cast<TS*>(Ginv), static_cast<const int32_t*>(widx),
+      static_cast<const int32_t*>(wside), static_cast<const int32_t*>(wcnt),
+      static_cast<const int32_t*>(max_it), static_cast<TS*>(x), static_cast<TS*>(lam),
+      static_cast<int32_t*>(it), static_cast<uint8_t*>(conv), n, m, ns, warm, tol);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define MPC_GI_ENTRY(NAME, TD, TS)                                                          \
-  extern "C" int NAME(const void* Pinv, const void* A, const void* lane_ctrl, const void* q, \
-                      const void* l, const void* u, void* idx, void* side, void* vmask,      \
-                      void* Ginv, const void* widx, const void* wside, const void* wcnt,     \
-                      const void* max_it, void* x, void* lam, void* it, void* conv, int B,   \
-                      int n, int m, int ns, int warm, int threads, int smem_bytes,           \
-                      double tol, void* stream) {                                            \
-    return launch<TD, TS>(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx, wside, \
-                          wcnt, max_it, x, lam, it, conv, B, n, m, ns, warm, threads,        \
-                          smem_bytes, tol, stream);                                         \
+#define MPC_GI_ENTRY(NAME, TD, TS)                                                            \
+  extern "C" int NAME(const void* Pinv, const void* A, const void* table,                     \
+                      const void* block_ctrl, const void* q, const void* l, const void* u,    \
+                      void* idx, void* side, void* vmask, void* Ginv, const void* widx,       \
+                      const void* wside, const void* wcnt, const void* max_it, void* x,       \
+                      void* lam, void* it, void* conv, int n_blocks, int width, int warps,    \
+                      int n, int m, int ns, int warm, int smem_bytes, double tol,             \
+                      void* stream) {                                                         \
+    return launch<TD, TS>(Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv, widx,  \
+                          wside, wcnt, max_it, x, lam, it, conv, n_blocks, width, warps, n,   \
+                          m, ns, warm, smem_bytes, tol, stream);                              \
   }
 
 MPC_GI_ENTRY(mpc_gi_solve_f32_f64, float, double)
 MPC_GI_ENTRY(mpc_gi_solve_f32_f32, float, float)
 MPC_GI_ENTRY(mpc_gi_solve_f64_f64, double, double)
+
+// Blocks of `warps` warps and `smem_bytes` of shared memory resident on one
+// SM (the runtime's occupancy calculator); variant 0 = (f32 data, f64 slots),
+// 1 = (f32, f32), 2 = (f64, f64).  Returns −1 on an error.
+extern "C" int mpc_gi_blocks_per_sm(int variant, int warps, int smem_bytes) {
+  const bool two = two_blocks(smem_bytes);
+  const void* fn =
+      variant == 0 ? (two ? (const void*)gi_solve_kernel<float, double, 2>
+                          : (const void*)gi_solve_kernel<float, double, 1>)
+      : variant == 1 ? (two ? (const void*)gi_solve_kernel<float, float, 2>
+                            : (const void*)gi_solve_kernel<float, float, 1>)
+                     : (two ? (const void*)gi_solve_kernel<double, double, 2>
+                            : (const void*)gi_solve_kernel<double, double, 1>);
+  // as a launch does: raise the kernel's shared-memory limit above the default
+  // 48 KB only (a lower setting would refuse a later, larger launch)
+  if (smem_bytes > 48 * 1024 &&
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
+          cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 32 * warps, smem_bytes) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}

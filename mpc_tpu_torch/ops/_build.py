@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 LIB_NAME = "libmpc_tpu_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 # what the last build did: seconds spent in nvcc (0.0 when the stamp
@@ -41,14 +41,22 @@ def reset_launch_counts():
 
 # Launch geometry both kernels share.  Shared memory one block may use on an
 # H100 (232,448 bytes): the budget the plain versions check, so the CPU tests
-# exercise the same guard.
+# exercise the same guard.  A block runs lanes of one controller, at most
+# MAX_WARPS warps (kMaxWarps in both sources), one warp a lane at the fleet
+# shapes; a GI block pulls up to LANES_PER_BLOCK lanes through its warps.
 HOPPER_SMEM_OPTIN = 232448
-MAX_WARPS = 8       # kMaxWarps in csrc/admm_sweep.cu and csrc/gi_solve.cu
+MAX_WARPS = 16
+LANES_PER_BLOCK = 32
 
 
-def block_threads(m: int) -> int:
-    """Threads of one lane's block: the rows rounded up to a warp, 32…256."""
-    return min(32 * MAX_WARPS, max(32, -(-m // 32) * 32))
+def align16(b: int) -> int:
+    """``b`` bytes rounded up to 16 (the kernels' shared-memory parts)."""
+    return (b + 15) // 16 * 16
+
+
+def pow2(k: int) -> int:
+    """The power of two ≥ k (≥ 1)."""
+    return 1 << max(0, int(k) - 1).bit_length()
 
 
 def _sources():
@@ -81,17 +89,35 @@ def build() -> Path:
         last_build.update(seconds=0.0, log="")
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = [p.communicate()[0] for p in procs]
+    rcs = [p.returncode for p in procs]
+    if not any(rcs):
+        r = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                            *map(str, objs)],
+                           capture_output=True, text=True)
+        rcs.append(r.returncode)
+        logs.append(r.stdout + r.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if r.returncode != 0:
+    if any(rcs):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        raise RuntimeError(f"nvcc failed ({rcs}):\n" + "\n".join(logs))
     os.replace(tmp, so)
     stamp.write_text(digest)
-    last_build.update(seconds=seconds, log=r.stdout + r.stderr)
+    last_build.update(seconds=seconds, log="".join(logs))
     return so
 
 
@@ -103,17 +129,22 @@ def load_library():
         ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for name in ("mpc_admm_sweep_f32", "mpc_admm_sweep_f64"):
             fn = getattr(lib, name)
-            # Minv, A, lane_ctrl, q, l, u, rho, x, z, y, active,
-            # B, n, m, iters, threads, smem_bytes, sigma, alpha, stream
-            fn.argtypes = [ptr] * 11 + [i32] * 6 + [f64, f64, ptr]
+            # Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y,
+            # active, n_blocks, width, warps, grouped, n, m, n_lad, iters,
+            # smem_bytes, sigma, alpha, stream
+            fn.argtypes = [ptr] * 13 + [i32] * 9 + [f64, f64, ptr]
             fn.restype = i32
         for name in ("mpc_gi_solve_f32_f64", "mpc_gi_solve_f32_f32",
                      "mpc_gi_solve_f64_f64"):
             fn = getattr(lib, name)
-            # Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
-            # wside, wcnt, max_it, x, lam, it, conv,
-            # B, n, m, ns, warm, threads, smem_bytes, tol, stream
-            fn.argtypes = [ptr] * 18 + [i32] * 7 + [f64, ptr]
+            # Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv,
+            # widx, wside, wcnt, max_it, x, lam, it, conv, n_blocks, width,
+            # warps, n, m, ns, warm, smem_bytes, tol, stream
+            fn.argtypes = [ptr] * 19 + [i32] * 8 + [f64, ptr]
             fn.restype = i32
+        # residency: (variant, warps, smem) and (f64, grouped, width,
+        # threads, smem) → blocks per SM
+        lib.mpc_gi_blocks_per_sm.argtypes = [i32] * 3
+        lib.mpc_admm_blocks_per_sm.argtypes = [i32] * 5
         _lib = lib
     return _lib

@@ -13,8 +13,9 @@ select-and-pivot step, the unified rank-one update of the inverse Gram
 one-shot cold restart and the infeasibility certificate.
 
 On a CUDA tensor it launches the hand-written kernel
-``mpc_tpu_torch/csrc/gi_solve.cu`` (one thread block per lane; see the note
-at the top of that file).  On a CPU tensor it runs ``gi_solve_reference``,
+``mpc_tpu_torch/csrc/gi_solve.cu`` (lanes grouped by controller, one block
+per group and one warp per lane; see the note at the top of that file).  On
+a CPU tensor it runs ``gi_solve_reference``,
 the plain torch version beside it.  There is no fallback from one to the
 other: a failed build or launch raises.
 
@@ -38,27 +39,46 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.lanes import take
-from ._build import HOPPER_SMEM_OPTIN, LAUNCHES, MAX_WARPS, block_threads
+from ..utils.lanes import lane_blocks, take
+from ._build import (HOPPER_SMEM_OPTIN, LANES_PER_BLOCK, LAUNCHES, MAX_WARPS,
+                     align16, pow2)
 
 _BIG = 1e18        # ops.qp._BIG: bounds beyond this are infinite
 _TINY = 1e-30
-# shared-memory scalar cells of the kernel (kSlotScalars, kIntScalars)
-_SLOT_SCALARS = 8
-_INT_SCALARS = 16
 
 
-def smem_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int) -> int:
-    """Shared memory of one lane's block, exactly as the kernel lays it out:
-    P⁻¹, Ginv, the n-vectors (x, x_un, the pivot row, P⁻¹aₚ and a scratch
-    vector), the ns-vectors (λ, g, r, a Ginv row, the KKT right-hand side
-    and multipliers) and the scalar cells in the slot dtype; A, l, u, the
-    row norms, A·x, the slot table Aact and the per-warp scan maxima in the
-    data dtype; idx, side, vmask, the per-warp argmax rows and the integer
-    cells as 4-byte ints."""
-    return (slot_size * (n * n + ns * ns + 5 * n + 6 * ns + _SLOT_SCALARS)
-            + data_size * (m * n + 4 * m + ns * n + MAX_WARPS)
-            + 4 * (3 * ns + MAX_WARPS + _INT_SCALARS))
+def smem_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
+               warps: int = 1) -> int:
+    """Shared memory of one block of ``warps`` lanes, exactly as the kernel
+    lays it out (each part rounded up to 16 bytes): the controller's P⁻¹
+    (slot dtype), A with its rows padded to 16 bytes and its row norms (data
+    dtype), once per block; then per warp Ginv, the n-vectors (x, x_un, the
+    pivot row, P⁻¹aₚ, a scratch vector) and the ns-vectors (λ, g, r, a Ginv
+    row, the KKT right-hand side and multipliers) in the slot dtype, x
+    (padded), l, u and the slot table Aact in the data dtype, and idx, side,
+    vmask as 4-byte ints."""
+    per = 16 // data_size
+    lda = -(-n // per) * per
+    ctrl = align16(slot_size * n * n) + data_size * m * lda + align16(data_size * m)
+    warp = (align16(slot_size * (ns * ns + 5 * n + 6 * ns))
+            + align16(data_size * (lda + 2 * m + ns * n)) + align16(4 * 3 * ns))
+    return ctrl + warps * warp
+
+
+def launch_geometry(lane_ctrl, n, m, ns, data_size, slot_size, budget, sms):
+    """``(table, block_ctrl, warps, smem)`` of a launch: the lanes grouped by
+    controller (``utils/lanes.py::lane_blocks``, cached per ``lane_ctrl``),
+    ⌈B/sms⌉ lanes a block rounded up to a power of two, at most
+    ``LANES_PER_BLOCK``, so that a small batch still spreads over the
+    card's ``sms`` multiprocessors; as many warps a block as the table is
+    wide, up to ``MAX_WARPS`` and the shared-memory budget."""
+    B = lane_ctrl.shape[0]
+    width = min(LANES_PER_BLOCK, pow2(-(-B // sms)))
+    table, block_ctrl = lane_blocks(lane_ctrl, width)
+    warps = min(table.shape[1], MAX_WARPS)
+    while warps > 1 and smem_bytes(n, m, ns, data_size, slot_size, warps) > budget:
+        warps -= 1
+    return table, block_ctrl, warps, smem_bytes(n, m, ns, data_size, slot_size, warps)
 
 
 def slot_dtype_for(dt, slot_dtype=None):
@@ -404,7 +424,8 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
         if not t.is_contiguous():
             raise ValueError("gi_solve arguments must be contiguous")
     dt, hi = A.dtype, Ginv.dtype
-    budget = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    props = torch.cuda.get_device_properties(dev)
+    budget = props.shared_memory_per_block_optin
     _check_budget(n, m, ns, dt, hi, budget)
     x = torch.empty(B, n, dtype=hi, device=dev)
     lam = torch.empty(B, ns, dtype=hi, device=dev)
@@ -417,12 +438,15 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
     fn = {(torch.float32, torch.float64): lib.mpc_gi_solve_f32_f64,
           (torch.float32, torch.float32): lib.mpc_gi_solve_f32_f32,
           (torch.float64, torch.float64): lib.mpc_gi_solve_f64_f64}[(dt, hi)]
+    table, block_ctrl, warps, smem = launch_geometry(
+        lane_ctrl, n, m, ns, A.element_size(), Ginv.element_size(), budget,
+        props.multi_processor_count)
+    ptrs = (Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
+            wside, wcnt, max_it, x, lam, it, conv)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ts + (x, lam, it, conv)), B, n, m, ns,
-                int(bool(warm)), block_threads(m),
-                smem_bytes(n, m, ns, A.element_size(), Ginv.element_size()),
-                float(tol), stream)
+        rc = fn(*(t.data_ptr() for t in ptrs), table.shape[0], table.shape[1],
+                warps, n, m, ns, int(bool(warm)), smem, float(tol), stream)
     if rc != 0:
         raise RuntimeError(f"gi_solve kernel launch failed: CUDA error {rc}")
     LAUNCHES["gi_solve"] += 1

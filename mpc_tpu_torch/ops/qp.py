@@ -22,7 +22,7 @@ build_solver_cache(...)``, what every ``LinMPC`` step uses) scales with the
 cached Ruiz diagonals and reuses the cached ρ-ladder inverses; the UNCACHED
 one equilibrates each lane's (P, q, A) and builds its ladder in the solve
 (``n_lad`` rungs, plain torch: ``torch.linalg.inv`` and one Newton step),
-then sweeps with per-lane ``Minv`` and per-lane ``A``.  ``solve_qp`` also
+then sweeps with per-lane ladders and per-lane ``A``.  ``solve_qp`` also
 takes one unbatched QP, the reference's call form; ``solve_qp_batch`` takes
 a leading lane axis on every argument.
 """
@@ -304,20 +304,19 @@ def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
 
     x, z, y = x.contiguous(), z.contiguous(), y.contiguous()
     q_c, l_c, u_c, A_c = q.contiguous(), l.contiguous(), u.contiguous(), A.contiguous()
+    Minvs_c, rhovs_c = Minvs_lad.contiguous(), rhovs_lad.contiguous()
     it = torch.zeros(B, dtype=torch.int32, device=dev)
     exit_ = torch.zeros(B, dtype=torch.bool, device=dev)
     infeas = torch.zeros_like(exit_)
     done = torch.zeros_like(exit_)
     best = torch.full((B,), float("inf"), dtype=dt, device=dev)
     stall = torch.zeros(B, dtype=torch.int32, device=dev)
-    lane_idx = lane_ctrl.long()
     active = ~exit_ & (it < max_it)
     while bool(active.any()):
         y_prev = y.clone()
-        rhov = rhovs_lad[lane_idx, j.long()].contiguous()
-        Lm = Minvs_lad[lane_idx, j.long()].contiguous()
-        sweep(Lm, A_c, lane_ctrl, q_c, l_c, u_c, rhov, x, z, y, active,
-              check_every, sigma, alpha)
+        # the sweep reads each lane's Minv and ρ off the ladder by its rung
+        sweep(Minvs_c, A_c, lane_ctrl, j, q_c, l_c, u_c, rhovs_c, x, z, y,
+              active, check_every, sigma, alpha)
         it_n = it + check_every
         rp, rd = residuals(x, z, y)
         done_n = (rp < tol) & (rd < tol)

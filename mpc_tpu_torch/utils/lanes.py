@@ -4,10 +4,20 @@ A fleet stacks every parameter over its ``n_d`` DISTINCT controllers only;
 lane ``b`` reads controller ``lane_ctrl[b]`` (``parallel/grouped.py`` builds
 ``lane_ctrl`` from the public lane order ``lane = r·n_d + c``).  With
 ``lane_ctrl=None`` the data is already per lane.
+
+The CUDA kernels run lanes of ONE controller per thread block, so that the
+block loads that controller's matrices once for all of them; ``lane_blocks``
+builds that grouping from ``lane_ctrl``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
+
+# lane_blocks results per lane_ctrl tensor, dropped with the tensor: a fleet
+# or a controller keeps one lane_ctrl for its life, so the grouping (which
+# needs one host sync) is built once, not once per period
+_BLOCKS = WeakIdKeyDictionary()
 
 
 def take(M, lane_ctrl):
@@ -23,3 +33,47 @@ def mv(M, v, lane_ctrl=None):
 def mtv(M, v, lane_ctrl=None):
     """Batched ``Mᵀv``: ``M`` (·, i, j), ``v`` (B, i) → (B, j)."""
     return torch.matmul(v.unsqueeze(-2), take(M, lane_ctrl)).squeeze(-2)
+
+
+def lane_blocks(lane_ctrl: torch.Tensor, max_width: int):
+    """Group the lanes by controller into blocks of at most ``max_width``.
+
+    Returns ``(table, block_ctrl)``: ``table`` (n_blocks, W) int32 holds the
+    lane indices of each block in increasing order, padded with −1 at the
+    end; ``block_ctrl`` (n_blocks,) int32 is the controller every lane of
+    the block reads.  W = min(max_width, the largest group), so a fleet with
+    one lane per controller (uncached solves, n_d = B) gets blocks of one
+    lane.  Blocks follow the controllers in increasing order, a
+    controller's lanes fill ⌈count / W⌉ blocks, and every lane appears
+    exactly once.  Both tensors lie on ``lane_ctrl``'s device.  The result
+    is cached per ``lane_ctrl`` tensor (and its version counter).
+    """
+    key = (int(max_width), lane_ctrl._version)
+    memo = _BLOCKS.setdefault(lane_ctrl, {})
+    if key in memo:
+        return memo[key]
+    if max_width < 1:
+        raise ValueError(f"max_width must be ≥ 1, got {max_width}")
+    dev = lane_ctrl.device
+    lc = lane_ctrl.detach().to("cpu", torch.int64)
+    B = lc.numel()
+    if B == 0:
+        out = (torch.empty(0, 1, dtype=torch.int32, device=dev),
+               torch.empty(0, dtype=torch.int32, device=dev))
+        memo[key] = out
+        return out
+    order = torch.sort(lc, stable=True).indices      # lanes, by controller
+    ctrl, counts = torch.unique_consecutive(lc[order], return_counts=True)
+    W = int(min(int(max_width), int(counts.max())))
+    per = (counts + W - 1) // W                      # blocks per controller
+    first_block = torch.cumsum(per, 0) - per
+    first_lane = torch.cumsum(counts, 0) - counts
+    grp = torch.repeat_interleave(torch.arange(ctrl.numel()), counts)
+    rank = torch.arange(B) - first_lane[grp]         # rank within the group
+    blk = first_block[grp] + rank // W
+    table = torch.full((int(per.sum()), W), -1, dtype=torch.int32)
+    table[blk, rank % W] = order.to(torch.int32)
+    block_ctrl = torch.repeat_interleave(ctrl, per).to(torch.int32)
+    out = (table.to(dev), block_ctrl.to(dev))
+    memo[key] = out
+    return out

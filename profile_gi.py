@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile steady Goldfarb–Idnani fleet periods on one NVIDIA GPU.
+"""Profile steady fleet periods on one NVIDIA GPU.
 
     python3 profile_gi.py [--out FILE.json]
 
@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  For each
 of the two GI configurations of ``chip_smoke.py`` (headline-GI: 256 CSTR
 controllers x 16 reps, float32 data, float64 slots; large-GI: 32 8x8
 plants, Hp=15, Hc=4, ``gi_max_active=8`` x 128 reps, float32 data and
-slots; both B=4096, in closed loop) it runs 8 periods from rest, times 12
+slots; both B=4096, in closed loop) and for headline-ADMM (the headline
+fleet with the ADMM backend, float32) it runs 8 periods from rest, times 12
 unprofiled periods (host clock, from a synchronized start to the host
 read of ``n_conv``), then profiles 4 more with ``torch.profiler`` and
 reports per period:
@@ -15,7 +16,8 @@ reports per period:
 * ``wall_unprofiled_ms`` (median of the 12) and ``wall_profiled_ms``;
 * ``device_busy_ms``: the union of the intervals of the device's own
   activities — kernels, copies and sets.  The ``record_function`` ranges
-  this script opens (``fleet_step``, ``solve_qp_active``, ``gi_solve``)
+  this script opens (``fleet_step``, ``solve_qp``/``solve_qp_active``,
+  ``gi_solve``/``admm_sweep``)
   also show up as device-side annotations; they are left out, or the
   busy time would count the whole step;
 * ``idle_share_profiled`` = 1 − busy / profiled wall (both from the
@@ -26,8 +28,9 @@ reports per period:
   the largest device items.
 
 The ranges are opened from outside the package: around the fleet step,
-around ``solve_qp_active`` (patched in ``controllers.linmpc``) and around the
-fleet's ``gi`` attribute.  The card's name and power limit are printed last.
+around ``solve_qp_active`` and ``solve_qp`` (patched in
+``controllers.linmpc``) and around the fleet's ``gi`` or ``sweep``
+attribute (the kernel's wrapper).  The card's name and power limit are printed last.
 """
 import argparse
 import json
@@ -37,7 +40,8 @@ import time
 
 from chip_smoke import ROOT, ClosedLoop, card_line, large_controllers
 
-RANGES = ("fleet_step", "solve_qp_active", "gi_solve")
+RANGES = ("fleet_step", "solve_qp_active", "solve_qp", "gi_solve", "admm_sweep")
+KERNELS = {"gi": "gi_solve_kernel", "sweep": "admm_"}
 WARM, TIMED, PROFILED = 8, 12, 4
 
 
@@ -56,14 +60,15 @@ def union_ms(intervals):
     return total / 1e3
 
 
-def profile_fleet(torch, fleet, loop):
+def profile_fleet(torch, fleet, loop, attr):
     from torch.profiler import ProfilerActivity, profile, record_function
-    inner = fleet.gi
+    inner = getattr(fleet, attr)
+    label = "gi_solve" if attr == "gi" else "admm_sweep"
 
-    def gi_ranged(*args):
-        with record_function("gi_solve"):
+    def ranged(*args):
+        with record_function(label):
             return inner(*args)
-    fleet.gi = gi_ranged
+    setattr(fleet, attr, ranged)
     for k in range(WARM):
         u, _ = fleet.step(*loop.measure(k))
         loop.advance(u)
@@ -86,7 +91,7 @@ def profile_fleet(torch, fleet, loop):
             loop.advance(u)
         torch.cuda.synchronize()
         wall_p = (time.perf_counter() - t0) * 1e3 / PROFILED
-    fleet.gi = inner
+    setattr(fleet, attr, inner)
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     dev_ev = [e for e in events if e.device_type == cuda and e.name not in RANGES]
@@ -111,7 +116,8 @@ def profile_fleet(torch, fleet, loop):
         idle_share_unprofiled=1 - busy / wall_u,
         host_ranges_ms={k: v / PROFILED for k, v in host_ranges.items()},
         host_self_top_ms=host_ops[:8],
-        gi_kernel_device_ms=sum(ms for key, ms, _ in dev_items if "gi_solve_kernel" in key),
+        kernel_device_ms=sum(ms for key, ms, _ in dev_items if KERNELS[attr] in key),
+        kernel_launches=sum(c for key, _, c in dev_items if KERNELS[attr] in key),
         top_device_ms=dev_items[:10],
         solves_per_s=fleet.B / wall_u * 1e3)
 
@@ -130,27 +136,28 @@ def main():
     from mpc_tpu_torch.parallel import BatchedLinMPC, random_cstr_controllers
     from torch.profiler import record_function
 
-    solve = linmpc.solve_qp_active
-
-    def solve_ranged(*a, **k):
-        with record_function("solve_qp_active"):
-            return solve(*a, **k)
-    linmpc.solve_qp_active = solve_ranged
+    for fname in ("solve_qp_active", "solve_qp"):
+        def solve_ranged(*a, _f=getattr(linmpc, fname), _n=fname, **k):
+            with record_function(_n):
+                return _f(*a, **k)
+        setattr(linmpc, fname, solve_ranged)
     dev = torch.device("cuda")
     configs = (
         ("headline-GI", lambda: random_cstr_controllers(256, Hp=10, Hc=2, seed=0,
                                                         qp_solver="active_set"),
-         16, None),
+         16, None, "gi"),
         ("large-GI", lambda: large_controllers(mt, 32, qp_solver="active_set",
                                                gi_max_active=8),
-         128, torch.float32))
+         128, torch.float32, "gi"),
+        ("headline-ADMM", lambda: random_cstr_controllers(256, Hp=10, Hc=2, seed=0),
+         16, None, "sweep"))
     out = {}
-    for name, make, reps, slots in configs:
+    for name, make, reps, slots, attr in configs:
         ctrls = make()
         fleet = BatchedLinMPC(ctrls, reps=reps, device=dev, dtype=torch.float32,
                               gi_slot_dtype=slots)
         loop = ClosedLoop(torch, ctrls, reps, dev, torch.float32)
-        out[name] = profile_fleet(torch, fleet, loop)
+        out[name] = profile_fleet(torch, fleet, loop, attr)
         print(name, json.dumps(out[name], indent=1), flush=True)
         del fleet
     out["card"] = card_line()

@@ -61,18 +61,29 @@ def test_plain_admm_batch_matches_interpret_pallas():
     assert np.max(np.abs(x_port - x_pal)) < 1e-5
 
 
-def _sweep_inputs(seed, n_d=3, reps=4, n=5, m=12, dtype=torch.float64):
+def _sweep_inputs(seed, n_d=3, reps=4, n=5, m=12, n_lad=3, dtype=torch.float64):
+    """Sweep inputs with a per-controller ρ ladder of ``n_lad`` rungs (ρ and
+    Minv of rung k at ρ = 0.1·2^(k−1)) and a rung per lane."""
     rng = np.random.default_rng(seed)
     B = n_d * reps
-    _, q, A, l, u, rho, Minv = _random_batch(rng, n, m, B)
+    P, q, A, l, u, _, _ = _random_batch(rng, n, m, B)
     t = lambda a: torch.tensor(a, dtype=dtype)
     lane_ctrl = torch.arange(B, dtype=torch.int32) % n_d
+    rhovs = 0.1 * 2.0 ** (np.arange(n_lad) - 1.0)[None, :, None] * np.ones((n_d, 1, m))
+    Minvs = np.linalg.inv(
+        P[:n_d, None] + 1e-6 * np.eye(n)
+        + np.einsum("dmn,dkm,dmj->dknj", A[:n_d], rhovs, A[:n_d]))
     A_d = t(A[:n_d])
     z = torch.clamp(torch.einsum("bmn,bn->bm", A_d[lane_ctrl.long()],
                                  t(q) * 0.1), t(l), t(u))
-    return dict(Minv=t(Minv), A=A_d, lane_ctrl=lane_ctrl, q=t(q), l=t(l),
-                u=t(u), rho=t(rho), x=t(q) * 0.1, z=z,
+    return dict(Minvs=t(Minvs), A=A_d, lane_ctrl=lane_ctrl,
+                rung=torch.tensor(rng.integers(0, n_lad, B), dtype=torch.int32),
+                q=t(q), l=t(l), u=t(u), rhovs=t(rhovs), x=t(q) * 0.1, z=z,
                 y=t(rng.normal(size=(B, m)) * 0.01))
+
+
+ORDER = ("Minvs", "A", "lane_ctrl", "rung", "q", "l", "u", "rhovs", "x", "z",
+         "y")
 
 
 def test_inactive_lanes_stay_bit_unchanged():
@@ -82,10 +93,9 @@ def test_inactive_lanes_stay_bit_unchanged():
     B = a["x"].shape[0]
     active = torch.tensor([i % 3 != 1 for i in range(B)])
     before = {k: a[k].clone() for k in ("x", "z", "y")}
-    full = {k: a[k].clone() for k in ("x", "z", "y")}
-    args = [a[k] for k in ("Minv", "A", "lane_ctrl", "q", "l", "u", "rho")]
-    admm_sweep_reference(*args, a["x"], a["z"], a["y"], active, 10, 1e-6, 1.6)
-    admm_sweep_reference(*args, full["x"], full["z"], full["y"],
+    full = dict(a, **{k: a[k].clone() for k in ("x", "z", "y")})
+    admm_sweep_reference(*(a[k] for k in ORDER), active, 10, 1e-6, 1.6)
+    admm_sweep_reference(*(full[k] for k in ORDER),
                          torch.ones(B, dtype=torch.bool), 10, 1e-6, 1.6)
     for k in ("x", "z", "y"):
         assert torch.equal(a[k][~active], before[k][~active]), k
@@ -95,18 +105,67 @@ def test_inactive_lanes_stay_bit_unchanged():
 
 def test_lane_ctrl_reads_each_lanes_controller():
     """A stacked over distinct controllers and read through lane_ctrl equals
-    the sweep on per-lane copies of A."""
+    the sweep on per-lane copies of A and of the ladders."""
     a = _sweep_inputs(2)
     B = a["x"].shape[0]
-    per_lane = dict(a, A=a["A"][a["lane_ctrl"].long()].clone(),
+    lc = a["lane_ctrl"].long()
+    per_lane = dict(a, A=a["A"][lc].clone(), Minvs=a["Minvs"][lc].clone(),
+                    rhovs=a["rhovs"][lc].clone(),
                     lane_ctrl=torch.arange(B, dtype=torch.int32),
                     x=a["x"].clone(), z=a["z"].clone(), y=a["y"].clone())
     on = torch.ones(B, dtype=torch.bool)
     for d in (a, per_lane):
-        admm_sweep(d["Minv"], d["A"], d["lane_ctrl"], d["q"], d["l"], d["u"],
-                   d["rho"], d["x"], d["z"], d["y"], on, 7, 1e-6, 1.6)
+        admm_sweep(*(d[k] for k in ORDER), on, 7, 1e-6, 1.6)
     for k in ("x", "z", "y"):
         assert torch.allclose(a[k], per_lane[k], rtol=0, atol=1e-14), k
+
+
+@pytest.mark.parametrize("n_d,reps,n_lad", [(3, 4, 3), (1, 6, 9), (5, 1, 1)])
+def test_ladder_read_by_rung_matches_gathered_form(n_d, reps, n_lad):
+    """The sweep reading Minv and ρ off the ladder by (lane_ctrl, rung)
+    equals, to the last bit, the same sweep on the per-lane Minv and ρ that
+    the solver used to gather before every launch (a one-rung ladder per
+    lane): the tiled fleet, a shared controller, one lane per controller."""
+    _assert_ladder_equals_gathered(_sweep_inputs(4, n_d=n_d, reps=reps, n_lad=n_lad))
+
+
+def _assert_ladder_equals_gathered(a):
+    B = a["x"].shape[0]
+    lc, rg = a["lane_ctrl"].long(), a["rung"].long()
+    gathered = dict(a, Minvs=a["Minvs"][lc, rg][:, None].contiguous(),
+                    rhovs=a["rhovs"][lc, rg][:, None].contiguous(),
+                    A=a["A"][lc].contiguous(),
+                    lane_ctrl=torch.arange(B, dtype=torch.int32),
+                    rung=torch.zeros(B, dtype=torch.int32),
+                    x=a["x"].clone(), z=a["z"].clone(), y=a["y"].clone())
+    active = torch.arange(B) % 4 != 2
+    for d in (a, gathered):
+        admm_sweep_reference(*(d[k] for k in ORDER), active, 10, 1e-6, 1.6)
+    for k in ("x", "z", "y"):
+        assert torch.equal(a[k], gathered[k]), k
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_qps_wider_than_the_block_fit_the_layout(itemsize):
+    """n > 256, more columns than the lanes-in-step block has threads: the
+    kernel splits Aᵀ(ρz − y) into one row class, each thread summing
+    several columns, so the layout holds lanes·n partial sums (at n ≤ 256,
+    up to 16 row classes).  n=300, m=20 fits the budget in float32 and
+    float64, and the plain sweep there reads the ladder as the gathered
+    form does, to the last bit."""
+    s, a16 = itemsize, lambda b: (b + 15) // 16 * 16
+    lane = a16(s * (6 * 20 + 4 * 300))
+    for lanes in (1, 2):
+        assert smem_bytes(300, 20, s, lanes, True) == (
+            a16(s * 300 * 20) + lanes * lane + a16(s * lanes * 300))
+    assert smem_bytes(300, 20, s) <= HOPPER_SMEM_OPTIN
+    assert smem_bytes(33, 577, s, 2, True) == (
+        a16(s * 33 * 577) + 2 * a16(s * (6 * 577 + 4 * 33)) + a16(s * 7 * 2 * 33))
+    assert smem_bytes(5, 101, s, 2, True) == (
+        a16(s * 5 * 101) + 2 * a16(s * (6 * 101 + 4 * 5)) + a16(s * 16 * 2 * 5))
+    dtype = torch.float32 if s == 4 else torch.float64
+    _assert_ladder_equals_gathered(_sweep_inputs(6, n_d=2, reps=3, n=300, m=20,
+                                                 dtype=dtype))
 
 
 def test_size_guard_uses_the_hopper_budget():
@@ -117,25 +176,28 @@ def test_size_guard_uses_the_hopper_budget():
     assert smem_bytes(33, 897, 4) <= HOPPER_SMEM_OPTIN
     n, m, B = 64, 1024, 2
     z = lambda *s: torch.zeros(s, dtype=torch.float32)
+    zi = lambda *s: torch.zeros(s, dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
-        admm_sweep(z(B, n, n), z(1, m, n), torch.zeros(B, dtype=torch.int32),
-                   z(B, n), z(B, m), z(B, m), z(B, m) + 1, z(B, n), z(B, m),
-                   z(B, m), torch.ones(B, dtype=torch.bool), 1, 1e-6, 1.6)
+        admm_sweep(z(1, 1, n, n), z(1, m, n), zi(B), zi(B), z(B, n), z(B, m),
+                   z(B, m), z(1, 1, m) + 1, z(B, n), z(B, m), z(B, m),
+                   torch.ones(B, dtype=torch.bool), 1, 1e-6, 1.6)
 
 
 def test_sweep_rejects_bad_arguments():
     a = _sweep_inputs(3)
     B = a["x"].shape[0]
-    args = [a[k] for k in ("Minv", "A", "lane_ctrl", "q", "l", "u", "rho",
-                           "x", "z", "y")]
+    args = [a[k] for k in ORDER]
+    on = torch.ones(B, dtype=torch.bool)
     with pytest.raises(TypeError, match="active"):
         admm_sweep(*args, torch.ones(B, dtype=torch.int32), 1, 1e-6, 1.6)
-    with pytest.raises(ValueError, match="Minv"):
-        admm_sweep(args[0][:, :2], *args[1:], torch.ones(B, dtype=torch.bool),
-                   1, 1e-6, 1.6)
+    with pytest.raises(ValueError, match="Minvs"):
+        admm_sweep(args[0][:, :, :2], *args[1:], on, 1, 1e-6, 1.6)
+    with pytest.raises(ValueError, match="rhovs"):
+        admm_sweep(*args[:7], args[7][:, :1], *args[8:], on, 1, 1e-6, 1.6)
     with pytest.raises(TypeError, match="lane_ctrl"):
-        admm_sweep(args[0], args[1], args[2].long(), *args[3:],
-                   torch.ones(B, dtype=torch.bool), 1, 1e-6, 1.6)
+        admm_sweep(args[0], args[1], args[2].long(), *args[3:], on, 1, 1e-6, 1.6)
+    with pytest.raises(TypeError, match="rung"):
+        admm_sweep(*args[:3], args[3].long(), *args[4:], on, 1, 1e-6, 1.6)
 
 
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc(tmp_path, monkeypatch):

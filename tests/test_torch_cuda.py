@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpc_tpu_torch.ops import admm_kernel
 from mpc_tpu_torch.ops.admm_kernel import (LAUNCHES, admm_sweep,
                                            admm_sweep_reference)
 from mpc_tpu_torch.ops.gi_kernel import gi_solve, gi_solve_reference
@@ -24,48 +25,98 @@ def _card():
     return torch.device("cuda")
 
 
-def _problem(dev, dtype, n=5, m=101, n_d=8, reps=4, seed=0):
+LAYOUTS = {
+    # lane → controller maps the port produces
+    "tiled": lambda: torch.arange(32, dtype=torch.int32) % 8,
+    "shared": lambda: torch.zeros(19, dtype=torch.int32),
+    "n_d=B": lambda: torch.arange(24, dtype=torch.int32),
+    "B=1": lambda: torch.zeros(1, dtype=torch.int32),
+    "ragged": lambda: torch.tensor([0] * 3 + [1] * 21 + [2] * 9 + [3], dtype=torch.int32),
+}
+
+
+def _problem(dev, dtype, n=5, m=101, lane_ctrl=None, n_lad=3, seed=0):
+    """Sweep inputs on a per-controller ρ ladder of ``n_lad`` rungs, a rung
+    per lane, a warm start (x, z and y as a previous block leaves them, y
+    nonzero) and a fifth of the lanes frozen."""
     g = torch.Generator().manual_seed(seed)
-    B = n_d * reps
+    lane_ctrl = LAYOUTS["tiled"]() if lane_ctrl is None else lane_ctrl
+    B, n_d = lane_ctrl.numel(), int(lane_ctrl.max()) + 1
     r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64)
     A = r(n_d, m, n)
-    lane_ctrl = (torch.arange(B, dtype=torch.int32) % n_d)
-    H = r(B, n, n)
-    rho = torch.full((B, m), 0.1, dtype=torch.float64)
+    H = r(n_d, n, n)
+    rhovs = (0.1 * 2.0 ** (torch.arange(n_lad, dtype=torch.float64) - 1))[None, :, None] \
+        * torch.ones(n_d, 1, m, dtype=torch.float64)
+    M = (H @ H.transpose(1, 2) + n * torch.eye(n, dtype=torch.float64))[:, None] \
+        + A.transpose(1, 2)[:, None] @ (rhovs[..., None] * A[:, None])
     Al = A[lane_ctrl.long()]
-    M = H @ H.transpose(1, 2) + n * torch.eye(n, dtype=torch.float64) \
-        + Al.transpose(1, 2) @ (rho[..., None] * Al)
     x = r(B, n) * 0.1
     Ax = (Al @ x[..., None])[..., 0]
-    # a warm start: x, z and y as a previous block leaves them (y nonzero)
-    args = dict(Minv=torch.linalg.inv(M), A=A, lane_ctrl=lane_ctrl, q=r(B, n),
-                l=Ax - 0.2, u=Ax + 0.6, rho=rho, x=x,
+    args = dict(Minvs=torch.linalg.inv(M), A=A, lane_ctrl=lane_ctrl,
+                rung=torch.randint(0, n_lad, (B,), generator=g, dtype=torch.int32),
+                q=r(B, n), l=Ax - 0.2, u=Ax + 0.6, rhovs=rhovs, x=x,
                 z=Ax, y=r(B, m) * 0.5,
                 active=torch.arange(B) % 5 != 3)
     return {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev)).contiguous()
             for k, v in args.items()}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
-                                       (torch.float64, 1e-10)])
-def test_kernel_matches_plain_on_card(dtype, tol):
-    dev = _card()
-    a = _problem(dev, dtype)
+SWEEP = ("Minvs", "A", "lane_ctrl", "rung", "q", "l", "u", "rhovs", "x", "z",
+         "y", "active")
+
+
+def _sweep_check(dev, dtype, tol, rel=True, **kw):
+    """Kernel and plain sweep, 40 sweeps: x, z and y each to
+    tol·(1 + its max|plain|) (``rel``) or to tol."""
+    a = _problem(dev, dtype, **kw)
     b = {k: v.clone() for k, v in a.items()}
-    order = ("Minv", "A", "lane_ctrl", "q", "l", "u", "rho", "x", "z", "y",
-             "active")
     n0 = LAUNCHES["admm_sweep"]
-    admm_sweep(*(a[k] for k in order), 40, 1e-6, 1.6)
-    admm_sweep_reference(*(b[k] for k in order), 40, 1e-6, 1.6)
+    admm_sweep(*(a[k] for k in SWEEP), 40, 1e-6, 1.6)
+    admm_sweep_reference(*(b[k] for k in SWEEP), 40, 1e-6, 1.6)
     torch.cuda.synchronize()
     assert LAUNCHES["admm_sweep"] == n0 + 1
     for k in ("x", "z", "y"):
         err = (a[k] - b[k]).abs().max().item()
-        assert err < tol, (k, err)
-    off, start = ~a["active"], _problem(dev, dtype)
+        assert err < tol * ((1.0 + b[k].abs().max().item()) if rel else 1.0), (k, err)
+    off, start = ~a["active"], _problem(dev, dtype, **kw)
     for k in ("x", "z", "y"):
         assert torch.equal(a[k][off], start[k][off]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.float64, 1e-10)])
+def test_kernel_matches_plain_on_card(dtype, tol):
+    _sweep_check(_card(), dtype, tol, rel=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,warp_lanes", [(5, 101, 0), (5, 101, 10**9), (33, 150, 0)])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_kernel_layouts_match_plain_on_card(layout, n, m, warp_lanes, monkeypatch):
+    """Both variants (a warp a lane, forced for n ≤ 32 by
+    ``WARP_LANES_PER_SM`` = 0; the lanes in step, forced by a huge one and
+    always for n > 32) on every lane layout: f32 to 1e-4·(1 + max|plain|),
+    f64 to 1e-10, frozen lanes bit-unchanged."""
+    dev = _card()
+    monkeypatch.setattr(admm_kernel, "WARP_LANES_PER_SM", warp_lanes)
+    lc = LAYOUTS[layout]()
+    _sweep_check(dev, torch.float32, 1e-4, n=n, m=m, lane_ctrl=lc)
+    _sweep_check(dev, torch.float64, 1e-10, rel=False, n=n, m=m, lane_ctrl=lc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32, 2112])
+def test_kernel_wider_than_the_block_matches_plain_on_card(B):
+    """n=300 > 256 threads of the lanes-in-step block (one row class of
+    Aᵀv, several columns a thread), m=20, one controller shared by B lanes:
+    1, 32 and 2112 lanes (a lane a block, and two a block on a card of
+    132 SMs); f32 to 1e-4·(1 + max|plain|), f64 to 1e-10, frozen lanes
+    bit-unchanged."""
+    dev = _card()
+    lc = torch.zeros(B, dtype=torch.int32)
+    _sweep_check(dev, torch.float32, 1e-4, n=300, m=20, lane_ctrl=lc)
+    _sweep_check(dev, torch.float64, 1e-10, rel=False, n=300, m=20, lane_ctrl=lc)
 
 
 @pytest.mark.cuda
@@ -85,14 +136,17 @@ def test_fleet_step_kernel_path_matches_plain_path_on_card():
         assert abs(int(nc_k) - int(nc_p)) <= 1
 
 
-def _gi_problem(dev, dtype, n=6, m=24, B=256, seed=0):
-    """Random QPs of the tests/test_qp.py kind, one per lane, with warm duals
-    (some junk) so the warm loop inserts and drops."""
+def _gi_problem(dev, dtype, n=6, m=24, B=256, seed=0, lane_ctrl=None):
+    """Random QPs of the tests/test_qp.py kind, one per lane (or one per
+    controller of ``lane_ctrl``, bounds per lane), with warm duals (some
+    junk) so the warm loop inserts and drops."""
     rng = np.random.default_rng(seed)
-    H = rng.normal(size=(B, n, n))
+    lc = np.arange(B) if lane_ctrl is None else lane_ctrl.cpu().numpy()
+    n_d = int(lc.max()) + 1
+    H = rng.normal(size=(n_d, n, n))
     P = H @ H.transpose(0, 2, 1) + n * np.eye(n)
-    A = rng.normal(size=(B, m, n))
-    Ax = np.einsum("bmn,bn->bm", A, rng.normal(size=(B, n)) * 0.1)
+    A = rng.normal(size=(n_d, m, n))
+    Ax = np.einsum("bmn,bn->bm", A[lc], rng.normal(size=(B, n)) * 0.1)
     margin = rng.uniform(0.05, 1.0, size=(B, m))
     l = np.where(rng.random((B, m)) < 0.3, -1e20, Ax - margin)
     Pinv = np.stack([build_gi_cache(p, None)["gic_Pinv"] for p in P])
@@ -125,6 +179,24 @@ def test_gi_kernel_matches_plain_on_card(dtype, slots, cap):
         assert torch.equal(k.gi_state["gis_idx"], p.gi_state["gis_idx"])
     both = k.converged & p.converged
     assert (k.x - p.x)[both].abs().max().item() < tol * x_scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_gi_kernel_layouts_match_plain_on_card(layout):
+    """The GI kernel on every lane layout (lanes of one controller share a
+    block, one warp each) against the plain solve in float64: equal flags,
+    iterations and active sets, x to 1e-12·(1 + max|x|)."""
+    dev = _card()
+    lc = LAYOUTS[layout]().to(dev)
+    a = _gi_problem(dev, torch.float64, B=lc.numel(), seed=5, lane_ctrl=lc)
+    k, p = (solve_qp_active(a["P"], a["q"], a["A"], a["l"], a["u"], a["y0"],
+                            lane_ctrl=lc, cache=a["cache"], max_active=3, solve=fn)
+            for fn in (gi_solve, gi_solve_reference))
+    assert torch.equal(k.converged, p.converged)
+    assert torch.equal(k.iters, p.iters)
+    assert torch.equal(k.gi_state["gis_idx"], p.gi_state["gis_idx"])
+    assert (k.x - p.x).abs().max().item() < 1e-12 * (1.0 + p.x.abs().max().item())
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ CPU (the kernels' plain versions).  Bars, after every ``moveinput``: u to
 iteration count, budget and converged flag.
 """
 import copy
+import inspect
 import warnings
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 
 import mpc_tpu as mr
 import mpc_tpu_torch as mt
+from mpc_tpu_torch.ops.qp import solve_qp
 
 torch.set_num_threads(1)
 
@@ -27,10 +29,12 @@ INFO_KEYS = ("DeltaU", "epsilon", "J", "U", "u", "Yhat", "xhat", "yhat",
              "Yhats", "xhatend", "lastu", "d", "Dhat", "Rhaty", "Rhatu")
 
 
-def assert_same_info(cr, cp):
+def assert_same_info(cr, cp, iters_slack=0):
     ir, ip = cr.getinfo(), cp.getinfo()
-    for k in ("converged", "iters", "iter_budget", "deadline_miss"):
+    for k in ("converged", "iter_budget", "deadline_miss"):
         assert ir[k] == ip[k], (k, ir[k], ip[k])
+    assert abs(ir["iters"] - ip["iters"]) <= iters_slack, \
+        ("iters", ir["iters"], ip["iters"])
     for k in INFO_KEYS:
         a, b = np.asarray(ir[k], float), np.asarray(ip[k], float)
         assert a.shape == b.shape, k
@@ -38,14 +42,15 @@ def assert_same_info(cr, cp):
             assert np.max(np.abs(a - b) / (1.0 + np.abs(a))) < 1e-6, k
 
 
-def lockstep(case, **kw):
+def lockstep(case, iters_slack=0, **kw):
     """Run ``case`` (a generator of (controller, u) per moveinput) in both
-    packages side by side; returns the two last controllers."""
+    packages side by side; returns the two last controllers.
+    ``iters_slack`` bounds the QP iteration difference (0: equal)."""
     runs = zip(case(mr, **kw), case(mt, **kw))
     n = 0
     for (cr, ur), (cp, up) in runs:
         assert np.max(np.abs(np.asarray(ur) - up)) < 1e-6, (n, ur, up)
-        assert_same_info(cr, cp)
+        assert_same_info(cr, cp, iters_slack)
         n += 1
     assert n > 0
     return cr, cp
@@ -313,8 +318,22 @@ def readme_loop(pkg, qp_solver="admm", transcription="ss", N=25):
 def test_readme_loop_solvers_and_transcriptions(qp_solver, transcription):
     """GI ≡ ADMM and MS ≡ SS (tests/test_linmpc.py:457-495): each
     combination held to the reference, and the port's own to its SS/ADMM
-    run at the reference's bars (1e-9 GI vs ADMM, 1e-8 MS vs SS)."""
-    lockstep(readme_loop, qp_solver=qp_solver, transcription=transcription)
+    run at the reference's bars (1e-9 GI vs ADMM, 1e-8 MS vs SS).
+
+    MultipleShooting with ADMM reduces to n = 3 variables with six rows
+    active at once from period 1 on: the polish's KKT is singular up to its
+    δ = 1e-11.  Fed the same inputs, the two polishes agree to the last bit
+    before refinement; the refinement steps multiply the round-off of the
+    residual's sums (``jnp.sum`` under XLA against ``torch.sum``) by
+    ‖K⁻¹‖ ~ 1/δ, so the duals it returns (the next period's warm start)
+    differ while x does not, and the next solve may take another number of
+    residual checks.  u and the getinfo arrays stay equal; the iteration
+    counts there are held to two of the controller's ``check_every``
+    blocks."""
+    check_every = inspect.signature(solve_qp).parameters["check_every"].default
+    slack = 2 * check_every if (qp_solver, transcription) == ("admm", "ms") else 0
+    lockstep(readme_loop, iters_slack=slack, qp_solver=qp_solver,
+             transcription=transcription)
     u = lambda **kw: np.array([u_ for _, u_ in readme_loop(mt, **kw)])
     base = u()
     bar = 1e-9 if transcription == "ss" else 1e-8
