@@ -261,20 +261,32 @@ def steady_inputs(torch, fleet, ctrls, reps, periods=4):
     afterwards."""
     loop = ClosedLoop(torch, ctrls, reps, fleet.device, fleet.dtype, ry_scale=5.0)
     snap = fleet.state
-    cap = Capture(fleet.sweep)
     try:
         for k in range(periods):
             u, _ = fleet.step(*loop.measure(k))
             loop.advance(u)
+        args = capture_sweep(fleet, *loop.measure(periods))
+    finally:
+        fleet.state = snap
+    check(args is not None, "no ADMM sweep of the steady period started from a "
+          "warm dual with the lane mask mixed")
+    return args
+
+
+def capture_sweep(fleet, ym, ry):
+    """The inputs of the sweep that ``Capture`` takes in the fleet's next
+    period (``fleet.step(ym, ry)``), or None; the fleet's state is left as
+    it was."""
+    snap = fleet.state
+    cap = Capture(fleet.sweep)
+    try:
         fleet.sweep = cap
-        fleet.step(*loop.measure(periods))
+        fleet.step(ym, ry)
     except _Captured:
         pass
     finally:
         fleet.sweep = cap.sweep
         fleet.state = snap
-    check(cap.args is not None, "no ADMM sweep of the steady period started "
-          "from a warm dual with the lane mask mixed")
     return cap.args
 
 
@@ -562,17 +574,28 @@ def gi_steady_inputs(torch, fleet, ctrls, reps, periods=4):
     so that bounds are active.  The fleet's state is restored afterwards."""
     loop = ClosedLoop(torch, ctrls, reps, fleet.device, fleet.dtype, ry_scale=5.0)
     snap = fleet.state
+    try:
+        for k in range(periods):
+            u, _ = fleet.step(*loop.measure(k))
+            loop.advance(u)
+        return capture_gi(fleet, *loop.measure(periods))
+    finally:
+        fleet.state = snap
+
+
+def capture_gi(fleet, ym, ry):
+    """The inputs (carried operator state included) of the GI solve of the
+    fleet's next period (``fleet.step(ym, ry)``); the fleet's state is left
+    as it was."""
+    snap = fleet.state
     inner, rec = fleet.gi, {}
 
     def capture(*args):
         rec["args"] = _clone(args)
         return inner(*args)
     try:
-        for k in range(periods):
-            u, _ = fleet.step(*loop.measure(k))
-            loop.advance(u)
         fleet.gi = capture
-        fleet.step(*loop.measure(periods))
+        fleet.step(ym, ry)
     finally:
         fleet.gi = inner
         fleet.state = snap
@@ -884,7 +907,7 @@ def readme_phase(torch, mt, ops, dev):
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     out = {}
     for qp_solver, kernel, key in SOLVERS:
-        ref = mt.sim(readme_controller(mt, qp_solver, None), 40, [5, 0])
+        ref = mt.sim(readme_controller(mt, qp_solver, "cpu"), 40, [5, 0])
         ctrl = readme_controller(mt, qp_solver, dev)
         timer = Timed(ctrl)
         torch.cuda.synchronize()
@@ -930,7 +953,7 @@ def full_width_phase(torch, mt, ops, dev, periods=20):
     for qp_solver, kernel, _ in SOLVERS:
         ctrls = [large_controllers(mt, 1, qp_solver=qp_solver, kalman=True,
                                    dtype=torch.float32, device=d)[0]
-                 for d in (dev, None)]
+                 for d in (dev, "cpu")]
         plant = copy.deepcopy(ctrls[1].estim.model)
         timer = Timed(ctrls[0])
         worst, n_conv = 0.0, [0, 0]
@@ -1067,6 +1090,326 @@ def deadline_phase(torch, mt, ops, dev):
     return launches
 
 
+# --- the nonlinear-plant slice: SLMPC, the EKF and UKF, BatchedKalman ---------
+PEND_P = (9.8, 0.4, 1.2, 0.3)
+SL_BENCH = dict(Hp=15, Hc=2, Mwt=[0.5], Nwt=[2.5], sigmaQ=[0.1, 1.0], sigmaR=[5.0],
+                sigmaQint_ym=[0.1])
+SL_K = 8            # periods a window (bench.py's K periods a dispatch)
+
+
+def pendulum(torch, mt, device):
+    """bench.py's pendulum (bench.py:888-895): NonLinModel, RK4, Ts = 0.1 s,
+    y the angle in degrees."""
+    def f(x, u, d, par):
+        g, L, K, m = par
+        return torch.stack([x[1], -g / L * torch.sin(x[0]) - K / m * x[1]
+                            + u[0] / (m * L ** 2)])
+
+    h = lambda x, d, par: torch.stack([x[0] * 180 / torch.pi])
+    return mt.NonLinModel(f, h, 0.1, 1, 2, 1, p=PEND_P, solver=mt.RungeKutta(4),
+                          device=device)
+
+
+def slmpc(torch, mt, device, qp_solver="active_set", dtype=None, **kw):
+    """bench.py's SLMPC (bench.py:896-899), |u| ≤ 1.5."""
+    c = mt.SLMPC(pendulum(torch, mt, device), qp_solver=qp_solver, dtype=dtype,
+                 device=device, **{**SL_BENCH, **kw})
+    return c.setconstraint(umin=[-1.5], umax=[1.5])
+
+
+class SLMPCFleet:
+    """An SLMPC fleet of B lanes (bench.py:879-953): ``step(ym, ry)`` runs
+    one period of ``make_fleet_step`` and returns ``(u, n_conv)``;
+    ``state`` is the fleet's state dict.  ``gi`` and ``sweep`` are the
+    per-lane solve and the ADMM sweep its QP calls, as BatchedLinMPC's
+    attributes of those names (checks swap in the plain versions): a period
+    passes them to the controller module's ``solve_qp_active`` and
+    ``solve_qp``."""
+
+    def __init__(self, torch, ctrl, B):
+        from mpc_tpu_torch import ops
+        self.B = B
+        self.state = ctrl.fleet_state(B)
+        self.bounds = ctrl.bounds()
+        self.d = torch.zeros(B, 0, dtype=ctrl.dtype, device=ctrl.device)
+        self.gi, self.sweep = ops.gi_solve, ops.admm_sweep
+        self._step = ctrl.make_fleet_step(B, chunk=256)
+
+    def step(self, ym, ry):
+        from mpc_tpu_torch.controllers import slmpc as module
+        solvers = module.solve_qp_active, module.solve_qp
+        module.solve_qp_active = functools.partial(solvers[0], solve=self.gi)
+        module.solve_qp = functools.partial(solvers[1], sweep=self.sweep)
+        try:
+            u, conv, self.state = self._step(self.state, ym, ry, self.d, self.bounds)
+        finally:
+            module.solve_qp_active, module.solve_qp = solvers
+        return u, conv.sum()
+
+
+class PendulumLoop:
+    """The true pendulums of a fleet, stepped on the device by the model's
+    RK4 ``_fd`` under ``torch.func.vmap``, from rest; measurement noise
+    N(0, 1)° per lane from a seeded generator, and the setpoint phases 180 /
+    170 / 175 / 180° (bench.py:903-909), window w's period i in phase
+    (w + i) mod 4 as bench.py's K-period dispatches cycle them."""
+
+    def __init__(self, torch, model, B, dev, dtype, seed=4):
+        from torch.func import vmap
+        rng = np.random.default_rng(seed)
+        t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+        self.phases = [(t(rng.normal(size=(B, 1))), t(np.full((B, 1), deg)))
+                       for deg in (180.0, 170.0, 175.0, 180.0)]
+        p, d = model.p, torch.zeros(0, dtype=dtype, device=dev)
+        self.f = vmap(lambda x, u: model._fd(x, u, d, p))
+        self.h = vmap(lambda x: model._h_user(x, d, p))
+        self.x = torch.zeros(B, 2, dtype=dtype, device=dev)
+
+    def measure(self, k):
+        noise, ry = self.phases[(k // SL_K + k % SL_K) % 4]
+        return self.h(self.x) + noise, ry
+
+    def advance(self, u):
+        self.x = self.f(self.x, u)
+
+
+def slmpc_phase(torch, mt, ops, _build, dev, B=4096, warm=2, timed=2):
+    """THE SLICE'S MAIN PATH and its kernel checks: bench.py's SLMPC fleet
+    at B=4096 in float32 (GI with float64 slots), 2 warm windows of SL_K
+    periods, then ``timed`` windows with the launch counts read around
+    them; the GI kernel against its plain version on the inputs of the
+    last warm window's first solve with warm rows on half the lanes or
+    more; one period with the plain GI
+    solve; then 4 periods of a fleet with ``qp_solver="admm"`` swinging its
+    pendulums up from rest, where u saturates at ±1.5, and the sweep against
+    its plain version on the next period's inputs, taken by the ``Capture``
+    rule (warm duals, lane mask mixed).  Returns the launch counts and the
+    checks."""
+    t0 = time.perf_counter()
+    ctrl = slmpc(torch, mt, dev, dtype=torch.float32)
+    fleet = SLMPCFleet(torch, ctrl, B)
+    loop = PendulumLoop(torch, ctrl.model, B, dev, torch.float32)
+    print(f"SLMPC fleet: B={B}, QP n={ctrl.nZt} m={ctrl.n_rows}, per-lane P and A, "
+          f"float32 data, float64 GI slots; built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # the GI solve held against its plain version below is the first of the
+    # last warm window in which half the lanes or more enter with warm rows
+    # (the previous period's duals on active bounds)
+    gi_args = None
+    for k in range(warm * SL_K):
+        if gi_args is None and k >= (warm - 1) * SL_K:
+            args = capture_gi(fleet, *loop.measure(k))
+            if int((args[12] > 0).sum()) >= B // 2:
+                gi_args = args
+        u, nc = fleet.step(*loop.measure(k))
+        loop.advance(u)
+    check(gi_args is not None, "SLMPC: no GI solve of the last warm window had warm "
+          "rows on half the lanes")
+    k = warm * SL_K
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times, finite, umax = [], True, 0.0
+    for _ in range(timed * SL_K):
+        ym, ry = loop.measure(k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        u, nc = fleet.step(ym, ry)
+        n_conv = int(nc)
+        times.append(time.perf_counter() - t1)
+        finite &= bool(torch.isfinite(u).all())
+        umax = max(umax, u.abs().max().item())
+        loop.advance(u)
+        k += 1
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    n_per = timed * SL_K
+    med = statistics.median(times)
+    gi_pp = launches["gi_solve"] / n_per
+    print(f"SLMPC main path: {n_per} periods, kernel launches {launches} "
+          f"({gi_pp:g} GI a period); period median {med * 1e3:.2f} ms (min "
+          f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), {B / med:.0f} solves/s; "
+          f"last period converged {n_conv}/{B}, max |u| {umax:.4f}; angle mean "
+          f"{loop.x[:, 0].mean().item() * 180 / np.pi:.2f} deg", flush=True)
+    check(finite, "SLMPC main path: non-finite u")
+    check(n_conv >= 0.99 * B, f"SLMPC main path: last period converged {n_conv} < 0.99·{B}")
+    check(umax <= 1.5 + 1e-5, f"SLMPC main path: max |u| {umax} > 1.5")
+    check(launches["gi_solve"] == n_per, f"SLMPC main path: {launches['gi_solve']} GI "
+          f"launches in {n_per} periods (one a period expected)")
+    # the GI kernel against its plain version
+    gi_chk = gi_vs_plain(torch, ops, "SLMPC", gi_args, False)
+    gi_chk["lanes_per_sm"], geo = gi_residency(torch, _build, gi_args)
+    print(f"residency gi SLMPC: {gi_chk['lanes_per_sm']} lanes per SM ({geo})", flush=True)
+    gi_chk.update(launches=launches["gi_solve"], per_period=gi_pp, period_ms=med * 1e3,
+                  solves_per_s=B / med)
+    # one period with the plain GI solve, from the same state
+    plain_period(torch, "SLMPC", fleet, loop, "gi", ops.gi_solve, ops.gi_solve_reference)
+    # ADMM: the swing-up from rest.  The sweep held against its plain
+    # version is the first that Capture takes in its first 4 periods (u
+    # saturates, the solves start from the last period's duals); then the
+    # 4 periods again from rest, counted
+    actrl = slmpc(torch, mt, dev, qp_solver="admm", dtype=torch.float32)
+    afleet = SLMPCFleet(torch, actrl, B)
+    aloop = PendulumLoop(torch, actrl.model, B, dev, torch.float32)
+    rest = afleet.state, aloop.x
+    aargs = None
+    for k in range(4):
+        aargs = capture_sweep(afleet, *aloop.measure(k))
+        if aargs is not None:
+            break
+        u, _ = afleet.step(*aloop.measure(k))
+        aloop.advance(u)
+    check(aargs is not None, "SLMPC ADMM: no sweep of the swing-up's first 4 periods "
+          "started from a warm dual with the lane mask mixed")
+    afleet.state, aloop.x = rest
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    umax = 0.0
+    for k in range(4):
+        u, nc = afleet.step(*aloop.measure(k))
+        n_conv = int(nc)
+        check(bool(torch.isfinite(u).all()), "SLMPC ADMM: non-finite u")
+        umax = max(umax, u.abs().max().item())
+        aloop.advance(u)
+    torch.cuda.synchronize()
+    alaunch = dict(ops.LAUNCHES)
+    print(f"SLMPC ADMM: 4 periods from rest, kernel launches {alaunch} "
+          f"({alaunch['admm_sweep'] / 4:g} sweeps a period); last period converged "
+          f"{n_conv}/{B} ({n_conv / B:.4f}), max |u| {umax:.4f}", flush=True)
+    check(alaunch["admm_sweep"] > 0, "SLMPC ADMM: the sweep kernel was never launched")
+    check(umax >= 1.5 - 1e-5, f"SLMPC ADMM: max |u| {umax} never reached the bound 1.5")
+    on = aargs[11]
+    warm_lanes = int((aargs[10][on].abs().amax(1) >= Y_WARM).sum())
+    check(warm_lanes >= 0.5 * int(on.sum()), f"SLMPC ADMM: only {warm_lanes} of the "
+          f"{int(on.sum())} active lanes of the captured sweep start from |y| ≥ {Y_WARM:g}")
+    admm_chk = kernel_vs_plain(torch, ops, "SLMPC ADMM", aargs)
+    admm_chk["lanes_per_sm"], geo = admm_residency(torch, ops, _build, admm_chk["args"])
+    print(f"residency admm SLMPC: {admm_chk['lanes_per_sm']} lanes per SM ({geo})", flush=True)
+    admm_chk.update(launches=alaunch["admm_sweep"], per_period=alaunch["admm_sweep"] / 4)
+    return {"gi_solve": launches["gi_solve"], "admm_sweep": alaunch["admm_sweep"]}, \
+        gi_chk, admm_chk
+
+
+def small_slmpc_fleets(torch, mt, ops, dev, B=8, periods=20):
+    """Small float64 SLMPC fleets (B=8, chunk 4), GI and ADMM, on the card
+    against the same fleets on the CPU: both get the measurements of the
+    CPU fleet's plants; equal converged flags, and u within
+    1e-9·(1 + max|u|) with GI, 1e-8·(1 + max|u|) with ADMM (both sides run
+    the same float64 algorithm, but the card and the CPU sum in other
+    orders and ADMM's polish amplifies the difference: 2.6e-9 measured on
+    an H100)."""
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    for qp_solver, bar in (("active_set", 1e-9), ("admm", 1e-8)):
+        steps, states = {}, {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            c = slmpc(torch, mt, d, qp_solver=qp_solver)
+            steps[name] = (c.make_fleet_step(B, chunk=4), c.bounds(),
+                           torch.zeros(B, 0, dtype=torch.float64, device=d))
+            states[name] = c.fleet_state(B)
+        loop = PendulumLoop(torch, pendulum(torch, mt, "cpu"), B, "cpu", torch.float64)
+        loop.x[:, 0] = torch.linspace(-0.3, 0.3, B, dtype=torch.float64)
+        worst = 0.0
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for k in range(periods):
+            ym, ry = loop.measure(k)
+            out = {}
+            for name, (step, bd, d0) in steps.items():
+                dv = d0.device
+                u, conv, states[name] = step(states[name], ym.to(dv), ry.to(dv), d0, bd)
+                out[name] = (u.cpu(), conv.cpu())
+            err = (out["card"][0] - out["cpu"][0]).abs().max().item()
+            tol = bar * (1.0 + out["cpu"][0].abs().max().item())
+            check(err <= tol, f"small SLMPC {qp_solver} period {k}: card vs CPU |du| "
+                  f"{err:.3e} > {tol:.3e}")
+            check(torch.equal(out["card"][1], out["cpu"][1]),
+                  f"small SLMPC {qp_solver} period {k}: converged flags differ")
+            worst = max(worst, err)
+            loop.advance(out["cpu"][0])
+        run = dict(ops.LAUNCHES)
+        for key in launches:
+            launches[key] += run[key]
+        print(f"small SLMPC fleet {qp_solver} f64 (B={B}, chunk 4), {periods} periods: "
+              f"kernel launches {run}; card vs CPU max |du| {worst:.3e} (bar {bar:g}·(1 + "
+              f"max|u|))", flush=True)
+    return launches
+
+
+def single_slmpc_phase(torch, mt, ops, dev, periods=40):
+    """SLMPC.moveinput_closed: the pendulum swing-up (Hp=20, float64, GI and
+    ADMM; tests/test_slmpc.py:94-116) on the card against the CPU on the
+    same plant: u within 1e-6; the median moveinput_closed time."""
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    out = {}
+    for qp_solver, kernel, _ in SOLVERS:
+        ctrls = {d: slmpc(torch, mt, d, qp_solver=qp_solver, Hp=20) for d in (dev, "cpu")}
+        plant = pendulum(torch, mt, "cpu")
+        times, worst = [], 0.0
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for k in range(periods):
+            y = plant.evaloutput()
+            t0 = time.perf_counter()
+            u_c, conv_c = ctrls[dev].moveinput_closed(y, [180.0])
+            times.append(time.perf_counter() - t0)
+            u_h, conv_h = ctrls["cpu"].moveinput_closed(y, [180.0])
+            worst = max(worst, float(np.abs(u_c - u_h).max()))
+            check(conv_c == conv_h, f"single SLMPC {qp_solver} period {k}: converged differs")
+            plant.updatestate(u_h)
+        run = dict(ops.LAUNCHES)
+        for key in launches:
+            launches[key] += run[key]
+        med = statistics.median(times[5:])
+        angle = plant.evaloutput()[0]
+        print(f"single SLMPC {qp_solver} f64 swing-up (Hp=20), {periods} periods: kernel "
+              f"launches {run}; card vs CPU max |du| {worst:.3e} (bar 1e-6); final angle "
+              f"{angle:.3f} deg; moveinput_closed median {med * 1e3:.3f} ms (periods 5-40)",
+              flush=True)
+        check(worst < 1e-6, f"single SLMPC {qp_solver}: card vs CPU |du| {worst:.3e}")
+        check(run[kernel] >= periods, f"single SLMPC {qp_solver}: the {kernel} kernel "
+              f"was launched {run[kernel]} times in {periods} periods")
+        check(abs(angle - 180.0) < 2.0, f"single SLMPC {qp_solver}: ends at {angle} deg")
+        out[qp_solver] = med * 1e3
+    return launches, out
+
+
+def estimator_phase(torch, mt, dev, periods=20, B=4096):
+    """A UKF and an EKF on the pendulum (float64) and a BatchedKalman of
+    KalmanFilters (B=4096, float32), card against CPU for 20 periods on the
+    same measurements: x̂ within 1e-8·(1 + max|x̂|) (EKF), 1e-6·(1 + max|x̂|)
+    (UKF, whose weights scale as 1/α²) and 1e-4·(1 + max|x̂|) (the float32
+    fleet)."""
+    rng = np.random.default_rng(6)
+    for kind, bar in (("UnscentedKalmanFilter", 1e-6), ("ExtendedKalmanFilter", 1e-8)):
+        ests = [getattr(mt, kind)(pendulum(torch, mt, "cpu"), nint_ym=[1],
+                                  sigmaQ=[0.1, 0.5], sigmaR=[2.0], device=d)
+                for d in (dev, "cpu")]
+        worst = 0.0
+        for _ in range(periods):
+            y, u = rng.normal(size=1) * 20, rng.normal(size=1) * 0.5
+            for e in ests:
+                e.preparestate(y)
+                e.updatestate(u, y)
+            scale = 1.0 + np.abs(ests[1].x0_hat).max()
+            worst = max(worst, np.abs(ests[0].x0_hat - ests[1].x0_hat).max() / scale)
+        print(f"{kind} (pendulum, f64), {periods} periods: card vs CPU max |dx|/(1+|x|) "
+              f"{worst:.3e} (bar {bar:g})", flush=True)
+        check(worst <= bar, f"{kind}: card vs CPU {worst:.3e} > {bar:g}")
+    kfs = large_controllers(mt, 4, kalman=True, device="cpu")
+    from mpc_tpu_torch.parallel import BatchedKalman
+    fleets = [BatchedKalman([c.estim for c in kfs], dtype=torch.float32, reps=B // 4,
+                            device=d) for d in (dev, "cpu")]
+    worst = 0.0
+    for _ in range(periods):
+        ym = torch.tensor(rng.normal(size=(B, 8)), dtype=torch.float32)
+        u = torch.tensor(rng.normal(size=(B, 8)), dtype=torch.float32)
+        x = [f.step(ym.to(f.device), u.to(f.device)).cpu() for f in fleets]
+        worst = max(worst, ((x[0] - x[1]).abs().max() / (1 + x[1].abs().max())).item())
+    torch.cuda.synchronize()
+    print(f"BatchedKalman (KF, 8x8 plants, B={B}, f32), {periods} periods: card vs CPU "
+          f"max |dx|/(1+|x|) {worst:.3e} (bar 1e-4)", flush=True)
+    check(worst <= 1e-4, f"BatchedKalman: card vs CPU {worst:.3e} > 1e-4")
+
+
 def main():
     try:
         import torch
@@ -1158,6 +1501,7 @@ def main():
     # --- 6. the ADMM main path -------------------------------------------
     admm_launches, _ = drive(torch, ops, "headline-ADMM", fleet, loop, 12)
     per_period = {"headline-ADMM": admm_launches["admm_sweep"] / 16}
+    path_launches = {"headline-ADMM": admm_launches["admm_sweep"]}
     check(admm_launches["admm_sweep"] > 0,
           "headline-ADMM main path: the ADMM kernel was never launched")
 
@@ -1205,6 +1549,7 @@ def main():
         launches, _ = drive(torch, ops, name, gfleet, gloop, n_step)
         check(launches["gi_solve"] > 0, f"{name} main path: the GI kernel was never launched")
         gi_launches += launches["gi_solve"]
+        path_launches[name] = launches["gi_solve"]
         per_period[name] = launches["gi_solve"] / (n_step + 4)
         plain_period(torch, name, gfleet, gloop, "gi", ops.gi_solve, ops.gi_solve_reference)
         del gfleet
@@ -1216,46 +1561,108 @@ def main():
                       ("uncached", lambda: uncached_phase(torch, ops, dev)),
                       ("deadline", lambda: (deadline_phase(torch, mt, ops, dev), None))):
         run, single[phase] = fn()
+        path_launches[phase] = run
         admm_launches["admm_sweep"] += run["admm_sweep"]
         gi_launches += run["gi_solve"]
     readme, unc = single["README"], single["uncached"]
     print(f"single-README: moveinput median ADMM {readme['admm']['moveinput_ms']:.3f} ms, "
           f"GI {readme['active_set']['moveinput_ms']:.3f} ms (float64, B=1)", flush=True)
 
-    # --- the kernels line: times, bounds and residency at the main paths' shapes
+    # --- 16-20. the nonlinear-plant slice: the SLMPC fleet (THE SLICE'S MAIN
+    # PATH) with both kernels against their plain versions at its shape,
+    # small fleets and the single controller card vs CPU, the estimators
+    sl_launches, sl_gi, sl_admm = slmpc_phase(torch, mt, ops, _build, dev)
+    for phase, fn in (("SLMPC small fleets", lambda: (small_slmpc_fleets(torch, mt, ops, dev),
+                                                       None)),
+                      ("SLMPC single", lambda: single_slmpc_phase(torch, mt, ops, dev))):
+        run, single[phase] = fn()
+        for k in run:
+            sl_launches[k] += run[k]
+    admm_launches["admm_sweep"] += sl_launches["admm_sweep"]
+    gi_launches += sl_launches["gi_solve"]
+    estimator_phase(torch, mt, dev)
+    print(f"SLMPC: fleet period median {sl_gi['period_ms']:.2f} ms "
+          f"({sl_gi['solves_per_s']:.0f} solves/s, B=4096, f32, GI); single controller "
+          f"moveinput_closed median GI {single['SLMPC single']['active_set']:.3f} ms, ADMM "
+          f"{single['SLMPC single']['admm']:.3f} ms (f64)", flush=True)
+
+    # --- the kernels line: times, bounds and residency at every shape ------
     head, hgi, lgi = checks["headline"], gi_checks["headline-GI"], gi_checks["large-GI"]
     res = {"admm headline": admm_residency(torch, ops, _build, head["args"]),
            "admm 8x8": admm_residency(torch, ops, _build, checks["large_8x8_hp15"]["args"]),
            "admm 8x8 B=4096": admm_residency(torch, ops, _build,
                                              checks["large_8x8_hp15_B4096"]["args"]),
+           "admm pallas_test_batch": admm_residency(torch, ops, _build,
+                                                    checks["pallas_test_batch"]["args"]),
+           "admm README": admm_residency(torch, ops, _build, readme["admm"]["args"]),
            "gi headline-GI": gi_residency(torch, _build, hgi["args"]),
-           "gi large-GI": gi_residency(torch, _build, lgi["args"])}
+           "gi large-GI": gi_residency(torch, _build, lgi["args"]),
+           "gi random_f64": gi_residency(torch, _build, gi_checks["random_f64"]["args"]),
+           "gi README": gi_residency(torch, _build, readme["active_set"]["args"])}
     for k, (lanes, geo) in res.items():
         print(f"residency {k}: {lanes} lanes per SM ({geo})", flush=True)
+    per_period.update({"SLMPC GI": sl_gi["per_period"], "SLMPC ADMM": sl_admm["per_period"],
+                       "README ADMM": path_launches["README"]["admm_sweep"] / 40,
+                       "README GI": path_launches["README"]["gi_solve"] / 40})
     print(f"launches per period: {per_period}", flush=True)
     shares = {k: c["bound_ms"] / c["ms"] for k, c in
-              list(checks.items()) + list(gi_checks.items())}
+              list(checks.items()) + list(gi_checks.items())
+              + [("SLMPC GI", sl_gi), ("SLMPC ADMM", sl_admm)]}
     print(f"roofline shares: {json.dumps(shares)}", flush=True)
 
-    def entry(name, source, replaces, launches, err, c, lpp, lanes):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": c["ms"],
-                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+    def shape(name, c, launches, lpp, lanes):
+        """One shape of a kernel: its check's numbers and, where a main path
+        runs it at this shape, that path's launches (0 for a check only)."""
+        return {"shape": name, "launches": launches, "max_abs_err": c["err"],
+                "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": None,
-                "roofline_share": c["bound_ms"] / c["ms"],
-                "launches_per_period": lpp, "resident_lanes_per_sm": lanes}
+                "roofline_share": c["bound_ms"] / c["ms"], "launches_per_period": lpp,
+                "resident_lanes_per_sm": lanes}
+
+    admm_shapes = [
+        shape("headline-ADMM B=4096 n=5 m=101 f32", head, path_launches["headline-ADMM"],
+              per_period["headline-ADMM"], res["admm headline"][0]),
+        shape("SLMPC B=4096 n=3 m=65 f32, per-lane ladder", sl_admm, sl_admm["launches"],
+              sl_admm["per_period"], sl_admm["lanes_per_sm"]),
+        shape("README B=1 n=3 m=233 f64", readme["admm"], path_launches["README"]["admm_sweep"],
+              per_period["README ADMM"], res["admm README"][0]),
+        shape("8x8/Hp=15 B=256 n=33 m=577 f32 (check)", checks["large_8x8_hp15"], 0, None,
+              res["admm 8x8"][0]),
+        shape("8x8/Hp=15 B=4096 (check)", checks["large_8x8_hp15_B4096"], 0, None,
+              res["admm 8x8 B=4096"][0]),
+        shape("tests/test_pallas_qp.py B=128 n=4 m=8 (check)", checks["pallas_test_batch"],
+              0, None, res["admm pallas_test_batch"][0])]
+    gi_shapes = [
+        shape("headline-GI B=4096 n=5 m=101 f32/f64", hgi, path_launches["headline-GI"],
+              per_period["headline-GI"], res["gi headline-GI"][0]),
+        shape("SLMPC B=4096 n=3 m=65 f32/f64, per-lane P and A", sl_gi, sl_gi["launches"],
+              sl_gi["per_period"], sl_gi["lanes_per_sm"]),
+        shape("large-GI B=4096 n=33 m=577 f32/f32", lgi, path_launches["large-GI"],
+              per_period["large-GI"], res["gi large-GI"][0]),
+        shape("README B=1 n=3 m=233 f64", readme["active_set"],
+              path_launches["README"]["gi_solve"], per_period["README GI"],
+              res["gi README"][0]),
+        shape("random f64 B=4096 n=6 m=24 cap 3 (check)", gi_checks["random_f64"], 0, None,
+              res["gi random_f64"][0])]
+
+    def entry(name, source, replaces, launches, shapes, extra_err):
+        c = shapes[0]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max([sh["max_abs_err"] for sh in shapes] + extra_err),
+                "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": None,
+                "roofline_share": c["roofline_share"],
+                "launches_per_period": c["launches_per_period"],
+                "resident_lanes_per_sm": c["resident_lanes_per_sm"], "shapes": shapes}
     print(json.dumps({"kernels": [
         entry("admm_sweep", "mpc_tpu_torch/csrc/admm_sweep.cu",
-              "mpc_tpu/ops/pallas_qp.py:31", admm_launches["admm_sweep"],
-              max([c["err"] for c in checks.values()]
-                  + [readme["admm"]["err"], unc["admm"]["err"], layout_worst["admm_sweep"]]),
-              head, per_period["headline-ADMM"], res["admm headline"][0]),
+              "mpc_tpu/ops/pallas_qp.py:31", admm_launches["admm_sweep"], admm_shapes,
+              [unc["admm"]["err"], layout_worst["admm_sweep"]]),
         entry("gi_solve", "mpc_tpu_torch/csrc/gi_solve.cu",
               "docs/pallas_gi_experiment.py:84 + mpc_tpu/ops/qp_active.py:407", gi_launches,
-              max([c["err"] for c in gi_checks.values()]
-                  + [readme["active_set"]["err"], unc["gi n=6"]["err"],
-                     unc["gi n=12"]["err"], layout_worst["gi_solve"]]),
-              hgi, per_period["headline-GI"], res["gi headline-GI"][0])]}))
+              gi_shapes, [unc["gi n=6"]["err"], unc["gi n=12"]["err"],
+                          layout_worst["gi_solve"]])]}))
     print(f"total {time.perf_counter() - t_start:.1f} s after the card check")
     print(card)
     print(json.dumps({"ok": True, "device": {

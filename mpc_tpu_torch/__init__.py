@@ -9,18 +9,26 @@ InternalModel, ManualEstimator, host NumPy at run time), LinMPC with
 ``moveinput``/``getinfo``/``setmodel``, custom constraints and the
 Ts-deadline policy, ``sim``, the ADMM QP (cached and in-solve setup, with
 its polish) and the Goldfarb–Idnani active-set QP (cached or in-solve P⁻¹,
-with its cross-period operator carry), and ``parallel.BatchedLinMPC`` — with
-the ADMM inner sweep and the whole per-lane GI solve as hand-written CUDA
-kernels for Hopper (``csrc/admm_sweep.cu``, ``csrc/gi_solve.cu``) that every
-QP, single controller or fleet, goes through on the GPU.
+with its cross-period operator carry), and ``parallel.BatchedLinMPC`` — and
+the nonlinear-plant path: NonLinModel with its RK4/Euler solvers,
+``linearize`` (``torch.func.jacfwd``), the unscented and extended Kalman
+filters, ``parallel.BatchedKalman`` and SLMPC (successive linearization,
+single controller and fleet).  The ADMM inner sweep and the whole per-lane
+GI solve are hand-written CUDA kernels for Hopper (``csrc/admm_sweep.cu``,
+``csrc/gi_solve.cu``) that every QP, single controller or fleet, goes
+through on the GPU.  Every entry point runs on the GPU unless the caller
+asks for ``device="cpu"``.
 """
 from .utils import tf, delay, ss, tf_matrix, StateSpace, TransferFunction
 from .utils.config import BIG, resolve_device
-from .models import SimModel, LinModel
+from .models import (SimModel, LinModel, NonLinModel, RungeKutta, ForwardEuler,
+                     EmptySolver, DiffSolver, linearize, linearize_,
+                     get_linearization_func)
 from .estimators import (StateEstimator, SteadyKalmanFilter, KalmanFilter,
+                         UnscentedKalmanFilter, ExtendedKalmanFilter,
                          Luenberger, InternalModel, ManualEstimator,
                          default_nint)
-from .controllers import (PredictiveController, LinMPC, SingleShooting,
+from .controllers import (PredictiveController, LinMPC, SLMPC, SingleShooting,
                           MultipleShooting, info2debugstr)
 from .sim import sim, SimResult
 

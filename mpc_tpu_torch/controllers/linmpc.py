@@ -59,8 +59,8 @@ class LinMPC(PredictiveController):
         # active set overflows it report converged=False
         self.gi_max_active = (None if gi_max_active is None
                               else int(gi_max_active))
-        # the step's data dtype (None: float64) and device (None: the CPU;
-        # a CUDA device that is not there raises)
+        # the step's data dtype (None: float64) and device (None: the GPU;
+        # without one it raises, unless the caller asks for the CPU)
         self.dtype = torch.float64 if dtype is None else dtype
         if self.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")

@@ -1,13 +1,15 @@
 from .base import StateEstimator
 from .construct import (augment_model, default_nint, init_estimstoch,
                         init_integrators)
-from .kalman import KalmanFilter, SteadyKalmanFilter
+from .kalman import (ExtendedKalmanFilter, KalmanFilter, SteadyKalmanFilter,
+                     UnscentedKalmanFilter)
 from .luenberger import Luenberger
 from .internal_model import InternalModel
 from .manual import ManualEstimator
 
 __all__ = [
-    "StateEstimator", "SteadyKalmanFilter", "KalmanFilter", "Luenberger",
+    "StateEstimator", "SteadyKalmanFilter", "KalmanFilter",
+    "UnscentedKalmanFilter", "ExtendedKalmanFilter", "Luenberger",
     "InternalModel", "ManualEstimator",
     "default_nint", "init_estimstoch", "init_integrators", "augment_model",
 ]

@@ -1,25 +1,33 @@
 """StateEstimator base (counterpart of ``mpc_tpu/estimators/base.py``).
 
-Construct-time matrices and the single-stream runtime both live in NumPy
-float64 on the host, as in the reference's single-stream path
-(``mpc_tpu/estimators/kalman.py:162-166``): a correction or prediction is a
-handful of tiny matrix products, cheaper on the host than a round trip to a
-device.  Only the controller's QP step runs on the device.  The stateful
-``preparestate``/``updatestate``/``evaloutput`` reproduce the reference
-protocol (``estimator/execute.jl:303-387``), ``direct`` timing included.
-The batched fleet applies the SteadyKalmanFilter's gain itself
-(``parallel/batch.py``).
+Construct-time matrices and the single-stream state live in NumPy float64
+on the host.  The linear filters correct and predict there, as the
+reference's single-stream path does (``mpc_tpu/estimators/kalman.py:
+162-166``): a handful of tiny matrix products, cheaper on the host than a
+round trip to a device.  A NonLinModel evaluates its ``f``/``h`` on its
+device, and the unscented and extended filters run their steps on theirs.
+The augmented dynamics ``f_hat``/``h_hat`` take NumPy arrays or tensors of
+one sample and return the same kind, so that ``torch.func.vmap`` and
+``jacfwd`` trace them.  The stateful ``preparestate``/``updatestate``/
+``evaloutput`` reproduce the reference protocol (``estimator/execute.jl:
+303-387``), ``direct`` timing included.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..models import LinModel, SimModel
 from .construct import (augment_model, default_nint, init_estimstoch,
                         validate_ym)
 
-_NONLIN = ("nonlinear models are not ported yet (ROADMAP queue 1, item 6: "
-           "nonlinmodel)")
+
+def like(a, x):
+    """Host array ``a`` in the kind of ``x``: as is beside NumPy, a tensor
+    of ``x``'s dtype and device beside a tensor."""
+    if not torch.is_tensor(x):
+        return a
+    return torch.as_tensor(a, dtype=x.dtype, device=x.device)
 
 
 class StateEstimator:
@@ -52,28 +60,40 @@ class StateEstimator:
         self.x0_hat = np.zeros(self.nx_hat)
 
     # ------------------------------------------------------------------
-    # augmented dynamics (host NumPy)
+    # augmented dynamics (NumPy or tensors of one sample)
     def f_hat(self, x0_hat, u0, d0):
         """Augmented state update WITHOUT the +f̂op−x̂op term
         (estimator/execute.jl:64-109)."""
-        if not isinstance(self.model, LinModel):
-            raise NotImplementedError(_NONLIN)
-        r = self.A_hat @ x0_hat + self.Bu_hat @ u0
-        if self.model.nd:
-            r = r + self.Bd_hat @ d0
-        return r
+        model = self.model
+        if isinstance(model, LinModel):
+            r = like(self.A_hat, x0_hat) @ x0_hat + like(self.Bu_hat, x0_hat) @ u0
+            if model.nd:
+                r = r + like(self.Bd_hat, x0_hat) @ d0
+            return r
+        # the integrating states enter the plant through Cs_u (input
+        # integrators) and propagate through As
+        nx = model.nx
+        xd, xs = x0_hat[:nx], x0_hat[nx:]
+        xdn = model.f(xd, u0 + like(self.Cs_u, xs) @ xs, d0, model.p)
+        xsn = like(self.As, xs) @ xs
+        if torch.is_tensor(xdn):
+            return torch.cat([xdn, xsn])
+        return np.concatenate([xdn, xsn])
 
     def h_hat(self, x0_hat, d0):
-        if not isinstance(self.model, LinModel):
-            raise NotImplementedError(_NONLIN)
-        r = self.C_hat @ x0_hat
-        if self.model.nd:
-            r = r + self.Dd_hat @ d0
-        return r
+        model = self.model
+        if isinstance(model, LinModel):
+            r = like(self.C_hat, x0_hat) @ x0_hat
+            if model.nd:
+                r = r + like(self.Dd_hat, x0_hat) @ d0
+            return r
+        nx = model.nx
+        xd, xs = x0_hat[:nx], x0_hat[nx:]
+        return model.h(xd, d0, model.p) + like(self.Cs_y, xs) @ xs
 
     def h_hat_m(self, x0_hat, d0):
         y = self.h_hat(x0_hat, d0)
-        return y[np.asarray(self.i_ym, int)]
+        return y[list(self.i_ym)]
 
     # ------------------------------------------------------------------
     # hooks implemented by concrete estimators

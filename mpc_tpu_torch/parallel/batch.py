@@ -78,7 +78,9 @@ class BatchedLinMPC:
     ``step(ym, ry, d)`` runs the full control step for every lane.  The
     fleet has ``B = len(controllers)·reps`` lanes in the public order
     ``lane = r·n_d + c``; ``share_params=True`` is one controller shared by
-    ``reps`` lanes.  ``sweep`` (also an attribute) is the ADMM inner sweep
+    ``reps`` lanes.  The fleet lives on ``device``: the GPU unless the
+    caller asks for another (``device="cpu"``); without a GPU the default
+    raises.  ``sweep`` (also an attribute) is the ADMM inner sweep
     and the attribute ``gi`` the Goldfarb–Idnani per-lane solve: by
     default the CUDA kernels on a GPU and their plain versions on the CPU;
     checks set ``ops.admm_kernel.admm_sweep_reference`` /

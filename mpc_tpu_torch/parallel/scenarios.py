@@ -15,10 +15,11 @@ from ..utils.lti import tf
 
 
 def random_cstr_controllers(n, Hp=10, Hc=2, seed=0, qp_solver="admm",
-                            gi_max_active=None):
+                            gi_max_active=None, device=None):
     """``n`` LinMPC controllers on randomized first-order-MIMO plants
-    (``qp_solver`` and the GI slot cap ``gi_max_active`` pass through to
-    ``LinMPC``, as bench.py's large-plant builder passes them)."""
+    (``qp_solver``, the GI slot cap ``gi_max_active`` and ``device``, the
+    GPU by default, pass through to ``LinMPC``, as bench.py's large-plant
+    builder passes them)."""
     rng = np.random.default_rng(seed)
     ctrls = []
     for _ in range(n):
@@ -29,7 +30,8 @@ def random_cstr_controllers(n, Hp=10, Hc=2, seed=0, qp_solver="admm",
                      dtype=object)
         model = LinModel(G, 2.0)
         c = LinMPC(model, Hp=Hp, Hc=Hc, Mwt=[1.0, 1.0], Nwt=[0.1, 0.1],
-                   Cwt=1e5, qp_solver=qp_solver, gi_max_active=gi_max_active)
+                   Cwt=1e5, qp_solver=qp_solver, gi_max_active=gi_max_active,
+                   device=device)
         c.setconstraint(umin=[-10.0, -10.0], umax=[10.0, 10.0],
                         dumax=[4.0, 4.0], dumin=[-4.0, -4.0],
                         ymin=[-60.0, -60.0], ymax=[60.0, 60.0])

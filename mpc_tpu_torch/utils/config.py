@@ -25,12 +25,13 @@ torch.set_float32_matmul_precision("highest")
 
 
 def resolve_device(device=None) -> torch.device:
-    """``torch.device`` for ``device`` (default: the CPU).
+    """``torch.device`` for ``device`` (default: the GPU, ``cuda``).
 
-    Raises ``RuntimeError`` when a CUDA device is asked for and none is
-    available: a run that asked for the GPU never carries on on the CPU.
+    Raises ``RuntimeError`` when a CUDA device is asked for, by default or
+    by name, and none is available: the port never carries on on the CPU
+    unless the caller asks for ``device="cpu"``.
     """
-    dev = torch.device("cpu" if device is None else device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(dev)!r} was requested but "
                            "torch.cuda.is_available() is False")

@@ -7,11 +7,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  For each
 of the two GI configurations of ``chip_smoke.py`` (headline-GI: 256 CSTR
 controllers x 16 reps, float32 data, float64 slots; large-GI: 32 8x8
 plants, Hp=15, Hc=4, ``gi_max_active=8`` x 128 reps, float32 data and
-slots; both B=4096, in closed loop) and for headline-ADMM (the headline
-fleet with the ADMM backend, float32) it runs 8 periods from rest, times 12
-unprofiled periods (host clock, from a synchronized start to the host
-read of ``n_conv``), then profiles 4 more with ``torch.profiler`` and
-reports per period:
+slots; both B=4096, in closed loop), for headline-ADMM (the headline
+fleet with the ADMM backend, float32) and for SLMPC-GI (bench.py's SLMPC
+pendulum fleet, B=4096, float32 data, float64 slots, its true pendulums
+stepped on the card) it runs 8 periods from rest (SLMPC: 16, the
+swing-up), times 12 unprofiled periods (host clock, from a synchronized
+start to the host read of ``n_conv``), then profiles 4 more with
+``torch.profiler`` and reports per period:
 
 * ``wall_unprofiled_ms`` (median of the 12) and ``wall_profiled_ms``;
 * ``device_busy_ms``: the union of the intervals of the device's own
@@ -29,8 +31,9 @@ reports per period:
 
 The ranges are opened from outside the package: around the fleet step,
 around ``solve_qp_active`` and ``solve_qp`` (patched in
-``controllers.linmpc``) and around the fleet's ``gi`` or ``sweep``
-attribute (the kernel's wrapper).  The card's name and power limit are printed last.
+``controllers.linmpc`` and ``controllers.slmpc``) and around the fleet's
+``gi`` or ``sweep`` attribute (the kernel's wrapper).  The card's name and
+power limit are printed last.
 """
 import argparse
 import json
@@ -38,7 +41,8 @@ import statistics
 import sys
 import time
 
-from chip_smoke import ROOT, ClosedLoop, card_line, large_controllers
+from chip_smoke import (ROOT, ClosedLoop, PendulumLoop, SLMPCFleet, card_line,
+                        large_controllers, slmpc)
 
 RANGES = ("fleet_step", "solve_qp_active", "solve_qp", "gi_solve", "admm_sweep")
 KERNELS = {"gi": "gi_solve_kernel", "sweep": "admm_"}
@@ -60,7 +64,7 @@ def union_ms(intervals):
     return total / 1e3
 
 
-def profile_fleet(torch, fleet, loop, attr):
+def profile_fleet(torch, fleet, loop, attr, warm=WARM):
     from torch.profiler import ProfilerActivity, profile, record_function
     inner = getattr(fleet, attr)
     label = "gi_solve" if attr == "gi" else "admm_sweep"
@@ -69,12 +73,12 @@ def profile_fleet(torch, fleet, loop, attr):
         with record_function(label):
             return inner(*args)
     setattr(fleet, attr, ranged)
-    for k in range(WARM):
+    for k in range(warm):
         u, _ = fleet.step(*loop.measure(k))
         loop.advance(u)
     torch.cuda.synchronize()
     walls = []
-    for k in range(WARM, WARM + TIMED):
+    for k in range(warm, warm + TIMED):
         ym, ry = loop.measure(k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -84,7 +88,7 @@ def profile_fleet(torch, fleet, loop, attr):
         loop.advance(u)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for k in range(WARM + TIMED, WARM + TIMED + PROFILED):
+        for k in range(warm + TIMED, warm + TIMED + PROFILED):
             with record_function("fleet_step"):
                 u, nc = fleet.step(*loop.measure(k))
                 int(nc)
@@ -132,15 +136,16 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     import mpc_tpu_torch as mt
-    from mpc_tpu_torch.controllers import linmpc
+    from mpc_tpu_torch.controllers import linmpc, slmpc as slmpc_module
     from mpc_tpu_torch.parallel import BatchedLinMPC, random_cstr_controllers
     from torch.profiler import record_function
 
-    for fname in ("solve_qp_active", "solve_qp"):
-        def solve_ranged(*a, _f=getattr(linmpc, fname), _n=fname, **k):
-            with record_function(_n):
-                return _f(*a, **k)
-        setattr(linmpc, fname, solve_ranged)
+    for module in (linmpc, slmpc_module):
+        for fname in ("solve_qp_active", "solve_qp"):
+            def solve_ranged(*a, _f=getattr(module, fname), _n=fname, **k):
+                with record_function(_n):
+                    return _f(*a, **k)
+            setattr(module, fname, solve_ranged)
     dev = torch.device("cuda")
     configs = (
         ("headline-GI", lambda: random_cstr_controllers(256, Hp=10, Hc=2, seed=0,
@@ -160,6 +165,11 @@ def main():
         out[name] = profile_fleet(torch, fleet, loop, attr)
         print(name, json.dumps(out[name], indent=1), flush=True)
         del fleet
+    sl = slmpc(torch, mt, dev, dtype=torch.float32)
+    fleet = SLMPCFleet(torch, sl, 4096)
+    loop = PendulumLoop(torch, sl.model, 4096, dev, torch.float32)
+    out["SLMPC-GI"] = profile_fleet(torch, fleet, loop, "gi", warm=16)
+    print("SLMPC-GI", json.dumps(out["SLMPC-GI"], indent=1), flush=True)
     out["card"] = card_line()
     if args.out:
         with open(args.out, "w") as f:

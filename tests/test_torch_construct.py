@@ -16,16 +16,24 @@ import mpc_tpu_torch.parallel
 
 torch.set_num_threads(1)
 
+CPU = torch.device("cpu")
+
+
+def LinMPC(pkg, *args, **kw):
+    """``pkg.LinMPC``, the port's asked for the CPU (its default is the GPU)."""
+    return pkg.LinMPC(*args, **kw, **({"device": CPU} if pkg is mpc_tpu_torch else {}))
+
 
 def _cstr(pkg):
-    return pkg.parallel.random_cstr_controllers(4, Hp=10, Hc=2, seed=0)
+    return pkg.parallel.random_cstr_controllers(
+        4, Hp=10, Hc=2, seed=0, **({"device": CPU} if pkg is mpc_tpu_torch else {}))
 
 
 def _multiple_shooting(pkg):
     G = pkg.tf_matrix([[pkg.tf(1.9, [18.0, 1]), pkg.tf(1.5, [14.0, 1])],
                        [pkg.tf(-0.74, [8.0, 1]), pkg.tf(0.9, [9.0, 1])]])
-    c = pkg.LinMPC(pkg.LinModel(G, 2.0), Hp=10, Hc=2, Mwt=[1.0, 1.0],
-                   Nwt=[0.1, 0.1], transcription=pkg.MultipleShooting())
+    c = LinMPC(pkg, pkg.LinModel(G, 2.0), Hp=10, Hc=2, Mwt=[1.0, 1.0],
+               Nwt=[0.1, 0.1], transcription=pkg.MultipleShooting())
     c.setconstraint(umin=[-10.0, -10.0], umax=[10.0, 10.0],
                     dumin=[-4.0, -4.0], dumax=[4.0, 4.0],
                     ymin=[-60.0, -60.0], ymax=[60.0, 60.0])
@@ -35,7 +43,7 @@ def _multiple_shooting(pkg):
 def _delayed_readme_plant(pkg):
     G = pkg.tf_matrix([[pkg.tf(2, [10, 1]) * pkg.delay(20)],
                        [pkg.tf(10, [4, 1])]])
-    c = pkg.LinMPC(pkg.LinModel(G, 1.0), Mwt=[1, 0], Nwt=[0.1])
+    c = LinMPC(pkg, pkg.LinModel(G, 1.0), Mwt=[1, 0], Nwt=[0.1])
     c.setconstraint(ymax=[np.inf, 35])
     return [c]
 
@@ -49,10 +57,10 @@ def _disturbance_hard_soft_custom(pkg):
     Bd = np.array([[0.2], [0.0]])
     Dd = np.array([[0.0], [0.1]])
     model = pkg.LinModel(A, Bu, C, Bd, Dd, 0.5)
-    hard = pkg.LinMPC(model, Hp=8, Hc=3, Mwt=[1.0, 0.5], Nwt=[0.2],
-                      Lwt=[0.05], Cwt=np.inf)
+    hard = LinMPC(pkg, model, Hp=8, Hc=3, Mwt=[1.0, 0.5], Nwt=[0.2],
+                  Lwt=[0.05], Cwt=np.inf)
     hard.setconstraint(umin=[-2.0], umax=[2.0], xhatmin=[-5.0] * 4)
-    soft = pkg.LinMPC(model, Hp=8, Hc=3, Wy=[[1.0, -1.0]])
+    soft = LinMPC(pkg, model, Hp=8, Hc=3, Wy=[[1.0, -1.0]])
     soft.setconstraint(c_ymin=[0.5, 0.5], c_umax=[0.1], ymin=[-3.0, -3.0],
                        wmax=[1.5])
     return [hard, soft]
@@ -88,7 +96,7 @@ def test_estimator_params_match_reference(name):
 
 
 def _gi_controllers(pkg, transcription, gi_max_active):
-    c = pkg.LinMPC(pkg.LinModel(pkg.tf_matrix(
+    c = LinMPC(pkg, pkg.LinModel(pkg.tf_matrix(
         [[pkg.tf(1.9, [18.0, 1]), pkg.tf(1.5, [14.0, 1])],
          [pkg.tf(-0.74, [8.0, 1]), pkg.tf(0.9, [9.0, 1])]]), 2.0),
         Hp=10, Hc=2, Mwt=[1.0, 1.0], Nwt=[0.1, 0.1],

@@ -5,6 +5,8 @@ is False.  This file imports no JAX, so it also runs on a machine without
 it: ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the repo's
 conftest imports jax for the reference tests).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ from mpc_tpu_torch.ops import admm_kernel
 from mpc_tpu_torch.ops.admm_kernel import (LAUNCHES, admm_sweep,
                                            admm_sweep_reference)
 from mpc_tpu_torch.ops.gi_kernel import gi_solve, gi_solve_reference
+from mpc_tpu_torch.ops.qp import solve_qp
 from mpc_tpu_torch.ops.qp_active import build_gi_cache, solve_qp_active
 from mpc_tpu_torch.parallel import BatchedLinMPC, random_cstr_controllers
 
@@ -210,16 +213,16 @@ def test_readme_sim_on_card_matches_cpu(qp_solver, kernel):
     dev = _card()
     G = mt.tf_matrix([[mt.tf(2, [10, 1]) * mt.delay(20)], [mt.tf(10, [4, 1])]])
     res = {}
-    for d in (dev, None):
+    for d in (dev, "cpu"):
         ctrl = mt.LinMPC(mt.LinModel(G, 1.0), Mwt=[1, 0], Nwt=[0.1],
                          qp_solver=qp_solver, device=d)
         ctrl.setconstraint(ymax=[np.inf, 35])
         n0 = LAUNCHES[kernel]
         res[d] = mt.sim(ctrl, 40, [5, 0])
-        if d is not None:
+        if d is dev:
             assert LAUNCHES[kernel] >= n0 + 40
     for k in ("U_data", "Y_data"):
-        assert np.max(np.abs(getattr(res[dev], k) - getattr(res[None], k))) < 1e-6, k
+        assert np.max(np.abs(getattr(res[dev], k) - getattr(res["cpu"], k))) < 1e-6, k
 
 
 @pytest.mark.cuda
@@ -247,3 +250,62 @@ def test_uncached_batch_kernel_matches_plain_on_card(solver, n, m):
     assert torch.equal(k.converged, p.converged)
     assert torch.equal(k.iters, p.iters)
     assert (k.x - p.x).abs().max().item() < tol * (1.0 + p.x.abs().max().item())
+
+
+def _slmpc_fleet(dev, qp_solver, B=256, periods=6):
+    """bench.py's SLMPC (pendulum, Hp=15, Hc=2; QP n=3, m=65 with per-lane
+    P and A) as a float32 fleet of B lanes, stepped ``periods`` periods from
+    rest with its true pendulums; returns the controller, the state and the
+    next period's inputs."""
+    import mpc_tpu_torch as mt
+    from torch.func import vmap
+
+    def f(x, u, d, par):
+        return torch.stack([x[1], -24.5 * torch.sin(x[0]) - 4.0 * x[1] + u[0] / 0.048])
+    model = mt.NonLinModel(f, lambda x, d, par: torch.stack([x[0] * 180 / torch.pi]),
+                           0.1, 1, 2, 1, device=dev)
+    c = mt.SLMPC(model, Hp=15, Hc=2, Mwt=[0.5], Nwt=[2.5], sigmaQ=[0.1, 1.0],
+                 sigmaR=[5.0], sigmaQint_ym=[0.1], qp_solver=qp_solver,
+                 dtype=torch.float32, device=dev)
+    c.setconstraint(umin=[-1.5], umax=[1.5])
+    step = c.make_fleet_step(B)
+    st, d = c.fleet_state(B), torch.zeros(B, 0, device=dev)
+    plant = vmap(lambda x, u: model._fd(x, u, d[0], None))
+    x = torch.zeros(B, 2, device=dev)
+    ry = torch.full((B, 1), 180.0, device=dev)
+    for _ in range(periods):
+        u, _, st = step(st, x[:, :1] * 180 / np.pi, ry, d, c.bounds())
+        x = plant(x, u)
+    return c, st, (x[:, :1] * 180 / np.pi, ry, d, c.bounds())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp_solver,kernel", [("active_set", "gi_solve"),
+                                              ("admm", "admm_sweep")])
+def test_slmpc_fleet_kernel_matches_plain_on_card(qp_solver, kernel, monkeypatch):
+    """The SLMPC fleet's period on the card with the kernel and with its
+    plain version (passed to the controller module's QP call) from the same
+    state: every lane's u to 1e-4, the converged flags equal on all but 4
+    lanes (a near-tie in the float32 scan may order GI's pivots otherwise),
+    the kernel launched (GI once a period)."""
+    from mpc_tpu_torch.controllers import slmpc as module
+    dev = _card()
+    c, st, args = _slmpc_fleet(dev, qp_solver)
+    step = c.make_fleet_step(256)
+    n0 = LAUNCHES[kernel]
+    out = []
+    for fn in ((gi_solve, gi_solve_reference) if kernel == "gi_solve"
+               else (admm_sweep, admm_sweep_reference)):
+        if kernel == "gi_solve":
+            monkeypatch.setattr(module, "solve_qp_active",
+                                functools.partial(solve_qp_active, solve=fn))
+        else:
+            monkeypatch.setattr(module, "solve_qp", functools.partial(solve_qp, sweep=fn))
+        out.append(step(dict(st), *args))
+    torch.cuda.synchronize()
+    n = LAUNCHES[kernel] - n0
+    (u_k, c_k, _), (u_p, c_p, _) = out
+    assert n == 1 if kernel == "gi_solve" else n > 0
+    assert torch.isfinite(u_k).all()
+    assert (u_k - u_p).abs().max().item() < 1e-4
+    assert int((c_k != c_p).sum()) <= 4

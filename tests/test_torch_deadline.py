@@ -20,6 +20,13 @@ from mpc_tpu_torch.parallel import BatchedLinMPC
 
 torch.set_num_threads(1)
 
+CPU = torch.device("cpu")
+
+
+def LinMPC(pkg, *args, **kw):
+    """``pkg.LinMPC``, the port's asked for the CPU (its default is the GPU)."""
+    return pkg.LinMPC(*args, **kw, **({"device": CPU} if pkg is mt else {}))
+
 
 def _hard_qp(n=20, m=60, seed=3):
     """tests/test_deadline.py::_hard_qp: ill-scaled, many active rows."""
@@ -51,9 +58,9 @@ def test_iter_budget_caps_solver_iterations():
 def _fast_diag(pkg, Ts, qp_solver="admm"):
     G = pkg.ss(np.diag([0.6, 0.5, 0.7, 0.4]), np.eye(4), np.eye(4),
                np.zeros((4, 4)), Ts)
-    c = pkg.LinMPC(pkg.LinModel(G, Ts), Hp=10, Hc=4, Mwt=np.ones(4),
-                   Nwt=np.full(4, 0.1), Cwt=1e3, limit_solve_time=True,
-                   qp_solver=qp_solver)
+    c = LinMPC(pkg, pkg.LinModel(G, Ts), Hp=10, Hc=4, Mwt=np.ones(4),
+               Nwt=np.full(4, 0.1), Cwt=1e3, limit_solve_time=True,
+               qp_solver=qp_solver)
     return c.setconstraint(umin=np.full(4, -0.3), umax=np.full(4, 0.3),
                            ymin=np.full(4, -0.2), ymax=np.full(4, 0.2))
 
@@ -91,8 +98,8 @@ def test_linmpc_deadline_policy_no_miss_when_fast():
         for pkg in (mr, mt):
             G = pkg.ss(np.array([[0.5]]), np.array([[1.0]]), np.array([[1.0]]),
                        np.array([[0.0]]), 50.0)
-            c = pkg.LinMPC(pkg.LinModel(G, 50.0), Hp=5, Hc=2,
-                           limit_solve_time=True, qp_solver=qp)
+            c = LinMPC(pkg, pkg.LinModel(G, 50.0), Hp=5, Hc=2,
+                       limit_solve_time=True, qp_solver=qp)
             for _ in range(3):
                 c.estim.preparestate([0.0])
                 u = c.moveinput(ry=[1.0])
@@ -111,8 +118,8 @@ def _fleet_ctrls(pkg, Hp=5, Hc=2, n=2, bounded=False):
                np.eye(nx), np.eye(nx), np.zeros((nx, nx)), 1e-6)
     ctrls = []
     for _ in range(n):
-        c = pkg.LinMPC(pkg.LinModel(G, 1e-6), Hp=Hp, Hc=Hc,
-                       Cwt=1e3 if bounded else 1e5)
+        c = LinMPC(pkg, pkg.LinModel(G, 1e-6), Hp=Hp, Hc=Hc,
+                   Cwt=1e3 if bounded else 1e5)
         if bounded:
             c.setconstraint(umin=np.full(2, -0.3), umax=np.full(2, 0.3),
                             ymin=np.full(2, -0.2), ymax=np.full(2, 0.2))
@@ -124,7 +131,7 @@ def test_batched_fleet_deadline_stats():
     """Per-step wall time, budget and miss counter of a Ts = 1 µs fleet;
     the first step neither seeds the EWMA nor counts."""
     ref = RefFleet(_fleet_ctrls(mr), reps=2, limit_solve_time=True)
-    bat = BatchedLinMPC(_fleet_ctrls(mt), reps=2, limit_solve_time=True)
+    bat = BatchedLinMPC(_fleet_ctrls(mt), reps=2, limit_solve_time=True, device=CPU)
     for k in range(3):
         ym, ry = np.full((4, 1), 0.1 * k), np.ones((4, 1))
         u_r, _ = ref.step(jnp.asarray(ym), jnp.asarray(ry))
@@ -143,7 +150,7 @@ def test_multistep_deadline_in_graph():
     call with a new (K, B) shape neither seeds the EWMA nor counts."""
     ref = RefFleet(_fleet_ctrls(mr, 8, 3, bounded=True), reps=2, limit_solve_time=True)
     bat = BatchedLinMPC(_fleet_ctrls(mt, 8, 3, bounded=True), reps=2,
-                        limit_solve_time=True)
+                        limit_solve_time=True, device=CPU)
     B, K = bat.B, 4
     rng = np.random.default_rng(31)
     ym_s = rng.normal(size=(K, B, 2)) * 0.1

@@ -23,6 +23,7 @@ import mpc_tpu_torch
 from mpc_tpu_torch.parallel import BatchedLinMPC
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def _ms_controllers(pkg, n, qp_solver="admm"):
@@ -50,7 +51,8 @@ def _both(ctrls, reps, dtype, share_params=False):
     port = BatchedLinMPC.from_params([c.params for c in ctrls], eps,
                                      reps=reps, share_params=share_params,
                                      dtype=dtype,
-                                     gi_max_active=ctrls[0].gi_max_active)
+                                     gi_max_active=ctrls[0].gi_max_active,
+                                     device=CPU)
     return ref, port
 
 
@@ -183,13 +185,14 @@ def test_gi_fleet_serving_stability():
             A, np.eye(4) + 0.5 * rng.normal(size=(4, 4)), np.eye(4),
             np.zeros((4, 4)), 2.0), 2.0)
         c = mpc_tpu_torch.LinMPC(model, Hp=10, Hc=3, Mwt=np.ones(4),
-                                 Nwt=np.ones(4), Cwt=1e3, qp_solver="active_set")
+                                 Nwt=np.ones(4), Cwt=1e3, qp_solver="active_set",
+                                 device=CPU)
         c.setconstraint(umin=np.full(4, -10.0), umax=np.full(4, 10.0),
                         dumin=np.full(4, -4.0), dumax=np.full(4, 4.0),
                         ymin=np.full(4, -60.0), ymax=np.full(4, 60.0))
         ctrls.append(c)
     B = 128
-    bat = BatchedLinMPC(ctrls, dtype=torch.float32, reps=B // 4)
+    bat = BatchedLinMPC(ctrls, dtype=torch.float32, reps=B // 4, device=CPU)
     ym0 = rng.normal(size=(B, 4)) * 0.5
     ry0 = rng.normal(size=(B, 4)) * 2.0
     seq = [(ym0 + rng.normal(size=(B, 4)) * 0.1, ry0 + rng.normal(size=(B, 4)) * 0.2)
@@ -206,7 +209,8 @@ def test_gi_cap_matches_uncapped():
     """tests/test_batch.py:218-239: a gi_max_active=3 fleet reproduces the
     uncapped one while the lanes' active sets fit the cap."""
     fleets = [BatchedLinMPC(mpc_tpu_torch.parallel.random_cstr_controllers(
-        4, Hp=8, Hc=2, seed=4, qp_solver="active_set", gi_max_active=cap))
+        4, Hp=8, Hc=2, seed=4, qp_solver="active_set", gi_max_active=cap,
+        device=CPU), device=CPU)
         for cap in (None, 3)]
     assert [f.gi_slots for f in fleets] == [fleets[0].n_qp, 3]
     rng = np.random.default_rng(2)
@@ -219,9 +223,9 @@ def test_gi_cap_matches_uncapped():
 
 
 def test_multistep_equals_repeated_steps():
-    ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(3, seed=4)
-    a = BatchedLinMPC(ctrls, reps=2)
-    b = BatchedLinMPC(ctrls, reps=2)
+    ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(3, seed=4, device=CPU)
+    a = BatchedLinMPC(ctrls, reps=2, device=CPU)
+    b = BatchedLinMPC(ctrls, reps=2, device=CPU)
     rng = np.random.default_rng(0)
     ym = rng.normal(size=(3, a.B, 2)) * 0.5
     ry = rng.normal(size=(3, a.B, 2))
@@ -238,9 +242,9 @@ def test_multistep_equals_repeated_steps():
 def test_public_lane_order_is_replica_major():
     """Lane r·n_d + c is replica r of controller c: a grouped fleet's lanes
     equal, replica by replica, a reps=1 fleet fed that replica's inputs."""
-    ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(3, seed=5)
+    ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(3, seed=5, device=CPU)
     n_d, reps = 3, 2
-    grouped = BatchedLinMPC(ctrls, reps=reps)
+    grouped = BatchedLinMPC(ctrls, reps=reps, device=CPU)
     assert grouped.lane_ctrl.tolist() == [0, 1, 2, 0, 1, 2]
     rng = np.random.default_rng(1)
     ym = rng.normal(size=(n_d * reps, 2))
@@ -248,7 +252,7 @@ def test_public_lane_order_is_replica_major():
     u, _ = grouped.step(ym, ry)
     for r in range(reps):
         lanes = slice(r * n_d, (r + 1) * n_d)
-        u1, _ = BatchedLinMPC(ctrls).step(ym[lanes], ry[lanes])
+        u1, _ = BatchedLinMPC(ctrls, device=CPU).step(ym[lanes], ry[lanes])
         assert torch.allclose(u[lanes], u1, rtol=0, atol=1e-12), r
 
 
@@ -307,14 +311,14 @@ def test_unported_options_raise(option):
     """mesh and grouped_chunks raise; limit_solve_time is ported (its
     parity cases are tests/test_torch_deadline.py) and builds a fleet with
     the deadline bookkeeping at rest."""
-    ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(2, seed=0)
+    ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(2, seed=0, device=CPU)
     if option == "limit_solve_time":
-        fleet = BatchedLinMPC(ctrls, limit_solve_time=True)
+        fleet = BatchedLinMPC(ctrls, limit_solve_time=True, device=CPU)
         assert fleet.limit_solve_time and fleet.Ts == 2.0
         assert fleet.last_step_time is None and fleet.deadline_miss_count == 0
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if option == "mesh":
-            BatchedLinMPC(ctrls, mesh=object())
+            BatchedLinMPC(ctrls, mesh=object(), device=CPU)
         else:
-            BatchedLinMPC(ctrls, reps=2, grouped_chunks=2)
+            BatchedLinMPC(ctrls, reps=2, grouped_chunks=2, device=CPU)

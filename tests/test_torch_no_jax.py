@@ -5,18 +5,28 @@ import sys
 import pytest
 import torch
 
-import mpc_tpu_torch
-from mpc_tpu_torch.parallel import BatchedLinMPC, random_cstr_controllers
+import mpc_tpu_torch as mt
+from mpc_tpu_torch.parallel import (BatchedKalman, BatchedLinMPC,
+                                    random_cstr_controllers)
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def test_import_pulls_in_no_jax():
     # a subprocess: tests/conftest.py has imported jax into this one
     code = ("import sys, mpc_tpu_torch, mpc_tpu_torch.parallel, "
-            "mpc_tpu_torch.ops, mpc_tpu_torch.sim, mpc_tpu_torch.estimators; "
+            "mpc_tpu_torch.ops, mpc_tpu_torch.sim, mpc_tpu_torch.estimators, "
+            "mpc_tpu_torch.models, mpc_tpu_torch.controllers; "
             "from mpc_tpu_torch import (sim, SimResult, KalmanFilter, "
-            "Luenberger, InternalModel, ManualEstimator); "
+            "Luenberger, InternalModel, ManualEstimator, NonLinModel, "
+            "RungeKutta, ForwardEuler, DiffSolver, EmptySolver, linearize, "
+            "linearize_, get_linearization_func, UnscentedKalmanFilter, "
+            "ExtendedKalmanFilter, SLMPC); "
+            "from mpc_tpu_torch.parallel import BatchedKalman; "
+            "from mpc_tpu_torch.models import solver, nonlinmodel; "
+            "from mpc_tpu_torch.controllers import slmpc; "
+            "from mpc_tpu_torch.parallel import batch_kf; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'mpc_tpu.')) "
             "or m == 'mpc_tpu'); "
@@ -26,16 +36,40 @@ def test_import_pulls_in_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_cuda_request_never_falls_back_to_cpu():
+def _pendulum(device=None):
+    f = lambda x, u, d, p: torch.stack([x[1], -torch.sin(x[0]) + u[0]])
+    h = lambda x, d, p: x[:1]
+    return mt.NonLinModel(f, h, 0.1, 1, 2, 1, device=device)
+
+
+def test_default_device_is_the_gpu():
+    """Every entry point runs on the GPU unless the caller asks for the
+    CPU; without a GPU the default raises, it never falls back."""
     if torch.cuda.is_available():
-        assert mpc_tpu_torch.resolve_device("cuda").type == "cuda"
+        assert mt.resolve_device(None).type == "cuda"
+        assert mt.resolve_device("cuda").type == "cuda"
         return
-    with pytest.raises(RuntimeError, match="cuda"):
-        mpc_tpu_torch.resolve_device("cuda")
-    with pytest.raises(RuntimeError, match="cuda"):
-        BatchedLinMPC(random_cstr_controllers(1), device="cuda")
-    model = mpc_tpu_torch.LinModel(mpc_tpu_torch.tf(2, [10, 1]), 1.0)
-    for qp_solver in ("admm", "active_set"):
-        with pytest.raises(RuntimeError, match="cuda"):
-            mpc_tpu_torch.LinMPC(model, Hp=5, device="cuda", qp_solver=qp_solver)
-    assert mpc_tpu_torch.resolve_device(None) == torch.device("cpu")
+    assert mt.resolve_device("cpu") == CPU
+    lin = mt.LinModel(mt.tf(2, [10, 1]), 1.0)
+    cpu_ctrls = random_cstr_controllers(1, device=CPU)
+    eps = [{k: v[0] for k, v in mt.parallel.estimator_params(cpu_ctrls).items()}]
+    entry_points = {
+        "resolve_device": lambda dev: mt.resolve_device(dev),
+        "LinMPC admm": lambda dev: mt.LinMPC(lin, Hp=5, device=dev),
+        "LinMPC active_set": lambda dev: mt.LinMPC(lin, Hp=5, device=dev,
+                                                   qp_solver="active_set"),
+        "BatchedLinMPC": lambda dev: BatchedLinMPC(cpu_ctrls, device=dev),
+        "BatchedLinMPC.from_params": lambda dev: BatchedLinMPC.from_params(
+            [cpu_ctrls[0].params], eps, device=dev),
+        "random_cstr_controllers": lambda dev: random_cstr_controllers(1, device=dev),
+        "NonLinModel": _pendulum,
+        "SLMPC": lambda dev: mt.SLMPC(_pendulum(CPU), Hp=5, device=dev),
+        "UnscentedKalmanFilter": lambda dev: mt.UnscentedKalmanFilter(lin, device=dev),
+        "ExtendedKalmanFilter": lambda dev: mt.ExtendedKalmanFilter(lin, device=dev),
+        "BatchedKalman": lambda dev: BatchedKalman([mt.KalmanFilter(lin)], device=dev),
+    }
+    for name, make in entry_points.items():
+        for dev in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                make(dev)
+        make(CPU)

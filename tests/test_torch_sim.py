@@ -14,6 +14,14 @@ import mpc_tpu_torch as mt
 
 torch.set_num_threads(1)
 
+CPU = torch.device("cpu")
+
+
+def LinMPC(pkg, *args, **kw):
+    """``pkg.LinMPC``, the port's asked for the CPU (its default is the GPU)."""
+    return pkg.LinMPC(*args, **kw, **({"device": CPU} if pkg is mt else {}))
+
+
 ARRAYS = ("T_data", "Y_data", "U_data", "Ry_data", "D_data", "X_data",
           "Y_est_data", "X_est_data")
 
@@ -39,7 +47,7 @@ def disturbed(pkg):
 def readme(pkg, qp_solver):
     G = pkg.tf_matrix([[pkg.tf(2, [10, 1]) * pkg.delay(20)],
                        [pkg.tf(10, [4, 1])]])
-    c = pkg.LinMPC(pkg.LinModel(G, 1.0), Mwt=[1, 0], Nwt=[0.1], qp_solver=qp_solver)
+    c = LinMPC(pkg, pkg.LinModel(G, 1.0), Mwt=[1, 0], Nwt=[0.1], qp_solver=qp_solver)
     return c.setconstraint(ymax=[np.inf, 35])
 
 
@@ -51,12 +59,12 @@ CASES = {
                                           dict(ry=[0.0], y_step=[0.3])),
     "kalman_noise_x0": lambda pkg: (pkg.KalmanFilter(pkg.LinModel(pkg.tf(3, [10, 1]), 1.0)),
                                     12, dict(y_noise=[0.1], x_0=[2.0])),
-    "controller_with_noise": lambda pkg: (pkg.LinMPC(siso(pkg), Hp=10, Hc=2), 30,
+    "controller_with_noise": lambda pkg: (LinMPC(pkg, siso(pkg), Hp=10, Hc=2), 30,
                                           dict(ry=[1.0], y_noise=[0.01],
                                                u_noise=[0.01], seed=3)),
-    "controller_x0_xhat0": lambda pkg: (pkg.LinMPC(siso(pkg), Hp=10, Hc=2), 15,
+    "controller_x0_xhat0": lambda pkg: (LinMPC(pkg, siso(pkg), Hp=10, Hc=2), 15,
                                         dict(ry=[0.5], x_0=[1.0], x_hat_0=[1.0, 0.0])),
-    "measured_disturbance_plant": lambda pkg: (pkg.LinMPC(disturbed(pkg), Hp=15, Hc=2),
+    "measured_disturbance_plant": lambda pkg: (LinMPC(pkg, disturbed(pkg), Hp=15, Hc=2),
                                                40, dict(ry=[1.0], d=[0.2], d_step=[0.1],
                                                         d_noise=[0.05], x_noise=[0.01, 0.0])),
     "readme_admm": lambda pkg: (readme(pkg, "admm"), 40, dict(ry=[5, 0])),
@@ -89,7 +97,7 @@ def test_progress_and_plot(tmp_path):
     the method) on the port's results."""
     m = mt.LinModel(mt.tf(2, [10, 1]), 3.0)
     hits = []
-    res = mt.sim(mt.LinMPC(m, Hp=5), 8, [1.0],
+    res = mt.sim(mt.LinMPC(m, Hp=5, device=CPU), 8, [1.0],
                  progress=lambda k, n: hits.append((k, n)))
     assert hits == [(k, 8) for k in range(8)]
     pytest.importorskip("matplotlib")
