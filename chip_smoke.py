@@ -52,7 +52,26 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    cache at n=6 (Gauss–Jordan P⁻¹) and n=12 (Cholesky), x to
    1e-9·(1 + max|x|), equal flags;
 15. the Ts-deadline policy: a Ts = 1 µs LinMPC with ``limit_solve_time``
-   must clamp the iteration budget to its floor of 50 and flag a miss.
+   must clamp the iteration budget to its floor of 50 and flag a miss;
+16-20. the SLMPC slice: bench.py's SLMPC fleet (the pendulum, B=4096,
+   float32, GI), both kernels against their plain versions at its shape, a
+   plain-GI period, 4 ADMM periods from rest, small float64 SLMPC fleets and
+   the single swing-up card vs CPU, the UKF, the EKF and a BatchedKalman;
+21. THE NONLINMPC SLICE'S MAIN PATH, bench.py's ``nonlin`` lane: a
+   BatchedNonLinMPC of the pendulum (MultipleShooting, Hp=15, Hc=2, SQP with
+   the KKT exit, the UKF at α=0.5; GI with float64 slots), B=4096, float32,
+   2 warm and 2 timed windows of 8 periods from rest; ≥ 0.99 of the lanes
+   converged by the per-lane KKT test, |u| ≤ 1.5; one more period counted
+   (device launches and busy time under the profiler, host syncs by the
+   sync-debug mode); the GI kernel against its plain version (n=2, m=72) on
+   the first solve with warm rows on half the lanes, one plain-GI period,
+   4 ADMM periods from rest with the sweep against its plain version;
+22. the exact-Hessian A/B (the economic pendulum, SingleShooting, B=256,
+   float32): Gauss–Newton and exact, 4 periods each, GI at n=2, m=102
+   against its plain version;
+23-26. small float64 NonLinMPC fleets (B=8, chunk 4) and the single
+   swing-up (Hp=20, SingleShooting, 60 periods) card vs CPU with both
+   backends, and a BatchedExplicitMPC (B=256) card vs CPU.
 
 The line before the last is the card's name and power limit, and before it
 a JSON object of the kernels; the last line is
@@ -1410,6 +1429,405 @@ def estimator_phase(torch, mt, dev, periods=20, B=4096):
     check(worst <= 1e-4, f"BatchedKalman: card vs CPU {worst:.3e} > 1e-4")
 
 
+NL_BENCH = dict(Hp=15, Hc=2, Mwt=[0.5], Nwt=[2.5], Cwt=np.inf, sqp_iters=15,
+                kkt_tol=1e-3, kkt_feas_tol=1e-4)   # bench.py:655-658
+NL_FEAS, NL_KKT = 1e-4, 1e-3   # the per-lane KKT test of bench.py:718
+
+
+def nonlin_ctrl(torch, mt, device, qp_solver="active_set", alpha=0.5, **kw):
+    """bench.py's NonLinMPC (bench.py:633-659): the pendulum, the UKF at
+    α = 0.5, MultipleShooting, Hp = 15, Hc = 2, sqp_iters = 15, the KKT exit
+    at 1e-3 / 1e-4, |u| ≤ 1.5."""
+    est = mt.UnscentedKalmanFilter(pendulum(torch, mt, device), sigmaQ=[0.1, 1.0],
+                                   sigmaR=[5.0], nint_ym=[1], sigmaQint_ym=[0.1],
+                                   alpha=alpha, device=device)
+    kw = {**NL_BENCH, "transcription": mt.MultipleShooting(), **kw}
+    c = mt.NonLinMPC(est, qp_solver=qp_solver, device=device, **kw)
+    return c.setconstraint(umin=[-1.5], umax=[1.5])
+
+
+class NonLinFleet:
+    """A BatchedNonLinMPC of B lanes: ``step(ym, ry)`` returns ``(u,
+    n_conv)`` by the per-lane KKT test; ``gi`` and ``sweep`` are the
+    per-lane solve and the sweep its QPs call (checks swap in the plain
+    versions, or recorders), passed to the controller module's solvers."""
+
+    def __init__(self, torch, ctrl, B, dtype, chunk=None):
+        from mpc_tpu_torch import ops
+        from mpc_tpu_torch.parallel import BatchedNonLinMPC
+        self.fleet = BatchedNonLinMPC(ctrl, B, dtype=dtype, chunk=chunk)
+        self.B = B
+        self.gi, self.sweep = ops.gi_solve, ops.admm_sweep
+
+    @property
+    def state(self):
+        return self.fleet.state
+
+    @state.setter
+    def state(self, st):
+        self.fleet.state = st
+
+    def step(self, ym, ry):
+        from mpc_tpu_torch.controllers import nonlinmpc as module
+        solvers = module.solve_qp_active, module.solve_qp
+        module.solve_qp_active = functools.partial(solvers[0], solve=self.gi)
+        module.solve_qp = functools.partial(solvers[1], sweep=self.sweep)
+        try:
+            u, _ = self.fleet.step(ym, ry)
+        finally:
+            module.solve_qp_active, module.solve_qp = solvers
+        kkt = self.fleet.last_kkt
+        return u, ((kkt[:, 0] < NL_FEAS) & (kkt[:, 1] < NL_KKT)).sum()
+
+
+class Recorder:
+    """Wraps a kernel wrapper: keeps the inputs of the first call that
+    ``want(args)`` accepts, and runs every call through the wrapper."""
+
+    def __init__(self, fn, want):
+        self.fn, self.want, self.args, self.first = fn, want, None, None
+
+    def __call__(self, *args):
+        if self.first is None:
+            self.first = _clone(args)
+        if self.args is None and self.want(args):
+            self.args = _clone(args)
+        return self.fn(*args)
+
+
+def gi_warm_half(args):
+    """A GI solve with warm rows on half its lanes or more."""
+    return int((args[12] > 0).sum()) >= args[3].shape[0] // 2
+
+
+def sweep_warm_mixed(args):
+    """The sweep rule of ``Capture``: warm duals, lane mask mixed."""
+    y, active = args[10], args[11]
+    n_on = int(active.sum())
+    return 0 < n_on <= 0.95 * active.numel() and y[active].abs().max().item() >= Y_WARM
+
+
+def period_profile(torch, fn):
+    """One call of ``fn`` under the profiler: the device kernels and copies
+    it launched and their summed device time (ms), and the host syncs it
+    made (``torch.cuda`` sync-debug warnings)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(r.message) for r in rec)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_ev = [e for e in prof.events() if e.device_type == cuda]
+    busy = sum(e.time_range.end - e.time_range.start for e in dev_ev) / 1e3
+    host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
+                   for e in prof.key_averages()), reverse=True)[:3]
+    return len(dev_ev), busy, syncs, host
+
+
+def nonlin_phase(torch, mt, ops, _build, dev, B=4096, warm=2, timed=2):
+    """THIS SLICE'S MAIN PATH: bench.py's ``nonlin`` lane — the pendulum
+    BatchedNonLinMPC (SQP + UKF per lane, GI with float64 slots), B = 4096,
+    float32 — from rest, 2 warm and ``timed`` timed windows of SL_K
+    periods; then the GI kernel against its plain version on the first
+    solve of the warm windows with warm rows on half the lanes or more, one
+    period with the plain GI solve, and ≤ 4 ADMM periods from rest with the
+    sweep against its plain version on the first sweep the ``Capture`` rule
+    would take.  Fails below 0.99 converged by the per-lane KKT test, for
+    max |u| > 1.5, or when the GI kernel was never launched."""
+    from mpc_tpu_torch.controllers import nonlinmpc as NL
+    t0 = time.perf_counter()
+    ctrl = nonlin_ctrl(torch, mt, dev)
+    fleet = NonLinFleet(torch, ctrl, B, torch.float32)
+    loop = PendulumLoop(torch, ctrl.estim.model, B, dev, torch.float32)
+    print(f"NonLinMPC fleet: B={B}, nZ̃={ctrl.nZt}, reduced QP n={ctrl.nZt - ctrl.estim.nx_hat * ctrl.Hp} "
+          f"m={ctrl._n_dual()}, float32 data, float64 GI slots; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rec = Recorder(ops.gi_solve, gi_warm_half)
+    fleet.gi = rec
+    for k in range(warm * SL_K):
+        u, nc = fleet.step(*loop.measure(k))
+        loop.advance(u)
+    fleet.gi = ops.gi_solve
+    check(rec.args is not None, "NonLinMPC: no GI solve of the warm windows had warm "
+          "rows on half the lanes")
+    k = warm * SL_K
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    NL.COUNTS["sqp_exit_tests"] = 0
+    times, finite, umax, its = [], True, 0.0, []
+    for _ in range(timed * SL_K):
+        ym, ry = loop.measure(k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        u, nc = fleet.step(ym, ry)
+        n_conv = int(nc)
+        times.append(time.perf_counter() - t1)
+        its.append(fleet.fleet.last_iters.tolist())
+        finite &= bool(torch.isfinite(u).all())
+        umax = max(umax, u.abs().max().item())
+        loop.advance(u)
+        k += 1
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    n_per = timed * SL_K
+    exits = NL.COUNTS["sqp_exit_tests"]
+    med = statistics.median(times)
+    stat = fleet.fleet.last_kkt[:, 1].double().cpu().numpy()
+    it_max = max(i[0] for i in its)
+    it_mean = statistics.mean(i[1] for i in its)
+    print(f"NonLinMPC main path: {n_per} periods, kernel launches {launches} "
+          f"({launches['gi_solve'] / n_per:g} GI a period, {exits / n_per:g} SQP exit tests "
+          f"a period); period median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+          f"{max(times) * 1e3:.2f}), {B / med:.0f} solves/s; SQP iterations max {it_max}, "
+          f"mean of the periods' [sum // B] {it_mean:.2f}; last period converged "
+          f"{n_conv}/{B} ({n_conv / B:.4f}) by stat < {NL_KKT:g} and viol < {NL_FEAS:g}, "
+          f"stat p99 {np.percentile(stat, 99):.3e} max {stat.max():.3e}; max |u| {umax:.4f}; "
+          f"angle mean {loop.x[:, 0].mean().item() * 180 / np.pi:.2f} deg", flush=True)
+    check(finite, "NonLinMPC main path: non-finite u")
+    check(n_conv >= 0.99 * B, f"NonLinMPC main path: last period converged {n_conv} < 0.99·{B}")
+    check(umax <= 1.5 + 1e-5, f"NonLinMPC main path: max |u| {umax} > 1.5")
+    check(launches["gi_solve"] > 0, "NonLinMPC main path: the GI kernel was never launched")
+    # one more period counted: host syncs, device launches and busy time
+    snap, x_snap = fleet.state, loop.x
+    ym, ry = loop.measure(k)
+
+    def one():
+        fleet.state = snap
+        fleet.step(ym, ry)
+    n_dev, busy, syncs, host = period_profile(torch, one)
+    prof = dict(device_launches=n_dev, device_busy_ms=busy, host_syncs=syncs,
+                idle_share=1.0 - busy / (med * 1e3), sqp_exit_tests=exits / n_per)
+    print(f"NonLinMPC period profile: {n_dev} device launches (kernels and copies), device "
+          f"busy {busy:.3f} ms, idle share {prof['idle_share']:.4f} of the unprofiled median; "
+          f"{syncs} host syncs (sync-debug warnings); largest host self times {host}",
+          flush=True)
+    fleet.state, loop.x = snap, x_snap
+    gi_chk = gi_vs_plain(torch, ops, "NonLinMPC", rec.args, False)
+    gi_chk["lanes_per_sm"], geo = gi_residency(torch, _build, rec.args)
+    print(f"residency gi NonLinMPC: {gi_chk['lanes_per_sm']} lanes per SM ({geo})", flush=True)
+    gi_chk.update(launches=launches["gi_solve"], per_period=launches["gi_solve"] / n_per,
+                  period_ms=med * 1e3, solves_per_s=B / med, prof=prof)
+    plain_period(torch, "NonLinMPC", fleet, loop, "gi", ops.gi_solve, ops.gi_solve_reference)
+    # ADMM: the swing-up from rest (u saturates, the QPs start from the
+    # last SQP iteration's duals); ≤ 4 periods
+    actrl = nonlin_ctrl(torch, mt, dev, qp_solver="admm")
+    afleet = NonLinFleet(torch, actrl, B, torch.float32)
+    aloop = PendulumLoop(torch, actrl.estim.model, B, dev, torch.float32)
+    arec = Recorder(ops.admm_sweep, sweep_warm_mixed)
+    afleet.sweep = arec
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    umax = 0.0
+    t1 = time.perf_counter()
+    for k in range(4):
+        u, nc = afleet.step(*aloop.measure(k))
+        n_conv = int(nc)
+        check(bool(torch.isfinite(u).all()), "NonLinMPC ADMM: non-finite u")
+        umax = max(umax, u.abs().max().item())
+        aloop.advance(u)
+    torch.cuda.synchronize()
+    alaunch = dict(ops.LAUNCHES)
+    print(f"NonLinMPC ADMM: 4 periods from rest in {time.perf_counter() - t1:.1f} s, kernel "
+          f"launches {alaunch} ({alaunch['admm_sweep'] / 4:g} sweeps a period); last period "
+          f"converged {n_conv}/{B}, max |u| {umax:.4f}", flush=True)
+    check(alaunch["admm_sweep"] > 0, "NonLinMPC ADMM: the sweep kernel was never launched")
+    check(arec.args is not None, "NonLinMPC ADMM: no sweep of the 4 periods started from a "
+          "warm dual with the lane mask mixed")
+    admm_chk = kernel_vs_plain(torch, ops, "NonLinMPC ADMM", arec.args)
+    admm_chk["lanes_per_sm"], geo = admm_residency(torch, ops, _build, admm_chk["args"])
+    print(f"residency admm NonLinMPC: {admm_chk['lanes_per_sm']} lanes per SM ({geo})",
+          flush=True)
+    admm_chk.update(launches=alaunch["admm_sweep"], per_period=alaunch["admm_sweep"] / 4)
+    return {"gi_solve": launches["gi_solve"], "admm_sweep": alaunch["admm_sweep"]}, \
+        gi_chk, admm_chk
+
+
+def exact_hessian_phase(torch, mt, ops, _build, dev, B=256, periods=4):
+    """bench.py:739-781: the economic pendulum (h the angle and the rate,
+    JE the mean electrical power, Ewt = 3.5e3, SingleShooting) as a B = 256
+    float32 fleet with the Gauss–Newton and with the exact Lagrangian
+    Hessian, ``periods`` timed periods each after one warm period; the GI
+    kernel against its plain version on one of its solves (n = 2, m = 102)."""
+    def f(x, u, d, par):
+        g, L, K, m = par
+        return torch.stack([x[1], -g / L * torch.sin(x[0]) - K / m * x[1]
+                            + u[0] / (m * L ** 2)])
+    h2 = lambda x, d, par: torch.stack([x[0] * 180 / torch.pi, x[1] * 180 / torch.pi])
+
+    def JE(Ue, Ye, De, p_, eps_):
+        omega = Ye[1::2][1:] * torch.pi / 180
+        return 0.1 * torch.sum(torch.abs(Ue[1:] * omega) + 0.01 * (Ue[1:] * omega) ** 2)
+    rng = np.random.default_rng(5)
+    out, launches, chk = {}, 0, None
+    for hess in ("gauss_newton", "exact"):
+        pend = mt.NonLinModel(f, h2, 0.1, 1, 2, 2, p=PEND_P, solver=mt.RungeKutta(4),
+                              device=dev)
+        est = mt.UnscentedKalmanFilter(pend, sigmaQ=[0.1, 1.0], sigmaR=[5.0, 5.0],
+                                       nint_ym=[1, 0], sigmaQint_ym=[0.1], alpha=0.5,
+                                       device=dev)
+        c = mt.NonLinMPC(est, Hp=15, Hc=2, Mwt=[0.5, 0.0], Nwt=[2.5], Cwt=np.inf,
+                         Ewt=3.5e3, JE=JE, sqp_iters=15, qp_solver="active_set",
+                         hessian=hess, device=dev)
+        c.setconstraint(umin=[-1.5], umax=[1.5])
+        fl = NonLinFleet(torch, c, B, torch.float32)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+        seq = [(t(rng.normal(size=(B, 2)) * 5.0), t(np.tile([deg, 0.0], (B, 1))))
+               for deg in (180.0, 170.0, 175.0, 180.0)]
+        rec = Recorder(ops.gi_solve, gi_warm_half)
+        if chk is None:
+            fl.gi = rec
+        fl.step(*seq[0])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for k in range(periods):
+            u, _ = fl.step(*seq[k % 4])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / periods
+        launches += ops.LAUNCHES["gi_solve"]
+        it = fl.fleet.last_iters.tolist()
+        check(bool(torch.isfinite(u).all()), f"exact-Hessian A/B {hess}: non-finite u")
+        fl.gi = ops.gi_solve
+        out[hess] = dict(step_ms=dt * 1e3, solves_per_s=B / dt, sqp_iters_max=it[0],
+                         sqp_iters_mean=it[1])
+        print(f"exact-Hessian A/B {hess} (B={B}, f32, SS, n={c.nZt} m={c._n_dual()}): step "
+              f"{dt * 1e3:.2f} ms ({B / dt:.0f} solves/s), last SQP iterations max {it[0]} "
+              f"mean {it[1]}, GI launches {ops.LAUNCHES['gi_solve']}", flush=True)
+        if chk is None:
+            # the first solve with warm rows on half the lanes, else the first
+            args = rec.args if rec.args is not None else rec.first
+            chk = gi_vs_plain(torch, ops, "NonLinMPC exact-Hessian A/B", args, False)
+            chk["lanes_per_sm"], geo = gi_residency(torch, _build, args)
+            print(f"residency gi NonLinMPC A/B: {chk['lanes_per_sm']} lanes per SM ({geo})",
+                  flush=True)
+    chk.update(launches=launches, per_period=launches / (2 * periods), ab=out)
+    return launches, chk
+
+
+def small_nonlin_fleets(torch, mt, ops, dev, B=8, periods=20):
+    """Small float64 NonLinMPC fleets (B = 8, chunk 4; the bench controller),
+    GI and ADMM, on the card against the same fleets on the CPU, on the CPU
+    fleet's plants: u within 1e-6·(1 + max|u|).  Both sides run the same
+    float64 SQP, but an exit or line-search test that sits on round-off
+    (the KKT exit at 1e-3, a merit tie at a converged iterate) can stop one
+    side an iteration later, and u then differs by that last step: 1.3e-8
+    at most on an H100, where the SLMPC phase's 1e-9 bar failed."""
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    for qp_solver, bar in (("active_set", 1e-6), ("admm", 1e-6)):
+        fleets = {name: NonLinFleet(torch, nonlin_ctrl(torch, mt, d, qp_solver=qp_solver), B,
+                                    torch.float64, chunk=4)
+                  for name, d in (("card", dev), ("cpu", torch.device("cpu")))}
+        loop = PendulumLoop(torch, pendulum(torch, mt, "cpu"), B, "cpu", torch.float64)
+        loop.x[:, 0] = torch.linspace(-0.3, 0.3, B, dtype=torch.float64)
+        worst, same_it = 0.0, 0
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for k in range(periods):
+            ym, ry = loop.measure(k)
+            out = {}
+            for name, fl in fleets.items():
+                dv = fl.fleet.device
+                u, nc = fl.step(ym.to(dv), ry.to(dv))
+                out[name] = (u.cpu(), int(nc), fl.fleet.last_iters.tolist())
+            err = (out["card"][0] - out["cpu"][0]).abs().max().item()
+            tol = bar * (1.0 + out["cpu"][0].abs().max().item())
+            check(err <= tol, f"small NonLinMPC {qp_solver} period {k}: card vs CPU |du| "
+                  f"{err:.3e} > {tol:.3e}")
+            same_it += out["card"][2] == out["cpu"][2]
+            worst = max(worst, err)
+            loop.advance(out["cpu"][0])
+        run = dict(ops.LAUNCHES)
+        for key in launches:
+            launches[key] += run[key]
+        print(f"small NonLinMPC fleet {qp_solver} f64 (B={B}, chunk 4), {periods} periods: "
+              f"kernel launches {run}; card vs CPU max |du| {worst:.3e} (bar {bar:g}·(1 + "
+              f"max|u|)); equal SQP iteration [max, mean] in {same_it}/{periods} periods",
+              flush=True)
+    return launches
+
+
+def single_nonlin_phase(torch, mt, ops, dev, periods=60):
+    """NonLinMPC.moveinput: the swing-up of tests/test_nonlinmpc.py:52-63
+    (the UKF at its defaults, Hp = 20, SingleShooting, float64) with both
+    backends, on the card against the CPU on the same plant: u within 1e-6;
+    the median moveinput over periods 5-60."""
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    out = {}
+    for qp_solver, kernel, _ in SOLVERS:
+        ctrls = {}
+        for d in (dev, "cpu"):
+            est = mt.UnscentedKalmanFilter(pendulum(torch, mt, d), sigmaQ=[0.1, 1.0],
+                                           sigmaR=[5.0], nint_ym=[1], sigmaQint_ym=[0.1],
+                                           device=d)
+            ctrls[d] = mt.NonLinMPC(est, Hp=20, Hc=2, Mwt=[0.5], Nwt=[2.5], Cwt=np.inf,
+                                    qp_solver=qp_solver, device=d)
+            ctrls[d].setconstraint(umin=[-1.5], umax=[1.5])
+        plant = pendulum(torch, mt, "cpu")
+        times, worst = [], 0.0
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for k in range(periods):
+            y = plant.evaloutput()
+            us = {}
+            for d, c in ctrls.items():
+                t0 = time.perf_counter()
+                c.preparestate(y)
+                us[d] = c.moveinput([180.0])
+                if d == dev:
+                    times.append(time.perf_counter() - t0)
+                c.updatestate(us[d], y)
+            worst = max(worst, float(np.abs(us[dev] - us["cpu"]).max()))
+            plant.updatestate(us["cpu"])
+        run = dict(ops.LAUNCHES)
+        for key in launches:
+            launches[key] += run[key]
+        med = statistics.median(times[5:])
+        angle = plant.evaloutput()[0]
+        print(f"single NonLinMPC {qp_solver} f64 swing-up (Hp=20, SS), {periods} periods: "
+              f"kernel launches {run}; card vs CPU max |du| {worst:.3e} (bar 1e-6); final "
+              f"angle {angle:.3f} deg; preparestate+moveinput median {med * 1e3:.3f} ms "
+              f"(periods 5-{periods})", flush=True)
+        check(worst < 1e-6, f"single NonLinMPC {qp_solver}: card vs CPU |du| {worst:.3e}")
+        check(run[kernel] >= periods, f"single NonLinMPC {qp_solver}: the {kernel} kernel "
+              f"was launched {run[kernel]} times in {periods} periods")
+        check(abs(angle - 180.0) < 2.0, f"single NonLinMPC {qp_solver}: ends at {angle} deg")
+        out[qp_solver] = med * 1e3
+    return launches, out
+
+
+def explicit_phase(torch, mt, dev, B=256, periods=10):
+    """A BatchedExplicitMPC of 64 distinct 2x2 plants x 4 (B = 256, float64,
+    SteadyKalmanFilter feedback) on the card against the CPU: u within
+    1e-9·(1 + max|u|)."""
+    from mpc_tpu_torch.parallel import BatchedExplicitMPC
+    ctrls = []
+    for seed in range(64):
+        g = np.random.default_rng(seed).uniform(0.8, 1.6, size=4) * [1.9, 1.9, -0.74, 0.74]
+        G = mt.tf_matrix([[mt.tf(g[0], [18, 1]), mt.tf(g[1], [18, 1])],
+                          [mt.tf(g[2], [8, 1]), mt.tf(g[3], [8, 1])]])
+        ctrls.append(mt.ExplicitMPC(mt.LinModel(G, 2.0), Hp=8, Hc=2, Mwt=[1, 1],
+                                    Nwt=[0.1, 0.1], device="cpu"))
+    fleets = [BatchedExplicitMPC(ctrls, reps=B // 64, device=d) for d in (dev, "cpu")]
+    rng = np.random.default_rng(8)
+    worst = 0.0
+    for _ in range(periods):
+        ym, ry = rng.normal(size=(B, 2)) * 0.5, rng.normal(size=(B, 2)) * 1.5
+        u = [f.step(ym, ry).cpu() for f in fleets]
+        worst = max(worst, ((u[0] - u[1]).abs().max() / (1 + u[1].abs().max())).item())
+    print(f"BatchedExplicitMPC (64 2x2 plants x 4, B={B}, f64), {periods} periods: card vs "
+          f"CPU max |du|/(1+|u|) {worst:.3e} (bar 1e-9)", flush=True)
+    check(worst <= 1e-9, f"BatchedExplicitMPC: card vs CPU {worst:.3e} > 1e-9")
+
+
 def main():
     try:
         import torch
@@ -1581,6 +1999,31 @@ def main():
     admm_launches["admm_sweep"] += sl_launches["admm_sweep"]
     gi_launches += sl_launches["gi_solve"]
     estimator_phase(torch, mt, dev)
+
+    # --- 21-26. the NonLinMPC slice: the nonlin lane (THIS SLICE'S MAIN
+    # PATH) with both kernels against their plain versions at its shapes,
+    # the exact-Hessian A/B, small fleets and the single controller card vs
+    # CPU, an ExplicitMPC fleet
+    nl_launches, nl_gi, nl_admm = nonlin_phase(torch, mt, ops, _build, dev)
+    ab_launches, nl_ab = exact_hessian_phase(torch, mt, ops, _build, dev)
+    nl_launches["gi_solve"] += ab_launches
+    for phase, fn in (("NonLinMPC small fleets",
+                       lambda: (small_nonlin_fleets(torch, mt, ops, dev), None)),
+                      ("NonLinMPC single", lambda: single_nonlin_phase(torch, mt, ops, dev))):
+        run, single[phase] = fn()
+        for k in run:
+            nl_launches[k] += run[k]
+    admm_launches["admm_sweep"] += nl_launches["admm_sweep"]
+    gi_launches += nl_launches["gi_solve"]
+    explicit_phase(torch, mt, dev)
+    print(f"NonLinMPC: fleet period median {nl_gi['period_ms']:.2f} ms "
+          f"({nl_gi['solves_per_s']:.0f} solves/s, B=4096, f32, GI), {nl_gi['per_period']:g} "
+          f"GI launches, {nl_gi['prof']['sqp_exit_tests']:g} SQP exit tests, "
+          f"{nl_gi['prof']['host_syncs']} host syncs and {nl_gi['prof']['device_launches']} "
+          f"device launches a period, idle share {nl_gi['prof']['idle_share']:.4f}; "
+          f"exact-Hessian A/B {json.dumps(nl_ab['ab'])}; single controller median GI "
+          f"{single['NonLinMPC single']['active_set']:.3f} ms, ADMM "
+          f"{single['NonLinMPC single']['admm']:.3f} ms (f64)", flush=True)
     print(f"SLMPC: fleet period median {sl_gi['period_ms']:.2f} ms "
           f"({sl_gi['solves_per_s']:.0f} solves/s, B=4096, f32, GI); single controller "
           f"moveinput_closed median GI {single['SLMPC single']['active_set']:.3f} ms, ADMM "
@@ -1602,12 +2045,15 @@ def main():
     for k, (lanes, geo) in res.items():
         print(f"residency {k}: {lanes} lanes per SM ({geo})", flush=True)
     per_period.update({"SLMPC GI": sl_gi["per_period"], "SLMPC ADMM": sl_admm["per_period"],
+                       "NonLinMPC GI": nl_gi["per_period"],
+                       "NonLinMPC ADMM": nl_admm["per_period"],
                        "README ADMM": path_launches["README"]["admm_sweep"] / 40,
                        "README GI": path_launches["README"]["gi_solve"] / 40})
     print(f"launches per period: {per_period}", flush=True)
     shares = {k: c["bound_ms"] / c["ms"] for k, c in
               list(checks.items()) + list(gi_checks.items())
-              + [("SLMPC GI", sl_gi), ("SLMPC ADMM", sl_admm)]}
+              + [("SLMPC GI", sl_gi), ("SLMPC ADMM", sl_admm), ("NonLinMPC GI", nl_gi),
+                 ("NonLinMPC A/B GI", nl_ab), ("NonLinMPC ADMM", nl_admm)]}
     print(f"roofline shares: {json.dumps(shares)}", flush=True)
 
     def shape(name, c, launches, lpp, lanes):
@@ -1624,6 +2070,8 @@ def main():
               per_period["headline-ADMM"], res["admm headline"][0]),
         shape("SLMPC B=4096 n=3 m=65 f32, per-lane ladder", sl_admm, sl_admm["launches"],
               sl_admm["per_period"], sl_admm["lanes_per_sm"]),
+        shape("NonLinMPC B=4096 n=2 m=72 f32, per-lane ladder (nonlin lane, ADMM)", nl_admm,
+              nl_admm["launches"], nl_admm["per_period"], nl_admm["lanes_per_sm"]),
         shape("README B=1 n=3 m=233 f64", readme["admm"], path_launches["README"]["admm_sweep"],
               per_period["README ADMM"], res["admm README"][0]),
         shape("8x8/Hp=15 B=256 n=33 m=577 f32 (check)", checks["large_8x8_hp15"], 0, None,
@@ -1637,6 +2085,10 @@ def main():
               per_period["headline-GI"], res["gi headline-GI"][0]),
         shape("SLMPC B=4096 n=3 m=65 f32/f64, per-lane P and A", sl_gi, sl_gi["launches"],
               sl_gi["per_period"], sl_gi["lanes_per_sm"]),
+        shape("NonLinMPC B=4096 n=2 m=72 f32/f64, per-lane P and A (nonlin lane)", nl_gi,
+              nl_gi["launches"], nl_gi["per_period"], nl_gi["lanes_per_sm"]),
+        shape("NonLinMPC exact-Hessian A/B B=256 n=2 m=102 f32/f64", nl_ab, nl_ab["launches"],
+              nl_ab["per_period"], nl_ab["lanes_per_sm"]),
         shape("large-GI B=4096 n=33 m=577 f32/f32", lgi, path_launches["large-GI"],
               per_period["large-GI"], res["gi large-GI"][0]),
         shape("README B=1 n=3 m=233 f64", readme["active_set"],

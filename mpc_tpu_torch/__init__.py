@@ -28,8 +28,9 @@ from .estimators import (StateEstimator, SteadyKalmanFilter, KalmanFilter,
                          UnscentedKalmanFilter, ExtendedKalmanFilter,
                          Luenberger, InternalModel, ManualEstimator,
                          default_nint)
-from .controllers import (PredictiveController, LinMPC, SLMPC, SingleShooting,
-                          MultipleShooting, info2debugstr)
+from .controllers import (PredictiveController, LinMPC, ExplicitMPC, NonLinMPC, SLMPC,
+                          TranscriptionMethod, SingleShooting, MultipleShooting,
+                          TrapezoidalCollocation, OrthogonalCollocation, info2debugstr)
 from .sim import sim, SimResult
 
 __version__ = "0.1.0"

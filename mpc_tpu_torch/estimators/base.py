@@ -95,6 +95,48 @@ class StateEstimator:
         y = self.h_hat(x0_hat, d0)
         return y[list(self.i_ym)]
 
+    def tensor_fns(self, dtype, device):
+        """``(f_hat, h_hat)`` on tensors of one sample, with the matrices
+        already on ``device`` in ``dtype``: the arithmetic of ``f_hat`` and
+        ``h_hat``, for steps that ``torch.func.vmap`` batches (``like``
+        would upload the matrices at every call).  Made once per dtype and
+        device, and again after ``setmodel``."""
+        key = (dtype, torch.device(device))
+        cache = self.__dict__.setdefault("_tensor_fns", {})
+        if key not in cache:
+            t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dtype, device=device)
+            cache[key] = self._make_tensor_fns(t)
+        return cache[key]
+
+    def _make_tensor_fns(self, t):
+        model = self.model
+        if isinstance(model, LinModel):
+            A, Bu, C, Bd, Dd = map(t, (self.A_hat, self.Bu_hat, self.C_hat,
+                                       self.Bd_hat, self.Dd_hat))
+            nd = model.nd
+
+            def f_hat(x, u, d):
+                r = A @ x + Bu @ u
+                return r + Bd @ d if nd else r
+
+            def h_hat(x, d):
+                r = C @ x
+                return r + Dd @ d if nd else r
+            return f_hat, h_hat
+        nx, Cs_u, As, Cs_y = model.nx, t(self.Cs_u), t(self.As), t(self.Cs_y)
+        # products with the integrator blocks as sums of broadcast products:
+        # forward-mode tangents of 0-dim float32 values can come out in
+        # float64 (x[0] * 1.0), and a float32 matmul then refuses them
+        dot = lambda M, v: (M * v).sum(-1)
+
+        def f_hat(x, u, d):
+            xs = x[nx:]
+            return torch.cat([model._fd(x[:nx], u + dot(Cs_u, xs), d, model.p), dot(As, xs)])
+
+        def h_hat(x, d):
+            return model._h_user(x[:nx], d, model.p) + dot(Cs_y, x[nx:])
+        return f_hat, h_hat
+
     # ------------------------------------------------------------------
     # hooks implemented by concrete estimators
     def _correct(self, y0m, d0):
@@ -204,6 +246,7 @@ class StateEstimator:
                 Qhat if Qhat is not None else self.Q_hat,
                 Rhat if Rhat is not None else self.R_hat)
         self._update_model(model, Qhat, Rhat)
+        self.__dict__.pop("_tensor_fns", None)
         return self
 
     def _update_model(self, model, Qhat, Rhat):

@@ -91,6 +91,13 @@ class InternalModel(StateEstimator):
     def h_hat(self, x0_hat, d0):
         return self.model.h(x0_hat, d0, self.model.p)
 
+    def _make_tensor_fns(self, t):
+        if isinstance(self.model, LinModel):
+            return super()._make_tensor_fns(t)
+        model = self.model
+        return (lambda x, u, d: model._fd(x, u, d, model.p),
+                lambda x, d: model._h_user(x, d, model.p))
+
     def _correct(self, y0m, d0):
         """ŷs = ym − ŷd for measured outputs, 0 for unmeasured / NaN
         (internal_model.jl:268-284)."""

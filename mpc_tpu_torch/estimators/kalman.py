@@ -247,38 +247,81 @@ class UnscentedKalmanFilter(_DeviceFilter):
         self.m_hat = np.concatenate([[m0], np.full(2 * nx_hat, w)])
         self.S_hat = np.concatenate([[m0 + 1 - alpha ** 2 + beta], np.full(2 * nx_hat, w)])
 
-    def _sigma_points(self, x0, P):
-        gL = self.gamma * chol_small(P)
-        return torch.cat([x0[:, None], x0[:, None] + gL, x0[:, None] - gL], 1)
+    def _kernels(self, dtype=torch.float64, device=None):
+        """The correction and prediction over a leading lane axis (the
+        reference's ``_kernels()``, which its fleet vmaps):
+        ``correct(x0, P, y0m, d0, m, S, R)`` and ``predict(x0, P, u0, d0,
+        m, S, Q, fop_m_xop)`` with x0 (B, n), P (B, n, n), y0m/u0/d0 (B, ·)
+        and the weights and covariances shared.  Unlike ``_correct``, a NaN
+        measurement is not skipped (the reference's vmapped kernel has no
+        skip either).  The model's matrices live on ``device`` (default:
+        the filter's) in ``dtype``."""
+        f_hat, h_hat = self.tensor_fns(dtype, self.device if device is None else device)
+        i_ym, gamma = list(self.i_ym), self.gamma
+        h_m = lambda x, d: h_hat(x, d)[i_ym]
+        correct = lambda x0, P, y0m, d0, m, S, R: ukf_correct(x0, P, y0m, d0, m, S, R,
+                                                             h_m, gamma)
+        predict = lambda x0, P, u0, d0, m, S, Q, c: ukf_predict(x0, P, u0, d0, m, S, Q, c,
+                                                                f_hat, gamma)
+        return correct, predict
 
     def _correct(self, y0m, d0):
         if np.any(np.isnan(y0m)):
             warnings.warn(_NAN_SKIP)
             return
+        correct, _ = self._kernels()
         x0, P, y0m, d0, m, S, R = map(self._t, (self.x0_hat, self.P_hat, y0m, d0,
                                                 self.m_hat, self.S_hat, self.R_hat))
-        X = self._sigma_points(x0, P)
-        Ym = vmap(lambda xc: self.h_hat_m(xc, d0), in_dims=1, out_dims=1)(X)
-        y0m_pred = Ym @ m
-        Xb = X - x0[:, None]
-        Yb = Ym - y0m_pred[:, None]
-        M = (Yb * S) @ Yb.T + R
-        K = ((Xb * S) @ Yb.T) @ inv_spd_small(0.5 * (M + M.T))
-        x0c = x0 + K @ (y0m - y0m_pred)
-        Pc = P - K @ M @ K.T
-        self._store(x0c, 0.5 * (Pc + Pc.T))
+        x0c, Pc = correct(x0[None], P[None], y0m[None], d0[None], m, S, R)
+        self._store(x0c[0], Pc[0])
 
     def _predict(self, u0, d0):
+        _, predict = self._kernels()
         x0, P, u0, d0, m, S, Q, fop_m_xop = map(
             self._t, (self.x0_hat, self.P_hat, u0, d0, self.m_hat, self.S_hat,
                       self.Q_hat, self.fop_hat - self.xop_hat))
-        X = self._sigma_points(x0, P)
-        Xn = vmap(lambda xc: self.f_hat(xc, u0, d0) + fop_m_xop,
-                  in_dims=1, out_dims=1)(X)
-        x0n = Xn @ m
-        Xb = Xn - x0n[:, None]
-        Pn = (Xb * S) @ Xb.T + Q
-        self._store(x0n, 0.5 * (Pn + Pn.T))
+        x0n, Pn = predict(x0[None], P[None], u0[None], d0[None], m, S, Q, fop_m_xop)
+        self._store(x0n[0], Pn[0])
+
+
+def _sigma_points(x0, P, gamma):
+    """The 2n+1 sigma points as columns, over a leading lane axis: (B, n,
+    2n+1) from x0 (B, n) and P (B, n, n)."""
+    gL = gamma * chol_small(P)
+    return torch.cat([x0[..., None], x0[..., None] + gL, x0[..., None] - gL], -1)
+
+
+def _each_point(fn, X, *lane_args):
+    """``fn(x, *args)`` on every sigma point (column) of every lane: X (B,
+    n, k) and per-lane args (B, ·) → (B, ·, k)."""
+    per_lane = vmap(fn, in_dims=(1,) + (None,) * len(lane_args), out_dims=1)
+    return vmap(per_lane)(X, *lane_args)
+
+
+def ukf_correct(x0, P, y0m, d0, m, S, R, h_hat_m, gamma):
+    """UKF correction (kalman.jl:646-700) over a leading lane axis, with
+    ``h_hat_m`` on one sample."""
+    X = _sigma_points(x0, P, gamma)
+    Ym = _each_point(h_hat_m, X, d0)
+    y0m_pred = Ym @ m
+    Xb = X - x0[..., None]
+    Yb = Ym - y0m_pred[..., None]
+    M = (Yb * S) @ Yb.mT + R
+    K = ((Xb * S) @ Yb.mT) @ inv_spd_small(0.5 * (M + M.mT))
+    x0c = x0 + (K @ (y0m - y0m_pred)[..., None])[..., 0]
+    Pc = P - K @ M @ K.mT
+    return x0c, 0.5 * (Pc + Pc.mT)
+
+
+def ukf_predict(x0, P, u0, d0, m, S, Q, fop_m_xop, f_hat, gamma):
+    """UKF prediction (kalman.jl:702-760) over a leading lane axis, with
+    ``f_hat`` on one sample."""
+    X = _sigma_points(x0, P, gamma)
+    Xn = _each_point(lambda xc, u, d: f_hat(xc, u, d) + fop_m_xop, X, u0, d0)
+    x0n = Xn @ m
+    Xb = Xn - x0n[..., None]
+    Pn = (Xb * S) @ Xb.mT + Q
+    return x0n, 0.5 * (Pn + Pn.mT)
 
 
 class ExtendedKalmanFilter(_DeviceFilter):

@@ -99,10 +99,12 @@ class BatchedLinMPC:
                  sweep=admm_sweep, gi_slot_dtype=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh-sharded fleets are not ported yet (ROADMAP queue 1, item 11)")
+                "mesh-sharded fleets are not ported yet (ROADMAP queue 1, item 8, "
+                "batch sharding)")
         if grouped_chunks != 1:
             raise NotImplementedError(
-                "grouped_chunks != 1 is not ported yet (ROADMAP queue 1, item 3)")
+                "grouped_chunks != 1 is not ported yet (ROADMAP queue 1, item 3, "
+                "rest of the fleet)")
         solvers = {c.qp_solver for c in controllers}
         caps = {c.gi_max_active for c in controllers}
         if len(solvers) != 1 or len(caps) != 1:

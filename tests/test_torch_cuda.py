@@ -309,3 +309,71 @@ def test_slmpc_fleet_kernel_matches_plain_on_card(qp_solver, kernel, monkeypatch
     assert torch.isfinite(u_k).all()
     assert (u_k - u_p).abs().max().item() < 1e-4
     assert int((c_k != c_p).sum()) <= 4
+
+
+def _nonlin_fleet(dev, qp_solver, B=256, dtype=torch.float32, Hp=15):
+    """bench.py's NonLinMPC fleet (the pendulum, MultipleShooting, the KKT
+    exit, the UKF at α = 0.5) on ``dev``, B lanes from rest."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch.parallel import BatchedNonLinMPC
+
+    def f(x, u, d, par):
+        g, L, K, m = par
+        return torch.stack([x[1], -g / L * torch.sin(x[0]) - K / m * x[1]
+                            + u[0] / (m * L ** 2)])
+    h = lambda x, d, par: torch.stack([x[0] * 180 / torch.pi])
+    model = mt.NonLinModel(f, h, 0.1, 1, 2, 1, p=(9.8, 0.4, 1.2, 0.3), device=dev)
+    est = mt.UnscentedKalmanFilter(model, sigmaQ=[0.1, 1.0], sigmaR=[5.0], nint_ym=[1],
+                                   sigmaQint_ym=[0.1], alpha=0.5, device=dev)
+    c = mt.NonLinMPC(est, Hp=Hp, Hc=2, Mwt=[0.5], Nwt=[2.5], Cwt=np.inf, sqp_iters=15,
+                     qp_solver=qp_solver, transcription=mt.MultipleShooting(),
+                     kkt_tol=1e-3, kkt_feas_tol=1e-4, device=dev)
+    c.setconstraint(umin=[-1.5], umax=[1.5])
+    return BatchedNonLinMPC(c, B, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp_solver,kernel", [("active_set", "gi_solve"),
+                                              ("admm", "admm_sweep")])
+def test_nonlin_fleet_kernel_matches_plain_on_card(qp_solver, kernel, monkeypatch):
+    """Two periods of the NonLinMPC fleet (n = 2, m = 72 reduced QPs) on the
+    card with the kernel and with its plain version from the same state:
+    every lane's u to 1e-4 and the kernel launched."""
+    from mpc_tpu_torch.controllers import nonlinmpc as module
+    dev = _card()
+    fl = _nonlin_fleet(dev, qp_solver)
+    st0 = fl.state
+    ym = torch.zeros(fl.B, 1, device=dev)
+    ry = torch.full((fl.B, 1), 180.0, device=dev)
+    n0 = LAUNCHES[kernel]
+    out = []
+    for fn in ((gi_solve, gi_solve_reference) if kernel == "gi_solve"
+               else (admm_sweep, admm_sweep_reference)):
+        if kernel == "gi_solve":
+            monkeypatch.setattr(module, "solve_qp_active",
+                                functools.partial(solve_qp_active, solve=fn))
+        else:
+            monkeypatch.setattr(module, "solve_qp", functools.partial(solve_qp, sweep=fn))
+        fl.state = st0
+        for _ in range(2):
+            u, _ = fl.step(ym, ry)
+        out.append(u)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] > n0
+    assert torch.isfinite(out[0]).all()
+    assert (out[0] - out[1]).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_nonlin_fleet_on_card_matches_cpu():
+    """A float64 B=8 NonLinMPC fleet (GI) on the card and on the CPU, 4
+    periods: u within 1e-6·(1 + max|u|) (see chip_smoke.py's small fleets)."""
+    dev = _card()
+    fleets = [_nonlin_fleet(d, "active_set", B=8, dtype=torch.float64, Hp=8)
+              for d in (dev, torch.device("cpu"))]
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        ym = torch.tensor(rng.normal(size=(8, 1)) * 5.0)
+        ry = torch.full((8, 1), 90.0, dtype=torch.float64)
+        u = [f.step(ym.to(f.device), ry.to(f.device))[0].cpu() for f in fleets]
+        assert (u[0] - u[1]).abs().max().item() <= 1e-6 * (1 + u[1].abs().max().item())

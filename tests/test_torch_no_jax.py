@@ -6,7 +6,7 @@ import pytest
 import torch
 
 import mpc_tpu_torch as mt
-from mpc_tpu_torch.parallel import (BatchedKalman, BatchedLinMPC,
+from mpc_tpu_torch.parallel import (BatchedExplicitMPC, BatchedKalman, BatchedLinMPC,
                                     random_cstr_controllers)
 
 torch.set_num_threads(1)
@@ -22,11 +22,13 @@ def test_import_pulls_in_no_jax():
             "Luenberger, InternalModel, ManualEstimator, NonLinModel, "
             "RungeKutta, ForwardEuler, DiffSolver, EmptySolver, linearize, "
             "linearize_, get_linearization_func, UnscentedKalmanFilter, "
-            "ExtendedKalmanFilter, SLMPC); "
-            "from mpc_tpu_torch.parallel import BatchedKalman; "
+            "ExtendedKalmanFilter, SLMPC, NonLinMPC, ExplicitMPC, "
+            "TranscriptionMethod, TrapezoidalCollocation, OrthogonalCollocation); "
+            "from mpc_tpu_torch.parallel import (BatchedKalman, BatchedNonLinMPC, "
+            "BatchedExplicitMPC); "
             "from mpc_tpu_torch.models import solver, nonlinmodel; "
-            "from mpc_tpu_torch.controllers import slmpc; "
-            "from mpc_tpu_torch.parallel import batch_kf; "
+            "from mpc_tpu_torch.controllers import slmpc, nonlinmpc, explicitmpc; "
+            "from mpc_tpu_torch.parallel import batch_kf, batch_nonlin, batch_explicit; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'mpc_tpu.')) "
             "or m == 'mpc_tpu'); "
@@ -67,6 +69,10 @@ def test_default_device_is_the_gpu():
         "UnscentedKalmanFilter": lambda dev: mt.UnscentedKalmanFilter(lin, device=dev),
         "ExtendedKalmanFilter": lambda dev: mt.ExtendedKalmanFilter(lin, device=dev),
         "BatchedKalman": lambda dev: BatchedKalman([mt.KalmanFilter(lin)], device=dev),
+        "NonLinMPC": lambda dev: mt.NonLinMPC(_pendulum(CPU), Hp=5, device=dev),
+        "ExplicitMPC": lambda dev: mt.ExplicitMPC(lin, Hp=5, device=dev),
+        "BatchedExplicitMPC": lambda dev: BatchedExplicitMPC(
+            [mt.ExplicitMPC(lin, Hp=5, device=CPU)], device=dev),
     }
     for name, make in entry_points.items():
         for dev in (None, "cuda"):
