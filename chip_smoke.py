@@ -10,7 +10,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    with the input bounds active: warm x, z and y, some lanes already
    frozen; the 8x8/Hp=15 lanes also tiled to B=4096), each of x, z and y
    held to its own bar, with both times (CUDA events, median of 25 runs)
-   and the kernel's device time (profiler); 3b. both kernels on every lane
+   and the kernel's device time (profiler, and CUDA events around the
+   launch alone); 3b. both kernels on every lane
    layout, and the sweep on QPs wider than its block (n=300);
 4. the kernel's shared-memory size guard;
 5. a small float64 fleet on the card against the same fleet on the CPU
@@ -71,7 +72,26 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    against its plain version;
 23-26. small float64 NonLinMPC fleets (B=8, chunk 4) and the single
    swing-up (Hp=20, SingleShooting, 60 periods) card vs CPU with both
-   backends, and a BatchedExplicitMPC (B=256) card vs CPU.
+   backends, and a BatchedExplicitMPC (B=256) card vs CPU;
+27. THE MHE SLICE'S MAIN PATH, bench.py's ``mhe`` lane: a BatchedMHE of the
+   2x1 LinModel (He=10, x̂ within ±50, ``gi_max_active=8``), B=4096,
+   float32 data, float64 GI slots, on true plant trajectories from seed 3:
+   11 fill steps, one warm ``multistep(K=8)`` and 3 timed windows of 2
+   dispatches; ≥ 0.99 of the lanes converged, one GI launch a period; one
+   counted period; one period with the plain GI (x̂ to F32_TOL); then the
+   1 %-NaN traffic (1 warm and 3 timed dispatches); the GI kernel against
+   its plain version at shape (a) (n=44, m=104, 8 slots, one shared P⁻¹ and
+   A) and (b) (the NaN variant: per-lane P⁻¹ and A);
+28. bench.py's ``mhe_nonlin`` lane: the pendulum BatchedMHE (window GN-SQP,
+   GI, EKF arrival covariance per lane), B=1024, float32, K=4: 11 fill
+   steps, 1 warm and 3 timed windows of 2 dispatches, ≥ 0.99 converged, GN
+   iterations and exit tests, one counted period, GI against plain at shape
+   (c) (n=33, m=146, per-lane P and A);
+29. small float64 BatchedMHE fleets (B=8, He=4: fast path, NaN variant,
+   ``solver="general"`` with ADMM, a nonlinear fleet) card vs CPU, the ADMM
+   sweep against its plain version at the general window (B=256, n=44,
+   m=208, float32), and one MovingHorizonEstimator closed loop with a NaN
+   window card vs CPU (both kernels on the single-stream path).
 
 The line before the last is the card's name and power limit, and before it
 a JSON object of the kernels; the last line is
@@ -142,29 +162,99 @@ PEAK_FLOPS = {4: 67e12,    # float32 outside the tensor cores (data sheet)
               8: 34e12}    # float64 outside the tensor cores (data sheet)
 
 
-def device_ms(torch, fn, setup, names, n=10, tries=3):
+WARM_CALLS = 2     # calls ahead of the timed ones in each profile (below)
+
+
+def device_ms(torch, fn, setup, names, n=10, tries=3, launches=None):
     """Mean device time of one call of ``fn``: the durations of the
-    profiler's kernel records whose name contains one of ``names``, summed
-    over ``n`` calls (each after a fresh ``setup()``) and divided by ``n``.
-    A profile with another number of such records than calls (the profiler
-    can drop records) is taken again, up to ``tries`` times; then it fails."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler's kernel records whose name contains one of ``names`` in ``n``
+    calls (each after a fresh ``setup()``, each in a range of its own),
+    divided by ``n``.  Each profile starts with WARM_CALLS calls outside the
+    count: late in a long run the profiler misses the first one or two
+    kernel records of a profile.  A record belongs to the call whose range
+    holds its launch (the runtime's launch event shares the record's id).
+    A profile with another number of records in the timed calls is taken
+    again, up to ``tries`` times, printing the calls without one; then it
+    fails, unless ``launches`` (a callable giving the wrappers' launch
+    count) shows one launch a call: the records kept are averaged."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     setup()
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
+    tag = "device_ms call "
     for _ in range(tries):
+        n0 = launches() if launches else 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for i in range(-WARM_CALLS, n):
                 setup()
-                fn()
+                with record_function(f"{tag}{i}"):
+                    fn()
             torch.cuda.synchronize()
-        ks = [e for e in prof.events() if e.device_type == cuda
-              and any(k in e.name for k in names)]
+        n_launch = launches() - n0 - WARM_CALLS if launches else None
+        evs = prof.events()
+        ks = [e for e in evs if e.device_type == cuda and any(k in e.name for k in names)]
+        ranges = [(int(e.name[len(tag):]), e.time_range) for e in evs if e.name.startswith(tag)]
+        call_of = {e.id: i for e in evs if e.device_type != cuda and "LaunchKernel" in e.name
+                   for i, r in ranges if r.start <= e.time_range.start <= r.end}
+        if call_of:
+            ks = [e for e in ks if call_of.get(e.id, -1) >= 0]
+            seen = {call_of[e.id] for e in ks}
+            where = f"calls without a record: {[i for i in range(n) if i not in seen]}"
+        else:
+            ks = sorted(ks, key=lambda e: e.time_range.start)[-n:]
+            where = "the records are not linked to the calls"
         if len(ks) == n:
             return sum(e.time_range.end - e.time_range.start for e in ks) / 1e3 / n
-        print(f"profiler saw {len(ks)} records of {names} in {n} calls; again", flush=True)
-    raise Fail(f"profiler saw {len(ks)} records of {names} in {n} calls, {tries} times")
+        print(f"profiler saw {len(ks)} records of {names} in {n} timed calls, {n_launch} "
+              f"launches counted; {where}", flush=True)
+    if n_launch == n and ks:
+        print(f"profiler lost {n - len(ks)} of {n} records of {names} ({n} launches counted): "
+              "the mean of the records kept", flush=True)
+        return sum(e.time_range.end - e.time_range.start for e in ks) / 1e3 / len(ks)
+    raise Fail(f"profiler saw {len(ks)} records of {names} in {n} calls, {tries} times "
+               f"({n_launch} launches counted)")
+
+
+LIB_SYMBOLS = {"admm_sweep": ("mpc_admm_sweep_f32", "mpc_admm_sweep_f64"),
+               "gi_solve": ("mpc_gi_solve_f32_f64", "mpc_gi_solve_f32_f32",
+                            "mpc_gi_solve_f64_f64")}
+SLEEP_CYCLES = 2_000_000   # ~1 ms of a spinning kernel ahead of each launch
+
+
+def launch_event_ms(torch, kernel, fn, setup, n=10):
+    """Mean device time of ``kernel``'s launch in one call of ``fn``, by CUDA
+    events recorded just before and after the library's launch function
+    (no profiler): a spinning kernel queued ahead keeps the stream busy
+    while the host queues the start event and the launch, so the events
+    bracket the kernel alone."""
+    from mpc_tpu_torch.ops import _build
+    lib = _build.load_library()
+    orig = {s: getattr(lib, s) for s in LIB_SYMBOLS[kernel]}
+    evs = []
+
+    def hooked(launch):
+        def call(*a):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            rc = launch(*a)
+            e.record()
+            evs.append((s, e))
+            return rc
+        return call
+    try:
+        for s, launch in orig.items():
+            setattr(lib, s, hooked(launch))
+        for _ in range(n):
+            setup()
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        for s, launch in orig.items():
+            setattr(lib, s, launch)
+    check(len(evs) == n, f"{kernel}: {len(evs)} launches in {n} calls")
+    return statistics.mean(s.elapsed_time(e) for s, e in evs)
 
 
 def bound(nbytes, flops, itemsize):
@@ -192,9 +282,18 @@ def admm_bound(torch, a, iters):
     return bound(nbytes, flops, s)
 
 
+def gi_distinct(torch, args):
+    """The distinct controllers the lanes read (P⁻¹ and A come through one
+    lane map) and the distinct A among them: the MHE fleet's NaN variant
+    gives every lane its own P⁻¹ and a copy of one shared A."""
+    Pinv, A, lc = args[:3]
+    n_c = int(torch.unique(lc).numel())
+    return n_c, (1 if A.shape[0] == 1 or bool((A == A[:1]).all()) else n_c)
+
+
 def gi_bound(torch, args, it):
-    """Bound of one GI launch on these inputs: each distinct controller's A
-    and P⁻¹ read once; per lane q, l, u, the warm list and the operator
+    """Bound of one GI launch on these inputs: each distinct P⁻¹ and each
+    distinct A read once; per lane q, l, u, the warm list and the operator
     state read, the state, x, λ, the count and the flag written; and per
     pivot the lane's ~2mn + 8m + 4n² + 4·ns·n + 5·ns² flops (the scan, the
     Gram products, the update of x and the rank-one update), over the
@@ -203,9 +302,9 @@ def gi_bound(torch, args, it):
     B, n = q.shape
     m, ns = l.shape[1], args[6].shape[1]
     sd, ss = A.element_size(), Pinv.element_size()
-    n_c = int(torch.unique(lc).numel())
+    n_c, n_a = gi_distinct(torch, args)
     state = 2 * ns * 4 + ns + ns * ns * ss
-    nbytes = (n_c * (m * n * sd + n * n * ss)
+    nbytes = (n_a * m * n * sd + n_c * n * n * ss
               + B * (n * sd + 2 * m * sd + state + 2 * ns * 4 + 8)
               + B * (state + (n + ns) * ss + 5))
     flops = int(it.sum()) * (2 * m * n + 8 * m + 4 * n * n + 4 * ns * n + 5 * ns * ns)
@@ -384,15 +483,17 @@ def kernel_vs_plain(torch, ops, name, args):
 
     ms_k = median_ms(torch, timed(ops.admm_sweep), setup)
     ms_p = median_ms(torch, timed(ops.admm_sweep_reference), setup)
-    ms_d = device_ms(torch, timed(ops.admm_sweep), setup, ADMM_KERNELS)
+    ms_d = device_ms(torch, timed(ops.admm_sweep), setup, ADMM_KERNELS,
+                     launches=lambda: ops.LAUNCHES["admm_sweep"])
+    ms_e = launch_event_ms(torch, "admm_sweep", timed(ops.admm_sweep), setup)
     b_ms, b_by = admm_bound(torch, base, iters)
     B, n = base["x"].shape
     m = base["z"].shape[1]
     print(f"kernel time {name}: B={B} n={n} m={m} n_d={base['A'].shape[0]} "
-          f"iters={iters} kernel {ms_d:.4f} ms device (profiler), {ms_k:.4f} ms call "
-          f"(CUDA events); plain {ms_p:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
-          f"roofline share {b_ms / ms_d:.4f}", flush=True)
-    return dict(err=err, ms=ms_d, call_ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+          f"iters={iters} kernel {ms_d:.4f} ms device (profiler), {ms_e:.4f} ms by events "
+          f"around the launch, {ms_k:.4f} ms call (CUDA events); plain {ms_p:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}), roofline share {b_ms / ms_d:.4f}", flush=True)
+    return dict(err=err, ms=ms_d, event_ms=ms_e, call_ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                 bound_by=b_by, args=base)
 
 
@@ -707,14 +808,25 @@ def gi_vs_plain(torch, ops, name, args, f64):
         holder["a"] = _clone(args)
     ms_k = median_ms(torch, lambda: ops.gi_solve(*holder["a"]), setup)
     ms_p = median_ms(torch, lambda: ops.gi_solve_reference(*holder["a"]), setup)
-    ms_d = device_ms(torch, lambda: ops.gi_solve(*holder["a"]), setup, GI_KERNELS)
+    ms_d = device_ms(torch, lambda: ops.gi_solve(*holder["a"]), setup, GI_KERNELS,
+                     launches=lambda: ops.LAUNCHES["gi_solve"])
+    ms_e = launch_event_ms(torch, "gi_solve", lambda: ops.gi_solve(*holder["a"]), setup)
     b_ms, b_by = gi_bound(torch, args, k["it"])
-    print(f"GI kernel time {name}: kernel {ms_d:.4f} ms device (profiler), {ms_k:.4f} ms "
-          f"call (CUDA events); plain {ms_p:.4f} ms; pivots mean "
-          f"{k['it'].float().mean().item():.2f}; bound {b_ms:.4f} ms ({b_by}), roofline "
-          f"share {b_ms / ms_d:.4f}", flush=True)
-    return dict(err=err, ms=ms_d, call_ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by, entering=entering, B=B, args=args)
+    print(f"GI kernel time {name}: kernel {ms_d:.4f} ms device (profiler), {ms_e:.4f} ms by "
+          f"events around the launch, {ms_k:.4f} ms call (CUDA events); plain {ms_p:.4f} ms; "
+          f"pivots mean {k['it'].float().mean().item():.2f}; bound {b_ms:.4f} ms ({b_by}), "
+          f"roofline share {b_ms / ms_d:.4f}", flush=True)
+    out = dict(err=err, ms=ms_d, event_ms=ms_e, call_ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+               bound_by=b_by, entering=entering, B=B, args=args)
+    n_c, n_a = gi_distinct(torch, args)
+    if n_a < n_c:
+        # the copies of one A that the lane map makes the kernel read: not
+        # work the function needs, so not in the bound
+        dup = (n_c - n_a) * m * n * args[1].element_size()
+        out.update(copied_A_bytes=dup, copied_A_ms=dup / HBM_BPS * 1e3)
+        print(f"GI {name}: {n_c} lanes read {n_c - n_a} copies of one A, {dup / 1e6:.2f} MB, "
+              f"{out['copied_A_ms']:.4f} ms at the memory rate (outside the bound)", flush=True)
+    return out
 
 
 def layouts(torch, dev, B=1024, seed=0):
@@ -1828,6 +1940,397 @@ def explicit_phase(torch, mt, dev, B=256, periods=10):
     check(worst <= 1e-9, f"BatchedExplicitMPC: card vs CPU {worst:.3e} > 1e-9")
 
 
+MHE_K, MHE_NL_K = 8, 4     # periods a dispatch (bench.py:805, :966)
+
+
+def mhe_fleet(torch, mt, dev, B, He=10, dtype=None, bound=50.0, **kw):
+    """bench.py's ``mhe`` lane fleet (bench.py:794-803): BatchedMHE of the
+    2x1 LinModel, He = 10, σQ = 0.1, σR = 0.2, x̂ within ±``bound`` (50)."""
+    from mpc_tpu_torch.parallel import BatchedMHE
+    m = mt.LinModel(mt.tf_matrix([[mt.tf(3, [10, 1])], [mt.tf(-1, [4, 1])]]), 1.0)
+    t = mt.MovingHorizonEstimator(m, He=He, sigmaQ=[0.1] * m.nx, sigmaR=[0.2, 0.2],
+                                  device=dev)
+    t.setconstraint(xhatmin=np.full(t.nx_hat, -bound), xhatmax=np.full(t.nx_hat, bound))
+    return BatchedMHE(t, B, dtype=dtype, **kw), m
+
+
+def mhe_trajectories(m, B, n, seed=3):
+    """bench.py:804-824: true 2x1 plants driven by 4 persistent random
+    inputs and process noise, ym = C x + N(0, 0.2²); host NumPy."""
+    rng = np.random.default_rng(seed)
+    A_p, Bu_p, C_p = np.asarray(m.A), np.asarray(m.Bu), np.asarray(m.C)
+    x_true = np.zeros((B, m.nx))
+    u_seq = 0.5 * rng.standard_normal((4, B, 1))
+    ys, us = [], []
+    for k in range(n):
+        u_k = u_seq[k % 4]
+        ys.append(x_true @ C_p.T + rng.normal(size=(B, 2)) * 0.2)
+        us.append(u_k)
+        x_true = x_true @ A_p.T + u_k @ Bu_p.T + rng.normal(size=(B, m.nx)) * 0.05
+    return ys, us, rng
+
+
+def pendulum_trajectories(B, n, seed=5):
+    """bench.py:988-1016: true pendulums (host NumPy RK4) under 4 persistent
+    random torques, ym = angle in degrees + N(0, 2²)."""
+    rng = np.random.default_rng(seed)
+    g_, L_, Kp_, m_ = PEND_P
+    Ts = 0.1
+
+    def f_np(x, u):
+        return np.stack([x[:, 1], -g_ / L_ * np.sin(x[:, 0]) - Kp_ / m_ * x[:, 1]
+                         + u[:, 0] / (m_ * L_ ** 2)], axis=1)
+    x_true = np.zeros((B, 2))
+    u_seq = 0.5 * rng.standard_normal((4, B, 1))
+    ys, us = [], []
+    for k in range(n):
+        u_k = u_seq[k % 4]
+        ys.append(x_true[:, :1] * 180 / np.pi + rng.normal(size=(B, 1)) * 2.0)
+        us.append(u_k)
+        k1 = f_np(x_true, u_k)
+        k2 = f_np(x_true + 0.5 * Ts * k1, u_k)
+        k3 = f_np(x_true + 0.5 * Ts * k2, u_k)
+        k4 = f_np(x_true + Ts * k3, u_k)
+        x_true = x_true + Ts / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    return ys, us
+
+
+def fleet_snapshot(fleet):
+    """An MHE fleet's state: the device dict (never written in place) and
+    the host mirrors."""
+    return (fleet.state, fleet.Nk, fleet.P_arr.copy(), fleet.invP_arr.copy(),
+            fleet._nan_guard)
+
+
+def fleet_restore(fleet, snap):
+    (fleet.state, fleet.Nk, P, invP, fleet._nan_guard) = snap
+    fleet.P_arr, fleet.invP_arr = P.copy(), invP.copy()
+
+
+def mhe_windows(torch, fleet, dispatch, kk, K, n_win=3, n_disp=2, after=None):
+    """bench.py's timing: ``n_win`` hard-synced windows of ``n_disp``
+    K-period dispatches from period ``kk``; returns (median seconds a
+    period, next kk, the stacked estimates of the last dispatch)."""
+    win = []
+    for _ in range(n_win):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n_disp):
+            X = dispatch(kk)
+            kk += K
+            if after is not None:
+                after()
+        torch.cuda.synchronize()
+        win.append((time.perf_counter() - t1) / (n_disp * K))
+    return statistics.median(win), kk, X
+
+
+def mhe_phase(torch, mt, ops, _build, dev, B=4096, He=10, K=MHE_K):
+    """THE MHE SLICE'S MAIN PATH, bench.py's ``mhe`` lane (bench.py:786-876):
+    the 2x1 BatchedMHE (He = 10, x̂ within ±50, ``gi_max_active=8``), B =
+    4096, float32 data and float64 GI slots; 11 fill steps, one warm
+    ``multistep(K=8)`` and 3 timed windows of 2 dispatches; one counted
+    period; one period with the plain GI solve; then the 1 %-NaN traffic
+    (one dropout period a dispatch on 1 % of the lanes): 1 warm and 3 timed
+    dispatches.  The GI kernel against its plain version on a solve of the
+    warm dispatch (shape (a): n = 44, m = 104, 8 slots, one shared P⁻¹ and
+    A) and of the NaN warm dispatch (shape (b): per-lane P⁻¹ and A), and at
+    shape (a) on a solve with warm rows on half the lanes (the same fleet
+    with x̂ within ±0.5, where bounds bind).  Fails
+    below 0.99 of the lanes converged or without a GI launch a period."""
+    t0 = time.perf_counter()
+    fleet, m = mhe_fleet(torch, mt, dev, B, He, dtype=torch.float32, gi_max_active=8)
+    n_total = He + 1 + (1 + 3 * 2 + 4) * K + 2
+    ys, us, rng = mhe_trajectories(m, B, n_total)
+    print(f"MHE fleet (mhe lane): B={B}, He={He}, nx̂={fleet.t.nx_hat}, fast-path QP n="
+          f"{fleet.t.nZt} m={fleet._m_rows}, 8 slots, float32 data, float64 slots; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for k in range(He + 1):
+        fleet.step(ys[k], u_prev=(us[k - 1] if k else None))
+    dispatch = lambda kk, Y=None: fleet.multistep(np.stack(ys[kk:kk + K]) if Y is None else Y,
+                                                  np.stack(us[kk - 1:kk - 1 + K]))
+    kk = He + 1
+    rec = Recorder(ops.gi_solve, gi_warm_half)
+    fleet.gi = rec
+    dispatch(kk)
+    kk += K
+    fleet.gi = ops.gi_solve
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    med, kk, X = mhe_windows(torch, fleet, dispatch, kk, K)
+    launches = dict(ops.LAUNCHES)
+    n_per = 3 * 2 * K
+    n_ok = int(fleet.last_ok.sum())
+    print(f"MHE main path: {n_per} periods in 6 dispatches of K={K}, kernel launches {launches} "
+          f"({launches['gi_solve'] / n_per:g} GI a period); period median {med * 1e3:.3f} ms, "
+          f"{B / med:.0f} solves/s; last period converged {n_ok}/{B} ({n_ok / B:.4f}), pivots "
+          f"max {int(fleet.last_pivots)}", flush=True)
+    check(bool(torch.isfinite(X).all()), "MHE main path: non-finite x̂")
+    check(n_ok >= 0.99 * B, f"MHE main path: converged {n_ok} < 0.99·{B}")
+    check(launches["gi_solve"] >= n_per, f"MHE main path: {launches['gi_solve']} GI "
+          f"launches in {n_per} periods")
+    # one more period counted, then the same period with the plain GI
+    snap = fleet_snapshot(fleet)
+    one = lambda: (fleet_restore(fleet, snap), fleet.step(ys[kk], us[kk - 1]))
+    n_dev, busy, syncs, host = period_profile(torch, one)
+    prof = dict(device_launches=n_dev, device_busy_ms=busy, host_syncs=syncs,
+                idle_share=1.0 - busy / (med * 1e3))
+    print(f"MHE period profile: {n_dev} device launches (kernels and copies), device busy "
+          f"{busy:.3f} ms, idle share {prof['idle_share']:.4f} of the dispatched median; "
+          f"{syncs} host syncs; largest host self times {host}", flush=True)
+    res = {}
+    for label in ("kernel", "plain", "plain", "kernel"):
+        fleet_restore(fleet, snap)
+        fleet.gi = ops.gi_solve if label == "kernel" else ops.gi_solve_reference
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x = fleet.step(ys[kk], us[kk - 1])
+        torch.cuda.synchronize()
+        res.setdefault(label, []).append((x, time.perf_counter() - t1))
+    fleet.gi = ops.gi_solve
+    x_k, x_p = res["kernel"][0][0], res["plain"][0][0]
+    err = (x_k - x_p).abs().max().item()
+    tol = F32_TOL * (1.0 + x_p.abs().max().item())
+    t_k = statistics.mean(r[1] for r in res["kernel"])
+    t_p = statistics.mean(r[1] for r in res["plain"])
+    print(f"MHE, plain GI on the card, same period: max |x̂ kernel - x̂ plain| {err:.3e} (tol "
+          f"{tol:.3e}); step kernel {t_k * 1e3:.2f} ms plain {t_p * 1e3:.2f} ms", flush=True)
+    check(err <= tol, f"MHE: plain GI period disagrees with the kernel path: {err:.3e}")
+    fleet_restore(fleet, snap)
+    # 1 %-NaN traffic (bench.py:852-872): one dropout period a dispatch
+    nan_lanes = rng.choice(B, max(1, B // 100), replace=False)
+
+    def nan_dispatch(kk):
+        Y = np.stack(ys[kk:kk + K]).copy()
+        Y[0, nan_lanes, 0] = np.nan
+        return dispatch(kk, Y)
+    rec_b = Recorder(ops.gi_solve, lambda a: a[0].shape[0] > 1)    # per-lane P⁻¹
+    fleet.gi = rec_b
+    nan_dispatch(kk)
+    kk += K
+    fleet.gi = ops.gi_solve
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    med_nan, kk, X = mhe_windows(torch, fleet, nan_dispatch, kk, K, n_win=1, n_disp=3)
+    nan_launches = dict(ops.LAUNCHES)
+    n_ok_nan = int(fleet.last_ok.sum())
+    print(f"MHE 1 %-NaN traffic ({len(nan_lanes)} lanes drop one measurement a dispatch): 3 "
+          f"dispatches of K={K}, kernel launches {nan_launches}; period {med_nan * 1e3:.3f} ms, "
+          f"{B / med_nan:.0f} solves/s ({med_nan / med:.3f}x a clean period); converged "
+          f"{n_ok_nan}/{B}",
+          flush=True)
+    check(bool(torch.isfinite(X).all()), "MHE NaN traffic: non-finite x̂")
+    check(n_ok_nan >= 0.99 * B, f"MHE NaN traffic: converged {n_ok_nan} < 0.99·{B}")
+    check(rec_b.args is not None, "MHE NaN traffic: no per-lane GI solve was recorded")
+    # the lane's ±50 bounds never bind, so its solves start cold: the same
+    # shape with x̂ within ±0.5 gives warm rows, pivots and slot overflows
+    wfleet, _ = mhe_fleet(torch, mt, dev, B, He, dtype=torch.float32, bound=0.5,
+                          gi_max_active=8)
+    rec_w = Recorder(ops.gi_solve, gi_warm_half)
+    wfleet.gi = rec_w
+    for k in range(He + 6):
+        wfleet.step(ys[k], u_prev=(us[k - 1] if k else None))
+        if rec_w.args is not None:
+            break
+    check(rec_w.args is not None, "MHE at ±0.5: no GI solve had warm rows on half the lanes")
+    del wfleet
+    out = {}
+    for key, name, args in (("a", "MHE fast path (a)", rec.args or rec.first),
+                            ("a warm", "MHE fast path (a), x̂ within ±0.5", rec_w.args),
+                            ("b", "MHE NaN variant (b)", rec_b.args)):
+        chk = gi_vs_plain(torch, ops, name, args, False)
+        chk["lanes_per_sm"], geo = gi_residency(torch, _build, args)
+        print(f"residency gi {name}: {chk['lanes_per_sm']} lanes per SM ({geo})", flush=True)
+        out[key] = chk
+    out["a"].update(launches=launches["gi_solve"], per_period=launches["gi_solve"] / n_per,
+                    period_ms=med * 1e3, solves_per_s=B / med, prof=prof, converged=n_ok / B)
+    out["b"].update(launches=nan_launches["gi_solve"],
+                    per_period=nan_launches["gi_solve"] / (3 * K), period_ms=med_nan * 1e3,
+                    solves_per_s=B / med_nan, converged=n_ok_nan / B)
+    return launches["gi_solve"] + nan_launches["gi_solve"], out
+
+
+def mhe_nonlin_phase(torch, mt, ops, _build, dev, B=1024, He=10, K=MHE_NL_K):
+    """bench.py's ``mhe_nonlin`` lane (bench.py:956-1044): the pendulum MHE
+    (the window GN-SQP, GI, an ExtendedKalmanFilter covestim for the
+    per-lane arrival covariance, x̂ bounds), B = 1024, float32; 11 fill
+    steps, one warm ``multistep(K=4)``, 3 timed windows of 2 dispatches,
+    one counted period; the GI kernel against its plain version on a solve
+    of the warm dispatch (shape (c): n = 33, m = 146, per-lane P and A).
+    Fails below 0.99 of the lanes converged or without a GI launch a
+    period."""
+    from mpc_tpu_torch.estimators import mhe as MHE
+    from mpc_tpu_torch.parallel import BatchedMHE
+    t0 = time.perf_counter()
+    kw = dict(sigmaQ=[0.1, 1.0], sigmaR=[5.0], nint_ym=[1], sigmaQint_ym=[0.1], device=dev)
+    pend = pendulum(torch, mt, dev)
+    t = mt.MovingHorizonEstimator(pend, He=He, covestim=mt.ExtendedKalmanFilter(pend, **kw),
+                                  qp_solver="active_set", **kw)
+    t.setconstraint(xhatmin=[-2 * np.pi, -50.0, -50.0], xhatmax=[2 * np.pi, 50.0, 50.0])
+    fleet = BatchedMHE(t, B, dtype=torch.float32)
+    ys, us = pendulum_trajectories(B, He + 1 + (3 * 2 + 1) * K + 2)
+    print(f"nonlinear MHE fleet (mhe_nonlin lane): B={B}, He={He}, window QP n={t.nZt} m="
+          f"{2 * t.nx_hat + 4 * He * t.nx_hat + 2 * He * t.nym}, float32 data, float64 slots; "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for k in range(He + 1):
+        fleet.step(ys[k], u_prev=(us[k - 1] if k else None))
+    dispatch = lambda kk: fleet.multistep(np.stack(ys[kk:kk + K]), np.stack(us[kk - 1:kk - 1 + K]))
+    kk = He + 1
+    rec = Recorder(ops.gi_solve, gi_warm_half)
+    fleet.gi = rec
+    dispatch(kk)
+    kk += K
+    fleet.gi = ops.gi_solve
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    MHE.COUNTS["gn_exit_tests"] = 0
+    its = []
+    med, kk, X = mhe_windows(torch, fleet, dispatch, kk, K,
+                             after=lambda: its.append(fleet.last_iters.tolist()))
+    launches = dict(ops.LAUNCHES)
+    n_per = 3 * 2 * K
+    exits = MHE.COUNTS["gn_exit_tests"]
+    n_ok = int(fleet.last_ok.sum())
+    it_max, it_mean = max(i[0] for i in its), statistics.mean(i[1] for i in its)
+    print(f"nonlinear MHE main path: {n_per} periods in 6 dispatches of K={K}, kernel launches "
+          f"{launches} ({launches['gi_solve'] / n_per:g} GI, {exits / n_per:g} GN exit tests a "
+          f"period); period median {med * 1e3:.2f} ms, {B / med:.0f} solves/s; GN iterations "
+          f"max {it_max}, mean of the dispatches' last [sum // B] {it_mean:.2f}; last period "
+          f"converged {n_ok}/{B} ({n_ok / B:.4f})", flush=True)
+    check(bool(torch.isfinite(X).all()), "nonlinear MHE: non-finite x̂")
+    check(n_ok >= 0.99 * B, f"nonlinear MHE: converged {n_ok} < 0.99·{B}")
+    check(launches["gi_solve"] >= n_per, f"nonlinear MHE: {launches['gi_solve']} GI launches "
+          f"in {n_per} periods")
+    snap = fleet_snapshot(fleet)
+    one = lambda: (fleet_restore(fleet, snap), fleet.step(ys[kk], us[kk - 1]))
+    n_dev, busy, syncs, host = period_profile(torch, one)
+    prof = dict(device_launches=n_dev, device_busy_ms=busy, host_syncs=syncs,
+                idle_share=1.0 - busy / (med * 1e3), gn_exit_tests=exits / n_per)
+    print(f"nonlinear MHE period profile: {n_dev} device launches (kernels and copies), device "
+          f"busy {busy:.3f} ms, idle share {prof['idle_share']:.4f} of the dispatched median; "
+          f"{syncs} host syncs; largest host self times {host}", flush=True)
+    fleet_restore(fleet, snap)
+    chk = gi_vs_plain(torch, ops, "MHE nonlin (c)", rec.args or rec.first, False)
+    chk["lanes_per_sm"], geo = gi_residency(torch, _build, rec.args or rec.first)
+    print(f"residency gi MHE nonlin: {chk['lanes_per_sm']} lanes per SM ({geo})", flush=True)
+    chk.update(launches=launches["gi_solve"], per_period=launches["gi_solve"] / n_per,
+               period_ms=med * 1e3, solves_per_s=B / med, prof=prof, converged=n_ok / B,
+               gn_iters=[it_max, it_mean])
+    return launches["gi_solve"], chk
+
+
+def small_mhe_checks(torch, mt, ops, _build, dev, B=8, He=4, periods=10):
+    """Small float64 checks of the card against the CPU: BatchedMHE fleets
+    (B = 8, He = 4) on the fast path, through a NaN (the per-lane variant),
+    with ``solver="general"`` (ADMM) and a nonlinear fleet (the pendulum,
+    EKF covestim, GI), x̂ within 1e-9·(1 + max|x̂|) (GI) or 1e-8 (ADMM) and
+    1e-7 on the nonlinear fleet: the merit decrease of a Gauss–Newton
+    loop's last step can lie at round-off, and its line search then takes
+    or rejects that step (below the exit's tolerance) on round-off, with
+    equal iteration counts (tests/test_torch_batch_mhe.py); the GN
+    iteration counts [max, sum // B] card vs CPU are printed a period; the
+    ADMM sweep against its plain version on a call of a general-window
+    fleet at the bench's shape (B = 256, n = 44, m = 208, float32; x̂
+    within ±0.3 so that bounds are active: the first sweep from warm duals
+    with the lane mask mixed); and one MovingHorizonEstimator (default ADMM
+    general solver) in closed loop with a NaN window, so that both kernels
+    run on the single-stream path."""
+    from mpc_tpu_torch.parallel import BatchedMHE
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    cpu = torch.device("cpu")
+
+    def lin(d, **kw):
+        e = mt.MovingHorizonEstimator(mt.LinModel(mt.tf(3, [10, 1]), 1.0), He=He, device=d,
+                                      **kw)
+        return e.setconstraint(xhatmin=[-0.5, -0.5], xhatmax=[0.5, 0.5])
+
+    def pend(d):
+        kw = dict(sigmaQ=[0.1, 1.0], sigmaR=[0.5], nint_ym=[1], sigmaQint_ym=[0.1], device=d)
+        p = pendulum(torch, mt, d)
+        e = mt.MovingHorizonEstimator(p, He=He, covestim=mt.ExtendedKalmanFilter(p, **kw),
+                                      qp_solver="active_set", **kw)
+        return e.setconstraint(xhatmin=[-0.3, -5.0, -5.0], xhatmax=[0.3, 5.0, 5.0])
+    cases = (("fast", lin, {}, (), 1e-9, 0.5), ("NaN variant", lin, {}, ((4, 1),), 1e-9, 0.5),
+             ("general ADMM", lin, dict(solver="general"), ((4, 1),), 1e-8, 0.5),
+             ("nonlinear", pend, {}, ((4, 0),), 1e-7, 10.0))
+    for name, make, kw, nans, bar, scale in cases:
+        fleets = [BatchedMHE(make(d), B, **kw) for d in (dev, cpu)]
+        rng = np.random.default_rng(2)
+        u, worst, worst_rel, its = None, 0.0, 0.0, []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for k in range(periods):
+            ym = rng.normal(size=(B, 1)) * scale
+            for kk, lane in nans:
+                if kk == k:
+                    ym[lane, 0] = np.nan
+            x = [f.step(ym, u).cpu() for f in fleets]
+            err = (x[0] - x[1]).abs().max().item()
+            tol = bar * (1.0 + x[1].abs().max().item())
+            check(err <= tol, f"small MHE fleet {name} period {k}: card vs CPU {err:.3e} > "
+                  f"{tol:.3e}")
+            worst = max(worst, err)
+            worst_rel = max(worst_rel, err / (1.0 + x[1].abs().max().item()))
+            if not fleets[0]._lin:
+                its.append([f.last_iters.tolist() for f in fleets])
+            u = rng.normal(size=(B, 1)) * 0.2
+        run = dict(ops.LAUNCHES)
+        for key in launches:
+            launches[key] += run[key]
+        gn = (f"; GN iterations [max, sum // B] card, CPU {its}, equal in "
+              f"{sum(a == b for a, b in its)}/{len(its)} periods" if its else "")
+        print(f"small MHE fleet {name} f64 (B={B}, He={He}), {periods} periods: kernel launches "
+              f"{run}; card vs CPU max |dx̂| {worst:.3e}, relative {worst_rel:.3e} (bar "
+              f"{bar:g}·(1 + max|x̂|)){gn}", flush=True)
+        check(sum(run.values()) > 0, f"small MHE fleet {name}: no kernel was launched")
+    # the sweep at the general window of the bench's model
+    gfleet, m = mhe_fleet(torch, mt, dev, 256, dtype=torch.float32, bound=0.3,
+                          solver="general")
+    ys, us, _ = mhe_trajectories(m, 256, 14, seed=4)
+    rec = Recorder(ops.admm_sweep, sweep_warm_mixed)
+    for k in range(13):
+        if k == 11:
+            gfleet.sweep = rec
+        gfleet.step(ys[k], u_prev=(us[k - 1] if k else None))
+    gfleet.sweep = ops.admm_sweep
+    check(rec.args is not None, "MHE general window: no sweep started from warm duals "
+          "with the lane mask mixed")
+    admm_chk = kernel_vs_plain(torch, ops, "MHE general window", rec.args)
+    admm_chk["lanes_per_sm"], geo = admm_residency(torch, ops, _build, admm_chk["args"])
+    print(f"residency admm MHE general window: {admm_chk['lanes_per_sm']} lanes per SM ({geo})",
+          flush=True)
+    # the single estimator: the fast path (GI) on clean windows, the general
+    # solver (ADMM) on windows holding the NaN
+    ests = [lin(d, nint_ym=[1]) for d in (dev, cpu)]
+    rng = np.random.default_rng(3)
+    worst = {"GI": 0.0, "ADMM": 0.0}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for k in range(12):
+        ym = rng.normal(size=1) * 0.5 + 1.0
+        if k == 5:
+            ym[0] = np.nan
+        x = [e.preparestate(ym) for e in ests]
+        route = "ADMM" if np.isnan(ests[1].Y0m_win[:ests[1].Nk]).any() else "GI"
+        err = float(np.abs(x[0] - x[1]).max())
+        bar = 1e-9 if route == "GI" else 1e-8
+        check(err <= bar * (1.0 + np.abs(x[1]).max()), f"single MHE period {k} ({route}): "
+              f"card vs CPU {err:.3e}")
+        worst[route] = max(worst[route], err)
+        u = rng.normal(size=1) * 0.3
+        for e in ests:
+            e.updatestate(u, ym)
+    run = dict(ops.LAUNCHES)
+    for key in launches:
+        launches[key] += run[key]
+    print(f"single MHE f64 (He={He}, default ADMM general solver, NaN at period 5), 12 "
+          f"periods: kernel launches {run}; card vs CPU max |dx̂| GI windows {worst['GI']:.3e} "
+          f"(bar 1e-9), ADMM windows {worst['ADMM']:.3e} (bar 1e-8)", flush=True)
+    check(run["gi_solve"] > 0 and run["admm_sweep"] > 0,
+          f"single MHE: kernel launches {run}, both kernels must run")
+    return launches, admm_chk
+
+
 def main():
     try:
         import torch
@@ -2016,6 +2519,24 @@ def main():
     admm_launches["admm_sweep"] += nl_launches["admm_sweep"]
     gi_launches += nl_launches["gi_solve"]
     explicit_phase(torch, mt, dev)
+
+    # --- 27-29. the MHE slice: the mhe lane (THIS SLICE'S MAIN PATH) with the
+    # GI kernel against its plain version at shapes (a) and (b), the
+    # mhe_nonlin lane (shape (c)), small f64 fleets and the single estimator
+    # card vs CPU, the sweep at the general window
+    mhe_launches, mhe_gi = mhe_phase(torch, mt, ops, _build, dev)
+    nlm_launches, mhe_nl = mhe_nonlin_phase(torch, mt, ops, _build, dev)
+    small_mhe, mhe_admm = small_mhe_checks(torch, mt, ops, _build, dev)
+    gi_launches += mhe_launches + nlm_launches + small_mhe["gi_solve"]
+    admm_launches["admm_sweep"] += small_mhe["admm_sweep"]
+    for key, c in (("mhe", mhe_gi["a"]), ("mhe 1 %-NaN", mhe_gi["b"]),
+                   ("mhe_nonlin", mhe_nl)):
+        extra = (f", {c['prof']['host_syncs']} host syncs and {c['prof']['device_launches']} "
+                 f"device launches a period, idle share {c['prof']['idle_share']:.4f}"
+                 if "prof" in c else "")
+        print(f"MHE {key}: period median {c['period_ms']:.3f} ms ({c['solves_per_s']:.0f} "
+              f"solves/s), converged {c['converged']:.4f}, {c['per_period']:g} GI launches a "
+              f"period{extra}", flush=True)
     print(f"NonLinMPC: fleet period median {nl_gi['period_ms']:.2f} ms "
           f"({nl_gi['solves_per_s']:.0f} solves/s, B=4096, f32, GI), {nl_gi['per_period']:g} "
           f"GI launches, {nl_gi['prof']['sqp_exit_tests']:g} SQP exit tests, "
@@ -2047,13 +2568,19 @@ def main():
     per_period.update({"SLMPC GI": sl_gi["per_period"], "SLMPC ADMM": sl_admm["per_period"],
                        "NonLinMPC GI": nl_gi["per_period"],
                        "NonLinMPC ADMM": nl_admm["per_period"],
+                       "MHE GI (a)": mhe_gi["a"]["per_period"],
+                       "MHE GI NaN (b)": mhe_gi["b"]["per_period"],
+                       "MHE nonlin GI (c)": mhe_nl["per_period"],
                        "README ADMM": path_launches["README"]["admm_sweep"] / 40,
                        "README GI": path_launches["README"]["gi_solve"] / 40})
     print(f"launches per period: {per_period}", flush=True)
     shares = {k: c["bound_ms"] / c["ms"] for k, c in
               list(checks.items()) + list(gi_checks.items())
               + [("SLMPC GI", sl_gi), ("SLMPC ADMM", sl_admm), ("NonLinMPC GI", nl_gi),
-                 ("NonLinMPC A/B GI", nl_ab), ("NonLinMPC ADMM", nl_admm)]}
+                 ("NonLinMPC A/B GI", nl_ab), ("NonLinMPC ADMM", nl_admm),
+                 ("MHE GI (a)", mhe_gi["a"]), ("MHE GI (a) warm", mhe_gi["a warm"]),
+                 ("MHE GI NaN (b)", mhe_gi["b"]),
+                 ("MHE nonlin GI (c)", mhe_nl), ("MHE general ADMM", mhe_admm)]}
     print(f"roofline shares: {json.dumps(shares)}", flush=True)
 
     def shape(name, c, launches, lpp, lanes):
@@ -2063,7 +2590,8 @@ def main():
                 "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": None,
                 "roofline_share": c["bound_ms"] / c["ms"], "launches_per_period": lpp,
-                "resident_lanes_per_sm": lanes}
+                "resident_lanes_per_sm": lanes, "event_ms": c["event_ms"],
+                **{k: c[k] for k in ("copied_A_bytes", "copied_A_ms") if k in c}}
 
     admm_shapes = [
         shape("headline-ADMM B=4096 n=5 m=101 f32", head, path_launches["headline-ADMM"],
@@ -2074,6 +2602,8 @@ def main():
               nl_admm["launches"], nl_admm["per_period"], nl_admm["lanes_per_sm"]),
         shape("README B=1 n=3 m=233 f64", readme["admm"], path_launches["README"]["admm_sweep"],
               per_period["README ADMM"], res["admm README"][0]),
+        shape("MHE general window B=256 n=44 m=208 f32, per-lane ladder (check)", mhe_admm,
+              0, None, mhe_admm["lanes_per_sm"]),
         shape("8x8/Hp=15 B=256 n=33 m=577 f32 (check)", checks["large_8x8_hp15"], 0, None,
               res["admm 8x8"][0]),
         shape("8x8/Hp=15 B=4096 (check)", checks["large_8x8_hp15_B4096"], 0, None,
@@ -2089,6 +2619,16 @@ def main():
               nl_gi["launches"], nl_gi["per_period"], nl_gi["lanes_per_sm"]),
         shape("NonLinMPC exact-Hessian A/B B=256 n=2 m=102 f32/f64", nl_ab, nl_ab["launches"],
               nl_ab["per_period"], nl_ab["lanes_per_sm"]),
+        shape("MHE fast path B=4096 n=44 m=104 8 slots f32/f64, shared P⁻¹ and A (mhe lane)",
+              mhe_gi["a"], mhe_gi["a"]["launches"], mhe_gi["a"]["per_period"],
+              mhe_gi["a"]["lanes_per_sm"]),
+        shape("MHE NaN variant B=4096 n=44 m=104 8 slots f32/f64, per-lane P⁻¹ and A "
+              "(mhe lane, 1 % NaN)", mhe_gi["b"], mhe_gi["b"]["launches"],
+              mhe_gi["b"]["per_period"], mhe_gi["b"]["lanes_per_sm"]),
+        shape("MHE fast path at x̂ within ±0.5, B=4096 n=44 m=104 8 slots f32/f64, warm "
+              "rows (check)", mhe_gi["a warm"], 0, None, mhe_gi["a warm"]["lanes_per_sm"]),
+        shape("MHE nonlin B=1024 n=33 m=146 f32/f64, per-lane P and A (mhe_nonlin lane)",
+              mhe_nl, mhe_nl["launches"], mhe_nl["per_period"], mhe_nl["lanes_per_sm"]),
         shape("large-GI B=4096 n=33 m=577 f32/f32", lgi, path_launches["large-GI"],
               per_period["large-GI"], res["gi large-GI"][0]),
         shape("README B=1 n=3 m=233 f64", readme["active_set"],
@@ -2104,7 +2644,7 @@ def main():
                 "max_abs_err": max([sh["max_abs_err"] for sh in shapes] + extra_err),
                 "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": None,
-                "roofline_share": c["roofline_share"],
+                "roofline_share": c["roofline_share"], "event_ms": c["event_ms"],
                 "launches_per_period": c["launches_per_period"],
                 "resident_lanes_per_sm": c["resident_lanes_per_sm"], "shapes": shapes}
     print(json.dumps({"kernels": [

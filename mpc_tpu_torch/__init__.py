@@ -13,7 +13,9 @@ with its cross-period operator carry), and ``parallel.BatchedLinMPC`` — and
 the nonlinear-plant path: NonLinModel with its RK4/Euler solvers,
 ``linearize`` (``torch.func.jacfwd``), the unscented and extended Kalman
 filters, ``parallel.BatchedKalman`` and SLMPC (successive linearization,
-single controller and fleet).  The ADMM inner sweep and the whole per-lane
+single controller and fleet); NonLinMPC and ExplicitMPC with their fleets;
+moving horizon estimation (``MovingHorizonEstimator`` and
+``parallel.BatchedMHE``).  The ADMM inner sweep and the whole per-lane
 GI solve are hand-written CUDA kernels for Hopper (``csrc/admm_sweep.cu``,
 ``csrc/gi_solve.cu``) that every QP, single controller or fleet, goes
 through on the GPU.  Every entry point runs on the GPU unless the caller
@@ -27,7 +29,7 @@ from .models import (SimModel, LinModel, NonLinModel, RungeKutta, ForwardEuler,
 from .estimators import (StateEstimator, SteadyKalmanFilter, KalmanFilter,
                          UnscentedKalmanFilter, ExtendedKalmanFilter,
                          Luenberger, InternalModel, ManualEstimator,
-                         default_nint)
+                         MovingHorizonEstimator, default_nint)
 from .controllers import (PredictiveController, LinMPC, ExplicitMPC, NonLinMPC, SLMPC,
                           TranscriptionMethod, SingleShooting, MultipleShooting,
                           TrapezoidalCollocation, OrthogonalCollocation, info2debugstr)

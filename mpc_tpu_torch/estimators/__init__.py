@@ -6,10 +6,11 @@ from .kalman import (ExtendedKalmanFilter, KalmanFilter, SteadyKalmanFilter,
 from .luenberger import Luenberger
 from .internal_model import InternalModel
 from .manual import ManualEstimator
+from .mhe import MovingHorizonEstimator
 
 __all__ = [
     "StateEstimator", "SteadyKalmanFilter", "KalmanFilter",
     "UnscentedKalmanFilter", "ExtendedKalmanFilter", "Luenberger",
-    "InternalModel", "ManualEstimator",
+    "InternalModel", "ManualEstimator", "MovingHorizonEstimator",
     "default_nint", "init_estimstoch", "init_integrators", "augment_model",
 ]

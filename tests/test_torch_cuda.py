@@ -377,3 +377,81 @@ def test_nonlin_fleet_on_card_matches_cpu():
         ry = torch.full((8, 1), 90.0, dtype=torch.float64)
         u = [f.step(ym.to(f.device), ry.to(f.device))[0].cpu() for f in fleets]
         assert (u[0] - u[1]).abs().max().item() <= 1e-6 * (1 + u[1].abs().max().item())
+
+
+def _mhe(dev, He=4, bound=0.5, **kw):
+    import mpc_tpu_torch as mt
+    e = mt.MovingHorizonEstimator(mt.LinModel(mt.tf(3, [10, 1]), 1.0), He=He, device=dev, **kw)
+    return e.setconstraint(xhatmin=[-bound, -bound], xhatmax=[bound, bound])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan", [False, True])
+def test_mhe_fleet_kernel_matches_plain_on_card(nan):
+    """A float32 BatchedMHE (B = 64) on the card, 8 periods from the same
+    state with the GI kernel and its plain version, on the fast path and
+    through a dropout (the per-lane NaN variant): x̂ to 1e-4·(1 + max|x̂|)
+    and the kernel launched."""
+    from mpc_tpu_torch.parallel import BatchedMHE
+    dev = _card()
+    out = []
+    n0 = LAUNCHES["gi_solve"]
+    for fn in (gi_solve, gi_solve_reference):
+        fl = BatchedMHE(_mhe(dev), 64, dtype=torch.float32, gi_max_active=4)
+        fl.gi = fn
+        rng = np.random.default_rng(0)
+        u = None
+        for k in range(8):
+            ym = rng.normal(size=(64, 1))
+            if nan and k == 5:
+                ym[::7, 0] = np.nan
+            x = fl.step(ym, u)
+            u = rng.normal(size=(64, 1)) * 0.2
+        out.append(x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gi_solve"] > n0
+    assert torch.isfinite(out[0]).all()
+    assert (out[0] - out[1]).abs().max().item() <= 1e-4 * (1 + out[1].abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["auto", "general"])
+def test_mhe_fleet_on_card_matches_cpu(solver):
+    """A float64 BatchedMHE (B = 8) on the card and on the CPU, 8 periods
+    with a dropout: x̂ within 1e-9 (GI fast path) or 1e-8 (the general
+    solver, ADMM)·(1 + max|x̂|)."""
+    from mpc_tpu_torch.parallel import BatchedMHE
+    dev = _card()
+    fleets = [BatchedMHE(_mhe(d), 8, solver=solver) for d in (dev, torch.device("cpu"))]
+    bar = 1e-9 if solver == "auto" else 1e-8
+    rng = np.random.default_rng(1)
+    u = None
+    for k in range(8):
+        ym = rng.normal(size=(8, 1))
+        if k == 4:
+            ym[3, 0] = np.nan
+        x = [f.step(ym, u).cpu() for f in fleets]
+        assert (x[0] - x[1]).abs().max().item() <= bar * (1 + x[1].abs().max().item()), k
+        u = rng.normal(size=(8, 1)) * 0.2
+
+
+@pytest.mark.cuda
+def test_single_mhe_on_card_matches_cpu():
+    """One MovingHorizonEstimator (default ADMM general solver) on the card
+    and on the CPU, 10 periods with a NaN window: both kernels launched,
+    x̂ within 1e-8·(1 + max|x̂|)."""
+    dev = _card()
+    ests = [_mhe(d, nint_ym=[1]) for d in (dev, torch.device("cpu"))]
+    n0 = dict(LAUNCHES)
+    rng = np.random.default_rng(2)
+    for k in range(10):
+        ym = rng.normal(size=1) * 0.5 + 1.0
+        if k == 4:
+            ym[0] = np.nan
+        x = [e.preparestate(ym) for e in ests]
+        assert np.abs(x[0] - x[1]).max() <= 1e-8 * (1 + np.abs(x[1]).max()), k
+        u = rng.normal(size=1) * 0.3
+        for e in ests:
+            e.updatestate(u, ym)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gi_solve"] > n0["gi_solve"] and LAUNCHES["admm_sweep"] > n0["admm_sweep"]

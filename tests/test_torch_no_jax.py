@@ -23,12 +23,15 @@ def test_import_pulls_in_no_jax():
             "RungeKutta, ForwardEuler, DiffSolver, EmptySolver, linearize, "
             "linearize_, get_linearization_func, UnscentedKalmanFilter, "
             "ExtendedKalmanFilter, SLMPC, NonLinMPC, ExplicitMPC, "
-            "TranscriptionMethod, TrapezoidalCollocation, OrthogonalCollocation); "
+            "TranscriptionMethod, TrapezoidalCollocation, OrthogonalCollocation, "
+            "MovingHorizonEstimator); "
             "from mpc_tpu_torch.parallel import (BatchedKalman, BatchedNonLinMPC, "
-            "BatchedExplicitMPC); "
+            "BatchedExplicitMPC, BatchedMHE); "
             "from mpc_tpu_torch.models import solver, nonlinmodel; "
             "from mpc_tpu_torch.controllers import slmpc, nonlinmpc, explicitmpc; "
-            "from mpc_tpu_torch.parallel import batch_kf, batch_nonlin, batch_explicit; "
+            "from mpc_tpu_torch.parallel import batch_kf, batch_nonlin, batch_explicit, "
+            "batch_mhe; "
+            "from mpc_tpu_torch.estimators import mhe, mhe_fast; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'mpc_tpu.')) "
             "or m == 'mpc_tpu'); "
@@ -73,6 +76,9 @@ def test_default_device_is_the_gpu():
         "ExplicitMPC": lambda dev: mt.ExplicitMPC(lin, Hp=5, device=dev),
         "BatchedExplicitMPC": lambda dev: BatchedExplicitMPC(
             [mt.ExplicitMPC(lin, Hp=5, device=CPU)], device=dev),
+        "MovingHorizonEstimator": lambda dev: mt.MovingHorizonEstimator(lin, He=3, device=dev),
+        "MovingHorizonEstimator nonlinear": lambda dev: mt.MovingHorizonEstimator(
+            _pendulum(CPU), He=3, device=dev),
     }
     for name, make in entry_points.items():
         for dev in (None, "cuda"):
