@@ -91,7 +91,30 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    ``solver="general"`` with ADMM, a nonlinear fleet) card vs CPU, the ADMM
    sweep against its plain version at the general window (B=256, n=44,
    m=208, float32), and one MovingHorizonEstimator closed loop with a NaN
-   window card vs CPU (both kernels on the single-stream path).
+   window card vs CPU (both kernels on the single-stream path);
+30. THE COMPILED-LOOP SLICE'S MAIN PATH, bench_scan.py's cell: the CSTR
+   LinMPC (Ts = 2, uop = [20, 20], yop = [50, 30], Hp=10, Hc=2, 5 ≤ u ≤ 35,
+   |Δu| ≤ 4, |y| ≤ 60) in ``CompiledClosedLoop(ctrl).run_fleet(512, 100,
+   ry=[54, 30], y_noise=[0.1, 0.1], seed=0)``, float32, GI (float64 slots)
+   and ADMM: 1 warm and 3 timed runs each with the launch counts read
+   around them, the host noise draw timed apart, ≥ 0.99 of the B·N solves
+   converged, the host syncs of a run (sync-debug mode) and its device
+   launches and busy time (profiler), ``run_fleet(mesh=...)`` refused;
+   each kernel against its plain
+   version on one call's inputs at this shape (one controller, B=512);
+   then ``CompiledClosedLoopFleet`` of 128 random CSTR controllers
+   (n_d = B, float64), both kernels against their plain versions at that
+   shape;
+31. ``CompiledSLLoop.run_fleet`` of tests/test_sim_compiled.py's SLMPC (the
+   pendulum, Hp=20, GI), B=4096, N=40, float32: steps/s, ≥ 0.99
+   converged, |u| ≤ 1.5;
+32. ``CompiledNonLinLoop.run_fleet`` of bench.py's NonLinMPC (MS, the UKF at
+   α=0.5, GI), B=1024, N=20 (depth cut), float32: steps/s, SQP iterations
+   and exit tests, host syncs a step;
+33. every compiled loop in float64 on the card against the CPU (run and
+   run_fleet with both backends, the heterogeneous fleet, the SL run, the
+   NonLin fleet, the MHE record with NaN dropouts, MHE → MPC), each within
+   its solver's bar.
 
 The line before the last is the card's name and power limit, and before it
 a JSON object of the kernels; the last line is
@@ -2331,6 +2354,343 @@ def small_mhe_checks(torch, mt, ops, _build, dev, B=8, He=4, periods=10):
     return launches, admm_chk
 
 
+# --- 30-33. the compiled closed loops (mpc_tpu_torch/sim_compiled.py) -------
+SCAN_B, SCAN_N = 512, 100       # bench_scan.py's CompiledClosedLoop.run_fleet(512, 100)
+SCAN_KW = dict(ry=[54.0, 30.0], y_noise=[0.1, 0.1], seed=0)
+
+
+def scan_ctrl(torch, mt, qp_solver, device, dtype=None):
+    """bench_scan.py's CSTR controller: the 2x2 CSTR LinModel (Ts = 2,
+    uop = [20, 20], yop = [50, 30]), LinMPC(Hp=10, Hc=2, Mwt=[1, 1],
+    Nwt=[0.1, 0.1]), 5 ≤ u ≤ 35, |Δu| ≤ 4, |y| ≤ 60."""
+    G = np.array([[mt.tf(1.90, [18, 1]), mt.tf(1.90, [18, 1])],
+                  [mt.tf(-0.74, [8, 1]), mt.tf(0.74, [8, 1])]], dtype=object)
+    model = mt.LinModel(G, 2.0)
+    model.setop(uop=[20, 20], yop=[50, 30])
+    c = mt.LinMPC(model, Hp=10, Hc=2, Mwt=[1, 1], Nwt=[0.1, 0.1], qp_solver=qp_solver,
+                  dtype=dtype, device=device)
+    return c.setconstraint(umin=[5, 5], umax=[35, 35], dumin=[-4, -4], dumax=[4, 4],
+                           ymin=[-60, -60], ymax=[60, 60])
+
+
+def warm_dual(args):
+    """A sweep that starts from max|y| ≥ Y_WARM on its active lanes."""
+    y, active = args[10], args[11]
+    return bool(active.any()) and y[active].abs().max().item() >= Y_WARM
+
+
+def gi_warm_slots(args):
+    """A GI solve that 5 % of its lanes or more enter with a valid slot of
+    the carried operator state (an active input bound)."""
+    return int(args[8].any(1).sum()) >= 0.05 * args[3].shape[0]
+
+
+def loop_kernel_check(torch, ops, name, loop, attr, run, n_calls):
+    """The kernel against its plain version on the inputs of one call the
+    loop makes in ``run()`` (``attr`` "gi" or "sweep"): the first call from
+    warm duals (the sweep) or with carried slots on 5 % of the lanes (GI) —
+    the input bounds bind in the setpoint step's transient — else the call
+    after the first ``n_calls``."""
+    inner, got = getattr(loop, attr), {"n": 0}
+    warm = warm_dual if attr == "sweep" else gi_warm_slots
+
+    def wrapped(*args):
+        if "warm" not in got and warm(args):
+            got["warm"] = _clone(args)
+        if "nth" not in got and got["n"] >= n_calls:
+            got["nth"] = _clone(args)
+        got["n"] += 1
+        return inner(*args)
+    setattr(loop, attr, wrapped)
+    try:
+        run()
+    finally:
+        setattr(loop, attr, inner)
+    args = got.get("warm", got.get("nth"))
+    check(args is not None, f"{name}: no {attr} call was captured")
+    print(f"{name}: {attr} inputs of {'the first warm call' if 'warm' in got else n_calls} "
+          f"of {got['n']} calls", flush=True)
+    if attr == "sweep":
+        return kernel_vs_plain(torch, ops, name, args)
+    return gi_vs_plain(torch, ops, name, args, args[1].dtype == torch.float64)
+
+
+def loop_syncs(torch, fn, n_steps):
+    """Host syncs of one call of ``fn``, a run of ``n_steps`` steps (the
+    sync-debug mode), and its device launches and busy time (the profiler),
+    each also a step; the run's one upload and one download are 2 of the
+    syncs, the rest are the steps'."""
+    n_dev, busy, syncs, host = period_profile(torch, fn)
+    return dict(syncs=syncs, syncs_per_step=(syncs - 2) / n_steps, device_launches=n_dev,
+                launches_per_step=n_dev / n_steps, busy_ms=busy,
+                busy_per_step=busy / n_steps, host_top=host)
+
+
+def scan_phase(torch, mt, ops, _build, dev):
+    """THIS SLICE'S MAIN PATH, bench_scan.py's cell: the CSTR LinMPC
+    ``CompiledClosedLoop(ctrl).run_fleet(512, 100, ry=[54, 30],
+    y_noise=[0.1, 0.1], seed=0)`` in float32 with GI (float64 slots) and with
+    ADMM; 1 warm and 3 timed runs each, the launch counts set to 0 just
+    before the timed runs and read just after; the noise drawn on the host
+    timed apart; one run under the sync-debug mode and one under the
+    profiler (a run of 20 steps); then each kernel against its plain version
+    on the inputs of one call (``loop_kernel_check``).  Fails when
+    ``run_fleet(mesh=...)`` does not raise ``NotImplementedError``,
+    below 0.99 converged over all B·N solves, outside 5 ≤ u ≤ 35, or when
+    the loop's kernel was never launched."""
+    from mpc_tpu_torch import sim_compiled as sc
+    noise = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sc._fleet_noise(SCAN_B, SCAN_N, 0, 2, 2, 2, np.array([0.1, 0.1]), np.zeros(2),
+                        np.zeros(2), 0)
+        noise.append(time.perf_counter() - t0)
+    noise_s = statistics.median(noise)
+    out = {}
+    for qp, kernel, attr in (("active_set", "gi_solve", "gi"), ("admm", "admm_sweep", "sweep")):
+        loop = sc.CompiledClosedLoop(scan_ctrl(torch, mt, qp, dev, torch.float32))
+        call = lambda: loop.run_fleet(SCAN_B, SCAN_N, **SCAN_KW)
+        try:
+            loop.run_fleet(2, 1, mesh=object())
+            raise Fail(f"scan-CSTR {qp}: run_fleet(mesh=...) ran instead of raising")
+        except NotImplementedError as err:
+            print(f"scan-CSTR {qp}: run_fleet(mesh=...) refused ({err})", flush=True)
+        call()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fl = call()          # ends in the copy of the outputs to the host
+            walls.append(time.perf_counter() - t0)
+        launches = dict(ops.LAUNCHES)
+        check(launches[kernel] > 0, f"scan-CSTR {qp}: the {kernel} kernel was never launched")
+        conv = float(fl["conv"].mean())
+        U = fl["U"]
+        check(conv >= 0.99, f"scan-CSTR {qp}: converged share {conv:.4f} < 0.99")
+        check(np.isfinite(U).all() and U.min() >= 5 - 1e-3 and U.max() <= 35 + 1e-3,
+              f"scan-CSTR {qp}: u outside [5, 35] ({U.min():.4f}, {U.max():.4f})")
+        wall = statistics.median(walls)
+        prof = loop_syncs(torch, lambda: loop.run_fleet(SCAN_B, 20, **SCAN_KW), 20)
+        idle = 1.0 - prof["busy_per_step"] * SCAN_N / (wall * 1e3)
+        step_ms = (wall - noise_s) / SCAN_N * 1e3     # the loop alone, a step
+        idle_loop = 1.0 - prof["busy_per_step"] / step_ms
+        per_step = launches[kernel] / (3 * SCAN_N)
+        print(f"scan-CSTR {qp} (B={SCAN_B}, N={SCAN_N}, f32): run median {wall * 1e3:.1f} ms "
+              f"({SCAN_B * SCAN_N / wall:.0f} controlled steps/s; runs "
+              f"{[round(w * 1e3, 1) for w in walls]} ms), of which the host noise draw "
+              f"{noise_s * 1e3:.1f} ms ({SCAN_B * SCAN_N / (wall - noise_s):.0f} steps/s "
+              f"without it); converged {conv:.4f} of B·N; y1 at the end "
+              f"{float(fl['Y'][:, -1, 0].mean()):.3f}; {kernel} launches {launches[kernel]} in 3 "
+              f"runs = {per_step:.2f} a step; host syncs in a run {prof['syncs']} "
+              f"({prof['syncs_per_step']:.2f} a step besides the upload and the download); "
+              f"device launches {prof['launches_per_step']:.1f} and busy "
+              f"{prof['busy_per_step']:.3f} ms a step (a profiled run of 20 steps); the loop "
+              f"{step_ms:.3f} ms a step; idle share of a run {idle:.4f}, of the loop alone "
+              f"{idle_loop:.4f}; host top {prof['host_top']}", flush=True)
+        short = lambda: loop.run_fleet(SCAN_B, 12, **SCAN_KW)
+        calls = 10 if attr == "gi" else 10 * max(1, round(per_step))
+        chk = loop_kernel_check(torch, ops, f"scan-CSTR {qp} B={SCAN_B}", loop, attr, short,
+                                calls)
+        out[qp] = dict(chk, launches=launches[kernel], per_period=per_step, wall_ms=wall * 1e3,
+                       steps_per_s=SCAN_B * SCAN_N / wall, noise_ms=noise_s * 1e3, conv=conv,
+                       syncs_per_step=prof["syncs_per_step"], idle_share=idle,
+                       idle_loop=idle_loop, step_ms=step_ms,
+                       launches_all=launches)
+    return out
+
+
+def sweep_dims(c):
+    return f"n={c['args']['x'].shape[1]} m={c['args']['z'].shape[1]}"
+
+
+def gi_dims(c):
+    a = c["args"]
+    return f"n={a[3].shape[1]} m={a[4].shape[1]} {a[6].shape[1]} slots"
+
+
+def hetero_phase(torch, mt, ops, dev, B=128, N=20):
+    """``CompiledClosedLoopFleet`` of B random CSTR controllers (the
+    headline's, seed 0; n_d = B, float64 as the reference's fleet), GI and
+    ADMM, N periods, with each kernel against its plain version on the
+    inputs of one call (``loop_kernel_check``)."""
+    from mpc_tpu_torch import sim_compiled as sc
+    from mpc_tpu_torch.parallel import random_cstr_controllers
+    out = {}
+    for qp, kernel, attr in (("active_set", "gi_solve", "gi"), ("admm", "admm_sweep", "sweep")):
+        fleet = sc.CompiledClosedLoopFleet(random_cstr_controllers(B, Hp=10, Hc=2, seed=0,
+                                                                   qp_solver=qp, device=dev))
+        call = lambda n: fleet.run(n, ry=[5.0, 1.0], y_noise=[0.1, 0.1], seed=0)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fl = call(N)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        check(launches[kernel] > 0, f"fleet {qp}: the {kernel} kernel was never launched")
+        conv = float(fl["conv"].mean())
+        check(conv >= 0.99, f"fleet {qp}: converged share {conv:.4f} < 0.99")
+        per_step = launches[kernel] / N
+        print(f"CompiledClosedLoopFleet {qp} (B=n_d={B}, N={N}, f64): {wall * 1e3:.1f} ms "
+              f"({B * N / wall:.0f} steps/s), converged {conv:.4f}, {kernel} "
+              f"{per_step:.2f} a step", flush=True)
+        calls = 10 if attr == "gi" else 10 * max(1, round(per_step))
+        chk = loop_kernel_check(torch, ops, f"fleet {qp} B=n_d={B} f64", fleet, attr,
+                                lambda: call(12), calls)
+        out[qp] = dict(chk, launches=launches[kernel], per_period=per_step)
+    return out
+
+
+SL_LOOP = dict(Hp=20, nint_ym=[1])   # tests/test_sim_compiled.py's SLMPC (:67-98)
+
+
+def sl_loop_phase(torch, mt, ops, dev, B=4096, N=40):
+    """``CompiledSLLoop.run_fleet`` of the reference test's SLMPC, B = 4096,
+    N = 40, float32 (GI, float64 slots), from rest with y noise 1°: 1 warm
+    run of 2 steps, 1 counted run.  Fails below 0.99 converged or for
+    |u| > 1.5."""
+    from mpc_tpu_torch import sim_compiled as sc
+    loop = sc.CompiledSLLoop(slmpc(torch, mt, dev, dtype=torch.float32, **SL_LOOP))
+    kw = dict(ry=[180.0], y_noise=[1.0], seed=0)
+    loop.run_fleet(B, 2, **kw)
+    t0 = time.perf_counter()
+    sc._fleet_noise(B, N, 0, 1, 1, 2, np.ones(1), np.zeros(1), np.zeros(2), 0)
+    noise_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fl = loop.run_fleet(B, N, **kw)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(launches["gi_solve"] > 0, "SL loop: the GI kernel was never launched")
+    conv = float(fl["conv"].mean())
+    umax = float(np.abs(fl["U"]).max())
+    check(conv >= 0.99, f"SL loop: converged share {conv:.4f} < 0.99")
+    check(np.isfinite(fl["U"]).all() and umax <= 1.5 + 1e-5, f"SL loop: max |u| {umax}")
+    print(f"CompiledSLLoop.run_fleet (B={B}, N={N}, f32, GI): {wall * 1e3:.1f} ms "
+          f"({B * N / wall:.0f} controlled steps/s; the host noise draw {noise_s * 1e3:.1f} "
+          f"ms of it, {B * N / (wall - noise_s):.0f} steps/s without it; the loop "
+          f"{(wall - noise_s) / N * 1e3:.2f} ms a step), converged {conv:.4f}, max |u| "
+          f"{umax:.4f}, y at the end "
+          f"{float(fl['Y'][:, -1, 0].mean()):.2f}°, GI launches {launches['gi_solve']} "
+          f"({launches['gi_solve'] / N:.2f} a step)", flush=True)
+    return launches
+
+
+def nl_loop_phase(torch, mt, ops, dev, B=1024, N=20):
+    """``CompiledNonLinLoop.run_fleet`` of bench.py's NonLinMPC (the
+    pendulum, MultipleShooting, the UKF at α = 0.5, GI), B = 1024, N = 20
+    (the depth cut to keep the phase short), float32, from rest with y
+    noise 1°: 1 warm run of 2 steps, 1 counted run (SQP exit tests, lane
+    iterations), 1 run of 2 steps under the sync-debug mode and the
+    profiler."""
+    from mpc_tpu_torch import sim_compiled as sc
+    from mpc_tpu_torch.controllers import nonlinmpc as NL
+    loop = sc.CompiledNonLinLoop(nonlin_ctrl(torch, mt, dev, dtype=torch.float32))
+    kw = dict(ry=[180.0], y_noise=[1.0], seed=0)
+    loop.run_fleet(B, 2, **kw)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    n0 = NL.COUNTS["sqp_exit_tests"]
+    t0 = time.perf_counter()
+    fl = loop.run_fleet(B, N, **kw)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    exits = NL.COUNTS["sqp_exit_tests"] - n0
+    check(launches["gi_solve"] > 0, "NonLin loop: the GI kernel was never launched")
+    umax = float(np.abs(fl["U"]).max())
+    check(np.isfinite(fl["U"]).all() and umax <= 1.5 + 1e-5, f"NonLin loop: max |u| {umax}")
+    its = loop.last_iters
+    prof = loop_syncs(torch, lambda: loop.run_fleet(B, 2, **kw), 2)
+    print(f"CompiledNonLinLoop.run_fleet (B={B}, N={N}, f32, GI): {wall * 1e3:.1f} ms "
+          f"({B * N / wall:.0f} controlled steps/s, {wall / N * 1e3:.1f} ms a step); SQP "
+          f"iterations a lane-step max {its.max()}, mean {its.mean():.2f}; {exits / N:.2f} exit "
+          f"tests and {launches['gi_solve'] / N:.2f} GI launches a step; host syncs "
+          f"{prof['syncs_per_step']:.2f} a step besides the upload and the download; device "
+          f"launches {prof['launches_per_step']:.0f} a step, busy {prof['busy_per_step']:.2f} ms a "
+          f"step (idle share {1 - prof['busy_per_step'] / (wall / N * 1e3):.4f}); max |u| "
+          f"{umax:.4f}, y at the end "
+          f"{float(fl['Y'][:, -1, 0].mean()):.2f}°", flush=True)
+    return launches
+
+
+def compiled_card_vs_cpu(torch, mt, ops, dev):
+    """Phase 33: each compiled loop in float64 on the card (the kernels) and
+    on the CPU (the plain versions, which the CPU tests hold to mpc_tpu):
+    every returned array within its solver's bar ·(1 + max|·|) — GI 1e-9,
+    ADMM 1e-8, SL-GI 1e-9, NonLin 1e-6 (an SQP exit test on round-off),
+    MHE 1e-9 (GI windows) — with the loop's kernel launched on the card."""
+    from mpc_tpu_torch import sim_compiled as sc
+    from mpc_tpu_torch.parallel import random_cstr_controllers
+
+    def cstr(d, qp):
+        return scan_ctrl(torch, mt, qp, d)
+
+    noise = dict(ry=[54.0, 30.0], y_noise=[0.1, 0.1], u_noise=[0.05, 0.05], seed=7)
+
+    def mhe(d):
+        e = mt.MovingHorizonEstimator(mt.LinModel(mt.tf(3, [10, 1]), 1.0), He=5,
+                                      qp_solver="active_set", device=d)
+        e.setconstraint(xhatmin=[-0.5, -0.5], xhatmax=[0.5, 0.5])
+        rng = np.random.default_rng(3)
+        Ym, U = rng.normal(size=(60, 1)), rng.normal(size=(60, 1)) * 0.2
+        Ym[[7, 23, 24]] = np.nan
+        return sc.CompiledMHELoop(e).run(Ym, U)
+
+    def mhe_mpc(d):
+        m = lambda: mt.LinModel(mt.tf(3, [10, 1]), 1.0)
+        e = mt.MovingHorizonEstimator(m(), He=5, device=d)
+        e.initstate(np.zeros(1), np.zeros(1))
+        c = mt.LinMPC(mt.ManualEstimator(m()), Hp=10, Hc=2, device=d)
+        return vars(sc.CompiledMHEMPCLoop(e, c).run(40, ry=[4.0], y_noise=[0.1], seed=3))
+
+    cases = {
+        "run ADMM": (lambda d: vars(sc.CompiledClosedLoop(cstr(d, "admm")).run(30, **noise)),
+                     1e-8, "admm_sweep"),
+        "run GI": (lambda d: vars(sc.CompiledClosedLoop(cstr(d, "active_set")).run(30, **noise)),
+                   1e-9, "gi_solve"),
+        "run_fleet ADMM": (lambda d: sc.CompiledClosedLoop(cstr(d, "admm")).run_fleet(
+            8, 30, **noise), 1e-8, "admm_sweep"),
+        "run_fleet GI": (lambda d: sc.CompiledClosedLoop(cstr(d, "active_set")).run_fleet(
+            8, 30, **noise), 1e-9, "gi_solve"),
+        "CompiledClosedLoopFleet ADMM": (lambda d: sc.CompiledClosedLoopFleet(
+            random_cstr_controllers(8, Hp=10, Hc=2, seed=1, device=d)).run(
+            30, ry=[5.0, 1.0], y_noise=[0.1, 0.1], seed=2), 1e-8, "admm_sweep"),
+        "SL run": (lambda d: vars(sc.CompiledSLLoop(slmpc(torch, mt, d, **SL_LOOP)).run(
+            40, ry=[180.0], y_noise=[1.0], seed=1)), 1e-9, "gi_solve"),
+        "NonLin run_fleet": (lambda d: sc.CompiledNonLinLoop(nonlin_ctrl(torch, mt, d)).run_fleet(
+            2, 12, ry=[180.0], y_noise=[1.0], seed=4), 1e-6, "gi_solve"),
+        "MHE (GI windows, NaN dropouts)": (mhe, 1e-9, "gi_solve"),
+        "MHE+MPC (ADMM)": (mhe_mpc, 1e-8, "admm_sweep"),
+    }
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    cpu = torch.device("cpu")
+    for name, (make, bar, kernel) in cases.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        card = make(dev)
+        torch.cuda.synchronize()
+        run = dict(ops.LAUNCHES)
+        check(run[kernel] > 0, f"compiled {name}: the {kernel} kernel was never launched")
+        for k in launches:
+            launches[k] += run[k]
+        ref = make(cpu)
+        worst = 0.0
+        for k, v in ref.items():
+            if not isinstance(v, np.ndarray) or v.dtype == object:
+                continue
+            a, b = np.asarray(card[k], float), np.asarray(v, float)
+            check(a.shape == b.shape and np.array_equal(np.isfinite(a), np.isfinite(b)),
+                  f"compiled {name}: {k} shapes or finite entries differ")
+            err = float(np.max(np.abs(np.nan_to_num(a - b)), initial=0.0))
+            tol = bar * (1 + float(np.max(np.abs(np.nan_to_num(b)), initial=0.0)))
+            check(err <= tol, f"compiled {name}: card vs CPU |d{k}| {err:.3e} > {tol:.3e}")
+            worst = max(worst, err / tol * bar)
+        print(f"compiled {name} f64: card vs CPU worst {worst:.3e} relative (bar {bar:g}); "
+              f"launches {run}", flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2550,6 +2910,26 @@ def main():
           f"moveinput_closed median GI {single['SLMPC single']['active_set']:.3f} ms, ADMM "
           f"{single['SLMPC single']['admm']:.3f} ms (f64)", flush=True)
 
+    # --- 30-33. the compiled closed loops: bench_scan.py's cell (THIS SLICE'S
+    # MAIN PATH) with both kernels against their plain versions at its
+    # shape, the heterogeneous fleet's shape, the SL and NonLin loops, and
+    # every loop card vs CPU in float64
+    t_cl = time.perf_counter()
+    scan = scan_phase(torch, mt, ops, _build, dev)
+    hetero = hetero_phase(torch, mt, ops, dev)
+    loop_runs = [scan["active_set"]["launches_all"], scan["admm"]["launches_all"],
+                 {"gi_solve": hetero["active_set"]["launches"], "admm_sweep": 0},
+                 {"admm_sweep": hetero["admm"]["launches"], "gi_solve": 0},
+                 sl_loop_phase(torch, mt, ops, dev), nl_loop_phase(torch, mt, ops, dev),
+                 compiled_card_vs_cpu(torch, mt, ops, dev)]
+    for run in loop_runs:
+        admm_launches["admm_sweep"] += run["admm_sweep"]
+        gi_launches += run["gi_solve"]
+    print(f"compiled loops (phases 30-33): {time.perf_counter() - t_cl:.1f} s; scan-CSTR "
+          f"GI {scan['active_set']['steps_per_s']:.0f} and ADMM "
+          f"{scan['admm']['steps_per_s']:.0f} controlled steps/s (B={SCAN_B}, N={SCAN_N}, "
+          f"f32)", flush=True)
+
     # --- the kernels line: times, bounds and residency at every shape ------
     head, hgi, lgi = checks["headline"], gi_checks["headline-GI"], gi_checks["large-GI"]
     res = {"admm headline": admm_residency(torch, ops, _build, head["args"]),
@@ -2562,7 +2942,11 @@ def main():
            "gi headline-GI": gi_residency(torch, _build, hgi["args"]),
            "gi large-GI": gi_residency(torch, _build, lgi["args"]),
            "gi random_f64": gi_residency(torch, _build, gi_checks["random_f64"]["args"]),
-           "gi README": gi_residency(torch, _build, readme["active_set"]["args"])}
+           "gi README": gi_residency(torch, _build, readme["active_set"]["args"]),
+           "admm scan": admm_residency(torch, ops, _build, scan["admm"]["args"]),
+           "admm fleet": admm_residency(torch, ops, _build, hetero["admm"]["args"]),
+           "gi scan": gi_residency(torch, _build, scan["active_set"]["args"]),
+           "gi fleet": gi_residency(torch, _build, hetero["active_set"]["args"])}
     for k, (lanes, geo) in res.items():
         print(f"residency {k}: {lanes} lanes per SM ({geo})", flush=True)
     per_period.update({"SLMPC GI": sl_gi["per_period"], "SLMPC ADMM": sl_admm["per_period"],
@@ -2572,7 +2956,11 @@ def main():
                        "MHE GI NaN (b)": mhe_gi["b"]["per_period"],
                        "MHE nonlin GI (c)": mhe_nl["per_period"],
                        "README ADMM": path_launches["README"]["admm_sweep"] / 40,
-                       "README GI": path_launches["README"]["gi_solve"] / 40})
+                       "README GI": path_launches["README"]["gi_solve"] / 40,
+                       "scan-CSTR GI": scan["active_set"]["per_period"],
+                       "scan-CSTR ADMM": scan["admm"]["per_period"],
+                       "fleet GI": hetero["active_set"]["per_period"],
+                       "fleet ADMM": hetero["admm"]["per_period"]})
     print(f"launches per period: {per_period}", flush=True)
     shares = {k: c["bound_ms"] / c["ms"] for k, c in
               list(checks.items()) + list(gi_checks.items())
@@ -2580,7 +2968,9 @@ def main():
                  ("NonLinMPC A/B GI", nl_ab), ("NonLinMPC ADMM", nl_admm),
                  ("MHE GI (a)", mhe_gi["a"]), ("MHE GI (a) warm", mhe_gi["a warm"]),
                  ("MHE GI NaN (b)", mhe_gi["b"]),
-                 ("MHE nonlin GI (c)", mhe_nl), ("MHE general ADMM", mhe_admm)]}
+                 ("MHE nonlin GI (c)", mhe_nl), ("MHE general ADMM", mhe_admm),
+                 ("scan-CSTR GI", scan["active_set"]), ("scan-CSTR ADMM", scan["admm"]),
+                 ("fleet GI", hetero["active_set"]), ("fleet ADMM", hetero["admm"])]}
     print(f"roofline shares: {json.dumps(shares)}", flush=True)
 
     def shape(name, c, launches, lpp, lanes):
@@ -2609,7 +2999,13 @@ def main():
         shape("8x8/Hp=15 B=4096 (check)", checks["large_8x8_hp15_B4096"], 0, None,
               res["admm 8x8 B=4096"][0]),
         shape("tests/test_pallas_qp.py B=128 n=4 m=8 (check)", checks["pallas_test_batch"],
-              0, None, res["admm pallas_test_batch"][0])]
+              0, None, res["admm pallas_test_batch"][0]),
+        shape(f"scan-CSTR run_fleet B={SCAN_B} {sweep_dims(scan['admm'])} f32, one controller "
+              "(compiled loop, this slice's main path)", scan["admm"], scan["admm"]["launches"],
+              scan["admm"]["per_period"], res["admm scan"][0]),
+        shape(f"CompiledClosedLoopFleet B=n_d=128 {sweep_dims(hetero['admm'])} f64 (compiled "
+              "loop)", hetero["admm"], hetero["admm"]["launches"], hetero["admm"]["per_period"],
+              res["admm fleet"][0])]
     gi_shapes = [
         shape("headline-GI B=4096 n=5 m=101 f32/f64", hgi, path_launches["headline-GI"],
               per_period["headline-GI"], res["gi headline-GI"][0]),
@@ -2635,7 +3031,14 @@ def main():
               path_launches["README"]["gi_solve"], per_period["README GI"],
               res["gi README"][0]),
         shape("random f64 B=4096 n=6 m=24 cap 3 (check)", gi_checks["random_f64"], 0, None,
-              res["gi random_f64"][0])]
+              res["gi random_f64"][0]),
+        shape(f"scan-CSTR run_fleet B={SCAN_B} {gi_dims(scan['active_set'])} f32/f64, one "
+              "controller (compiled loop, this slice's main path)", scan["active_set"],
+              scan["active_set"]["launches"], scan["active_set"]["per_period"],
+              res["gi scan"][0]),
+        shape(f"CompiledClosedLoopFleet B=n_d=128 {gi_dims(hetero['active_set'])} f64 "
+              "(compiled loop)", hetero["active_set"], hetero["active_set"]["launches"],
+              hetero["active_set"]["per_period"], res["gi fleet"][0])]
 
     def entry(name, source, replaces, launches, shapes, extra_err):
         c = shapes[0]

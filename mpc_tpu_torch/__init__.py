@@ -15,7 +15,9 @@ the nonlinear-plant path: NonLinModel with its RK4/Euler solvers,
 filters, ``parallel.BatchedKalman`` and SLMPC (successive linearization,
 single controller and fleet); NonLinMPC and ExplicitMPC with their fleets;
 moving horizon estimation (``MovingHorizonEstimator`` and
-``parallel.BatchedMHE``).  The ADMM inner sweep and the whole per-lane
+``parallel.BatchedMHE``); the compiled closed loops (``sim_compiled``:
+whole N-step loops and Monte-Carlo fleets of them with one upload and one
+download) and the SymPy model bridge (``utils.symbolic``).  The ADMM inner sweep and the whole per-lane
 GI solve are hand-written CUDA kernels for Hopper (``csrc/admm_sweep.cu``,
 ``csrc/gi_solve.cu``) that every QP, single controller or fleet, goes
 through on the GPU.  Every entry point runs on the GPU unless the caller
@@ -34,5 +36,8 @@ from .controllers import (PredictiveController, LinMPC, ExplicitMPC, NonLinMPC, 
                           TranscriptionMethod, SingleShooting, MultipleShooting,
                           TrapezoidalCollocation, OrthogonalCollocation, info2debugstr)
 from .sim import sim, SimResult
+from .sim_compiled import (CompiledClosedLoop, CompiledSLLoop,
+                           CompiledMHELoop, CompiledMHEMPCLoop,
+                           CompiledNonLinLoop)
 
 __version__ = "0.1.0"

@@ -476,12 +476,7 @@ class LinMPC(PredictiveController):
         else:
             y_now = np.zeros(model.ny)
         dev, dt = self.device, self.dtype
-        if self._p_ver != self._params_version:
-            def put(a):
-                t = torch.as_tensor(np.asarray(a)[None], device=dev)
-                return t.to(dt) if t.is_floating_point() else t
-            self._p_dev = {k: put(v) for k, v in self.params.items()}
-            self._p_ver = self._params_version
+        p_dev = self._device_params()
         # Ts-deadline iteration budget for THIS solve (floor 50: the budget
         # must never forbid the warm-started typical case; 2**30 = unlimited)
         if self.limit_solve_time and self._iter_cost:
@@ -502,7 +497,7 @@ class LinMPC(PredictiveController):
         qs = (None if self._qp_state is None
               else {k: v[None] for k, v in self._qp_state.items()})
         u, Z_t, y_dual, converged, F, obj, iters, rung, qp_state = self._step(
-            self._p_dev, x0_t, lastu0_t, d0_t, Dh_t, Ry_t, Ru_t, xs_t, ys_t,
+            p_dev, x0_t, lastu0_t, d0_t, Dh_t, Ry_t, Ru_t, xs_t, ys_t,
             Z_t, y_t, rung_t[:, 0].to(torch.int32), self._lane, qp_state=qs,
             ry=ry_t, y_now=yn_t, iter_budget=self._budget_dev[1])
         if qp_state is not None:
@@ -539,6 +534,17 @@ class LinMPC(PredictiveController):
         u = u.copy()
         self.lastu0 = u - model.uop
         return u
+
+    def _device_params(self):
+        """The params on the device in the step's dtype, with a leading
+        controller axis of 1; uploaded again only after a change."""
+        if self._p_ver != self._params_version:
+            def put(a):
+                t = torch.as_tensor(np.asarray(a)[None], device=self.device)
+                return t.to(self.dtype) if t.is_floating_point() else t
+            self._p_dev = {k: put(v) for k, v in self.params.items()}
+            self._p_ver = self._params_version
+        return self._p_dev
 
     # ------------------------------------------------------------------
     def getinfo(self):

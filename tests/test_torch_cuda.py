@@ -455,3 +455,97 @@ def test_single_mhe_on_card_matches_cpu():
             e.updatestate(u, ym)
     torch.cuda.synchronize()
     assert LAUNCHES["gi_solve"] > n0["gi_solve"] and LAUNCHES["admm_sweep"] > n0["admm_sweep"]
+
+
+def _compiled_cases():
+    """The compiled loops of ``mpc_tpu_torch.sim_compiled`` at their
+    smallest size, each a function of the device returning its arrays
+    (float64), with the bar of its solver."""
+    import mpc_tpu_torch as mt
+    from mpc_tpu_torch import sim_compiled as sc
+
+    def cstr(dev, qp):
+        G = mt.tf_matrix([[mt.tf(1.90, [18, 1]), mt.tf(1.90, [18, 1])],
+                          [mt.tf(-0.74, [8, 1]), mt.tf(0.74, [8, 1])]])
+        c = mt.LinMPC(mt.LinModel(G, 2.0), Hp=10, Hc=2, Mwt=[1, 1], Nwt=[0.1, 0.1],
+                      qp_solver=qp, device=dev)
+        return c.setconstraint(umin=[-20, -20], umax=[20, 20])
+
+    def pend(dev):
+        f = lambda x, u, d, p: torch.stack([x[1], -24.5 * torch.sin(x[0]) - 4 * x[1]
+                                            + u[0] / 0.048])
+        h = lambda x, d, p: torch.stack([x[0] * 180 / torch.pi])
+        return mt.NonLinModel(f, h, 0.1, 1, 2, 1, device=dev)
+
+    def sl(dev):
+        c = mt.SLMPC(pend(dev), Hp=15, Hc=2, Mwt=[0.5], Nwt=[2.5], sigmaQ=[0.1, 1.0],
+                     sigmaR=[5.0], sigmaQint_ym=[0.1], qp_solver="active_set", device=dev)
+        return c.setconstraint(umin=[-1.5], umax=[1.5])
+
+    def nl(dev):
+        e = mt.UnscentedKalmanFilter(pend(dev), sigmaQ=[0.1, 1.0], sigmaR=[5.0], nint_ym=[1],
+                                     sigmaQint_ym=[0.1], alpha=0.5, device=dev)
+        c = mt.NonLinMPC(e, Hp=10, Hc=2, Mwt=[0.5], Nwt=[2.5], Cwt=np.inf,
+                         qp_solver="active_set", transcription=mt.MultipleShooting(),
+                         device=dev)
+        return c.setconstraint(umin=[-1.5], umax=[1.5])
+
+    def mhe(dev):
+        e = mt.MovingHorizonEstimator(mt.LinModel(mt.tf(3, [10, 1]), 1.0), He=4, device=dev)
+        rng = np.random.default_rng(3)
+        Ym, U = rng.normal(size=(12, 1)) * 0.5, rng.normal(size=(12, 1)) * 0.2
+        Ym[5] = np.nan
+        return sc.CompiledMHELoop(e).run(Ym, U)
+
+    def mhe_mpc(dev):
+        m = lambda: mt.LinModel(mt.tf(3, [10, 1]), 1.0)
+        e = mt.MovingHorizonEstimator(m(), He=5, device=dev)
+        e.initstate(np.zeros(1), np.zeros(1))
+        c = mt.LinMPC(mt.ManualEstimator(m()), Hp=10, Hc=2, device=dev)
+        return vars(sc.CompiledMHEMPCLoop(e, c).run(10, ry=[4.0], y_noise=[0.1], seed=3))
+
+    def fleet(dev):
+        from mpc_tpu_torch.parallel import random_cstr_controllers as rc
+        return sc.CompiledClosedLoopFleet(rc(4, Hp=8, Hc=2, seed=5, device=dev)).run(
+            10, ry=[5, 1], y_noise=[0.05, 0.05], seed=2)
+
+    noise = dict(ry=[5, 1], y_noise=[0.1, 0.2], u_noise=[0.05, 0.05], seed=7)
+    return {
+        "run ADMM": (lambda d: vars(sc.CompiledClosedLoop(cstr(d, "admm")).run(10, **noise)),
+                     1e-8, "admm_sweep"),
+        "run GI": (lambda d: vars(sc.CompiledClosedLoop(cstr(d, "active_set")).run(10, **noise)),
+                   1e-9, "gi_solve"),
+        "run_fleet ADMM": (lambda d: sc.CompiledClosedLoop(cstr(d, "admm")).run_fleet(
+            4, 8, **noise), 1e-8, "admm_sweep"),
+        "run_fleet GI": (lambda d: sc.CompiledClosedLoop(cstr(d, "active_set")).run_fleet(
+            4, 8, **noise), 1e-9, "gi_solve"),
+        "fleet": (fleet, 1e-8, "admm_sweep"),
+        "SL run": (lambda d: vars(sc.CompiledSLLoop(sl(d)).run(10, ry=[180.0])), 1e-9,
+                   "gi_solve"),
+        "NonLin run_fleet": (lambda d: sc.CompiledNonLinLoop(nl(d)).run_fleet(
+            2, 4, ry=[180.0], y_noise=[2.0], seed=4), 1e-6, "gi_solve"),
+        "MHE": (mhe, 1e-9, "admm_sweep"),
+        "MHE+MPC": (mhe_mpc, 1e-8, "admm_sweep"),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["run ADMM", "run GI", "run_fleet ADMM", "run_fleet GI",
+                                  "fleet", "SL run", "NonLin run_fleet", "MHE", "MHE+MPC"])
+def test_compiled_loop_on_card_matches_cpu(name):
+    """Each compiled loop in float64 on the card (the kernels) and on the
+    CPU (the plain versions): every returned array within its solver's bar
+    ·(1 + max|·|), the kernel launched on the card."""
+    dev = _card()
+    make, bar, kernel = _compiled_cases()[name]
+    n0 = LAUNCHES[kernel]
+    card = make(dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] > n0
+    cpu = make(torch.device("cpu"))
+    for k, v in cpu.items():
+        if isinstance(v, np.ndarray) and v.dtype != object:
+            a, b = np.asarray(card[k], float), np.asarray(v, float)
+            assert np.all(np.isfinite(a) == np.isfinite(b)), k
+            err = np.max(np.abs(np.nan_to_num(a - b)), initial=0.0)
+            assert err <= bar * (1 + np.max(np.abs(np.nan_to_num(b)), initial=0.0)), k

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 import mpc_tpu_torch as mt
+from mpc_tpu_torch.utils.symbolic import nonlinmodel_from_sympy
 from mpc_tpu_torch.parallel import (BatchedExplicitMPC, BatchedKalman, BatchedLinMPC,
                                     random_cstr_controllers)
 
@@ -32,6 +33,11 @@ def test_import_pulls_in_no_jax():
             "from mpc_tpu_torch.parallel import batch_kf, batch_nonlin, batch_explicit, "
             "batch_mhe; "
             "from mpc_tpu_torch.estimators import mhe, mhe_fast; "
+            "import mpc_tpu_torch.sim_compiled, mpc_tpu_torch.utils.symbolic; "
+            "from mpc_tpu_torch import (CompiledClosedLoop, CompiledSLLoop, "
+            "CompiledMHELoop, CompiledMHEMPCLoop, CompiledNonLinLoop); "
+            "from mpc_tpu_torch.sim_compiled import CompiledClosedLoopFleet; "
+            "from mpc_tpu_torch.utils.symbolic import nonlinmodel_from_sympy; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'mpc_tpu.')) "
             "or m == 'mpc_tpu'); "
@@ -45,6 +51,12 @@ def _pendulum(device=None):
     f = lambda x, u, d, p: torch.stack([x[1], -torch.sin(x[0]) + u[0]])
     h = lambda x, d, p: x[:1]
     return mt.NonLinModel(f, h, 0.1, 1, 2, 1, device=device)
+
+
+def _sympy_model(device=None):
+    sp = pytest.importorskip("sympy")
+    x, u = sp.symbols("x u")
+    return nonlinmodel_from_sympy({x: -x + u}, [x], 0.1, inputs=[u], device=device)
 
 
 def test_default_device_is_the_gpu():
@@ -79,6 +91,7 @@ def test_default_device_is_the_gpu():
         "MovingHorizonEstimator": lambda dev: mt.MovingHorizonEstimator(lin, He=3, device=dev),
         "MovingHorizonEstimator nonlinear": lambda dev: mt.MovingHorizonEstimator(
             _pendulum(CPU), He=3, device=dev),
+        "nonlinmodel_from_sympy": _sympy_model,
     }
     for name, make in entry_points.items():
         for dev in (None, "cuda"):
