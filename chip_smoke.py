@@ -99,8 +99,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    and ADMM: 1 warm and 3 timed runs each with the launch counts read
    around them, the host noise draw timed apart, ≥ 0.99 of the B·N solves
    converged, the host syncs of a run (sync-debug mode) and its device
-   launches and busy time (profiler), ``run_fleet(mesh=...)`` refused;
-   each kernel against its plain
+   launches and busy time (profiler); each kernel against its plain
    version on one call's inputs at this shape (one controller, B=512);
    then ``CompiledClosedLoopFleet`` of 128 random CSTR controllers
    (n_d = B, float64), both kernels against their plain versions at that
@@ -114,7 +113,31 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
 33. every compiled loop in float64 on the card against the CPU (run and
    run_fleet with both backends, the heterogeneous fleet, the SL run, the
    NonLin fleet, the MHE record with NaN dropouts, MHE → MPC), each within
-   its solver's bar.
+   its solver's bar;
+34. the embedded C export: tests/test_codegen.py's five controllers and the
+   README controller with GI, built on the card, exported (``export_c``) and
+   compiled with gcc; the C step against the controller's ``moveinput`` on
+   the card over 15 noisy periods, at the reference tests' bars (2e-4 and
+   5e-4 ADMM, 1e-9 the exact active set, 5e-3 the soft bound), with the C
+   step's median time on the host CPU;
+35. the native executor (``native/rt_executor.cpp``): the exported README
+   GI controller for 500 periods of 1 ms — every step done, u bitwise equal
+   to the ctypes-driven loop on the same inputs, the wall time within 10 %
+   + 50 ms of 0.5 s, every step a budget overrun at a 1 ns budget — with
+   the deadline misses, jitter and execution times of the host CPU;
+36. the mesh and the chunks: (a) ``__graft_entry__.dryrun_multichip``'s
+   four pipelines with a port API (BatchedLinMPC, CompiledClosedLoop
+   .run_fleet in float32, BatchedNonLinMPC, BatchedMHE; B=8) on meshes of
+   1, 2 and 4 shards over the visible cards (``["cuda:0"] * k`` on one
+   card) against the unsharded objects (1e-6; 5e-5 for the float32 loop);
+   (b) headline-GI (B=4096) unsharded and on 1, 2 and 4 shards, u within
+   F32_TOL·(1 + max|u|) and every lane converged, with the period wall
+   time, GI launches and solves/s of each; (c) large-ADMM (B=4096) with
+   ``grouped_chunks`` 1 and 8, the same n_conv and u within
+   F32_TOL·(1 + max|u|) on all but CHUNK_FLIPS lanes, with the period wall
+   time, sweep launches and host syncs, the float32 spread of one period
+   (kernel against plain sweep) beside it, and the same chunks in float64
+   (B=256), every lane within 1e-9·(1 + max|u|).
 
 The line before the last is the card's name and power limit, and before it
 a JSON object of the kernels; the last line is
@@ -138,6 +161,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_TOL = 1e-4      # kernel vs plain, float32: |Δ| ≤ F32_TOL·(1 + max|plain|)
                     # (the two sum over the m rows in different orders)
 GI_F64_TOL = 1e-12  # GI kernel vs plain on float64 data: x to 1e-12·(1 + max|x|)
+CHUNK_FLIPS = 4     # large-ADMM in f32: lanes whose u may move beyond F32_TOL
+                    # when the batch layout changes (phase 36c)
 GI_FLIPS = 4        # GI at the fleet shapes: lanes whose converged flag may
                     # differ (a near-tie in the f32 scan can change the pivot
                     # order; the optimum is unique, so x may not move)
@@ -2434,10 +2459,9 @@ def scan_phase(torch, mt, ops, _build, dev):
     before the timed runs and read just after; the noise drawn on the host
     timed apart; one run under the sync-debug mode and one under the
     profiler (a run of 20 steps); then each kernel against its plain version
-    on the inputs of one call (``loop_kernel_check``).  Fails when
-    ``run_fleet(mesh=...)`` does not raise ``NotImplementedError``,
-    below 0.99 converged over all B·N solves, outside 5 ≤ u ≤ 35, or when
-    the loop's kernel was never launched."""
+    on the inputs of one call (``loop_kernel_check``).  Fails below 0.99
+    converged over all B·N solves, outside 5 ≤ u ≤ 35, or when the loop's
+    kernel was never launched (``run_fleet(mesh=...)`` is phase 36a's)."""
     from mpc_tpu_torch import sim_compiled as sc
     noise = []
     for _ in range(3):
@@ -2450,11 +2474,6 @@ def scan_phase(torch, mt, ops, _build, dev):
     for qp, kernel, attr in (("active_set", "gi_solve", "gi"), ("admm", "admm_sweep", "sweep")):
         loop = sc.CompiledClosedLoop(scan_ctrl(torch, mt, qp, dev, torch.float32))
         call = lambda: loop.run_fleet(SCAN_B, SCAN_N, **SCAN_KW)
-        try:
-            loop.run_fleet(2, 1, mesh=object())
-            raise Fail(f"scan-CSTR {qp}: run_fleet(mesh=...) ran instead of raising")
-        except NotImplementedError as err:
-            print(f"scan-CSTR {qp}: run_fleet(mesh=...) refused ({err})", flush=True)
         call()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -2689,6 +2708,408 @@ def compiled_card_vs_cpu(torch, mt, ops, dev):
         print(f"compiled {name} f64: card vs CPU worst {worst:.3e} relative (bar {bar:g}); "
               f"launches {run}", flush=True)
     return launches
+
+
+# --- phases 34-36: the embedded C export, the native executor, the mesh ----
+EXPORT_STEPS = 15
+RT_STEPS, RT_PERIOD = 500, 1e-3
+
+
+class CStep:
+    """One compiled controller (``mpc_tpu_torch.codegen``) driven through
+    ctypes: ``step(ym, ry, d) -> u`` on its own ``<name>_state_t``."""
+
+    def __init__(self, lib, name, ctrl, solver):
+        import ctypes
+        self.ct, self.lib, self.name = ctypes, lib, name
+        self.nu, m = ctrl.estim.model.nu, ctrl.A_stack.shape[0]
+        fields = [("xhat", ctypes.c_double * ctrl.estim.nx_hat),
+                  ("lastu0", ctypes.c_double * self.nu), ("z", ctypes.c_double * ctrl.nZt)]
+        fields += [("zd", ctypes.c_double * m)] if solver == "admm" else []
+        fields += [("yd", ctypes.c_double * m)]
+        self.State = type("State", (ctypes.Structure,), {"_fields_": fields})
+        self.st = self.fresh()
+        self.fn = getattr(lib, f"{name}_step")
+
+    def fresh(self):
+        st = self.State()
+        getattr(self.lib, f"{self.name}_init")(self.ct.byref(st))
+        return st
+
+    def step(self, ym, ry, d=()):
+        ct = self.ct
+        arr = lambda v: (ct.c_double * max(len(v), 1))(*v)
+        u = (ct.c_double * self.nu)()
+        a = (arr(list(ym)), arr(list(ry)), arr(list(d)))
+        t0 = time.perf_counter()
+        self.fn(ct.byref(self.st), *a, u)
+        return np.array(u[:]), time.perf_counter() - t0
+
+
+def export_controllers(mt, dev):
+    """tests/test_codegen.py's controllers and the README controller with
+    GI, on ``dev``: ``name: (controller, export solver, ry, d, ym mean,
+    ym noise, bar on |u_C − u_moveinput|)`` (the reference tests' bars)."""
+    def siso():
+        m = mt.LinModel(mt.tf(3, [10, 1]), 1.0)
+        m.setop(uop=[2.0], yop=[5.0])
+        c = mt.LinMPC(m, Hp=10, Hc=2, Cwt=1e5, device=dev)
+        return c.setconstraint(umin=[-10], umax=[10], dumax=[3], dumin=[-3], ymax=[9.0],
+                               ymin=[0.0])
+
+    def mimo_d():
+        G = np.array([[mt.tf(1.9, [18, 1])] * 3,
+                      [mt.tf(-0.74, [8, 1]), mt.tf(0.74, [8, 1]), mt.tf(-0.74, [8, 1])]],
+                     dtype=object)
+        c = mt.LinMPC(mt.LinModel(G, 2.0, i_d=[2]), Hp=8, Hc=2, Cwt=1e5, device=dev)
+        return c.setconstraint(umax=[4.0, 4.0], umin=[-4.0, -4.0])
+
+    def luenberger():
+        m = mt.LinModel(mt.tf(3, [10, 1]), 1.0)
+        c = mt.LinMPC(mt.Luenberger(m, nint_ym=[1], poles=[0.4, 0.45]), Hp=10, Hc=2,
+                      device=dev)
+        return c.setconstraint(umax=[2.0])
+
+    def soft():
+        c = mt.LinMPC(mt.LinModel(mt.tf(3, [10, 1]), 1.0), Hp=8, Hc=2, Cwt=1e2, device=dev)
+        return c.setconstraint(umin=[-0.5], umax=[0.5], c_umin=[1.0], c_umax=[1.0],
+                               ymin=[2.0])
+
+    return {
+        "siso ADMM": (siso(), "admm", [7.0], (), [5.0], 0.3, 2e-4),
+        "mimo_d ADMM": (mimo_d(), "admm", [1.0, -0.5], (0.3,), [0.0, 0.0], 0.5, 5e-4),
+        "luenberger ADMM": (luenberger(), "admm", [2.5], (), [1.0], 0.3, 2e-4),
+        "siso active set": (siso(), "active_set", [7.0], (), [5.0], 0.3, 1e-9),
+        "soft ADMM": (soft(), "admm", [3.0], (), [0.0], 0.1, 5e-3),
+        "README GI": (readme_controller(mt, "active_set", dev), "active_set", [5.0, 0.0], (),
+                      [0.0, 0.0], 0.5, 1e-9),
+    }
+
+
+def export_phase(torch, mt, ops, dev):
+    """Phase 34: each controller of ``export_controllers`` built on the
+    card, exported (``export_c`` reads its host params) and compiled with
+    gcc; the C step and the controller's ``moveinput`` on the card (which
+    launches the GI or ADMM kernel) over the same noisy measurements, u to
+    the reference test's bar every period.  Returns the launch counts and
+    the README GI controller's compiled step for phase 35."""
+    from mpc_tpu_torch.codegen import compile_and_load, export_c
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    keep = None
+    for i, (name, (ctrl, solver, ry, d, mean, noise, bar)) in enumerate(
+            export_controllers(mt, dev).items()):
+        t0 = time.perf_counter()
+        lname = f"smoke{i}"
+        src = export_c(ctrl, name=lname, solver=solver)
+        cstep = CStep(compile_and_load(src, name=lname), lname, ctrl, solver)
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(3 + i)
+        ny = ctrl.estim.model.ny
+        worst, times = 0.0, []
+        dd = [np.asarray(d)] if d else []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for k in range(EXPORT_STEPS):
+            y = np.asarray(mean, float) + rng.normal(size=ny) * noise
+            ctrl.preparestate(y, *dd)
+            u = ctrl.moveinput(ry, *dd)
+            ctrl.updatestate(u, y, *dd)
+            uc, dt = cstep.step(y, ry, d)
+            times.append(dt)
+            worst = max(worst, float(np.max(np.abs(uc - u))))
+        torch.cuda.synchronize()
+        run = dict(ops.LAUNCHES)
+        for k in launches:
+            launches[k] += run[k]
+        kernel = "gi_solve" if ctrl.qp_solver == "active_set" else "admm_sweep"
+        print(f"export {name} ({solver} export, {ctrl.qp_solver} controller, m="
+              f"{ctrl.A_stack.shape[0]}, {len(src) / 1e3:.0f} kB of C, export + gcc "
+              f"{build_s:.2f} s): worst |u_C - u_moveinput| {worst:.3e} (bar {bar:g}) over "
+              f"{EXPORT_STEPS} periods; C step median {statistics.median(times) * 1e6:.1f} us "
+              f"on the host CPU (ctypes call included); card launches {run}", flush=True)
+        check(run[kernel] >= EXPORT_STEPS, f"export {name}: moveinput launched {kernel} "
+              f"{run[kernel]} times in {EXPORT_STEPS} periods")
+        check(worst < bar, f"export {name}: |u_C - u_moveinput| {worst:.3e} ≥ {bar:g}")
+        if name == "README GI":
+            keep = (cstep, ctrl)
+    return launches, keep
+
+
+def rt_phase(readme_gi):
+    """Phase 35: the exported README GI controller under the native
+    executor, 500 periods of 1 ms on the host CPU: every step done, u
+    bitwise equal to phase 34's ctypes loop (``CStep``) on the same
+    inputs from a fresh state, the wall time within 10 % + 50 ms of 0.5 s,
+    and every step a budget overrun at a 1 ns budget."""
+    from mpc_tpu_torch.native import build_executor, rt_run_exported
+    cstep, ctrl = readme_gi
+    t0 = time.perf_counter()
+    build_executor()
+    build_s = time.perf_counter() - t0
+    nym, ny, nd, nu = ctrl.estim.nym, ctrl.estim.model.ny, ctrl.estim.model.nd, ctrl.estim.model.nu
+    rng = np.random.default_rng(11)
+    ym = rng.normal(size=(RT_STEPS, nym)) * 0.5
+    ry = np.tile([5.0, 0.0], (RT_STEPS, 1))
+    cstep.st = cstep.fresh()
+    U_ref = np.stack([cstep.step(ym[k], ry[k])[0] for k in range(RT_STEPS)])
+    t0 = time.perf_counter()
+    U, stats = rt_run_exported(cstep.lib, cstep.name, cstep.fresh(), ym, ry, None, RT_PERIOD,
+                               nym, ny, nd, nu)
+    wall = time.perf_counter() - t0
+    s = stats.asdict()
+    _, tight = rt_run_exported(cstep.lib, cstep.name, cstep.fresh(), ym, ry, None, RT_PERIOD,
+                               nym, ny, nd, nu, budget_s=1e-9)
+    target = RT_STEPS * RT_PERIOD
+    print(f"native executor (host CPU of the card machine; g++ build {build_s:.2f} s): "
+          f"{s['steps_done']} steps of {RT_PERIOD * 1e3:g} ms in {wall:.4f} s (target "
+          f"{target:g} s); deadline misses {s['deadline_misses']}; jitter max "
+          f"{s['max_jitter_ns'] / 1e3:.1f} us mean {s['mean_jitter_ns'] / 1e3:.2f} us; exec "
+          f"max {s['max_exec_ns'] / 1e3:.1f} us mean {s['mean_exec_ns'] / 1e3:.2f} us; "
+          f"u bitwise equal to the ctypes loop: {np.array_equal(U, U_ref)}; 1 ns budget "
+          f"overruns {tight.budget_overruns}/{RT_STEPS}", flush=True)
+    check(s["steps_done"] == RT_STEPS, f"executor: {s['steps_done']} steps done of {RT_STEPS}")
+    check(np.array_equal(U, U_ref), "executor: u differs from the ctypes-driven loop")
+    check(abs(wall - target) <= 0.1 * target + 0.05,
+          f"executor: {RT_STEPS} periods took {wall:.4f} s, not {target:g} s ± 10 % + 50 ms")
+    check(tight.budget_overruns == RT_STEPS, f"executor: 1 ns budget gave "
+          f"{tight.budget_overruns} overruns of {RT_STEPS} steps")
+    return dict(s, wall_s=wall)
+
+
+def mesh_devices_k(torch, k):
+    """A mesh of ``k`` shards over the visible cards: ``["cuda:0"] * k`` on
+    one card, the cards in turn when there are more."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{i % n}" for i in range(k)]
+
+
+def count_syncs(torch, fn):
+    """Host syncs of one call of ``fn`` (the sync-debug mode's warnings)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(r.message) for r in rec)
+
+
+def dryrun_pipelines(torch, mt, ops, dev):
+    """Phase 36a: ``__graft_entry__.dryrun_multichip``'s four pipelines with
+    a port API (B = 8), on meshes of 1, 2 and 4 shards, each against the
+    unsharded object at the reference's bars (1e-6; 5e-5 for the float32
+    compiled loop)."""
+    from mpc_tpu_torch import sim_compiled as sc
+    from mpc_tpu_torch.parallel import (BatchedLinMPC, BatchedMHE, BatchedNonLinMPC,
+                                        random_cstr_controllers)
+    B = 8
+    nm = mt.NonLinModel(lambda x, u, d, p: 0.5 * x + u, lambda x, d, p: 2.0 * x, 1.0, 1, 1, 1,
+                        solver=None, device=dev)
+    lm = mt.LinModel(mt.ss(0.6, 1.0, 1.0, 0.0, 1.0), 1.0)
+    rng = np.random.default_rng(0)
+    ym_mhe = rng.normal(size=(4, B, 1)) * 0.3
+
+    def lin(mesh):
+        f = BatchedLinMPC(random_cstr_controllers(B, Hp=5, Hc=2, seed=0, device=dev),
+                          dtype=torch.float32, device=None if mesh else dev, mesh=mesh)
+        u, nc = f.step(np.zeros((B, 2), np.float32), np.ones((B, 2), np.float32))
+        check(int(nc) == B, f"mesh LinMPC fleet: {int(nc)}/{B} converged")
+        return u.cpu().numpy()
+
+    def loop(mesh):
+        c = random_cstr_controllers(1, Hp=5, Hc=2, seed=1, device=dev, dtype=torch.float32)[0]
+        return sc.CompiledClosedLoop(c).run_fleet(B, 3, ry=[5.0, 1.0], y_noise=[0.05, 0.05],
+                                                  seed=0, mesh=mesh)["U"]
+
+    def nonlin(mesh):
+        t = mt.NonLinMPC(nm, Hp=4, Hc=2, sqp_iters=4, alpha=0.5, device=dev)
+        u, _ = BatchedNonLinMPC(t, B, dtype=torch.float32, mesh=mesh).step(
+            np.zeros((B, 1), np.float32), np.linspace(0.5, 1.5, B)[:, None].astype(np.float32))
+        return u.cpu().numpy()
+
+    def mhe(mesh):
+        f = BatchedMHE(mt.MovingHorizonEstimator(lm, He=3, device=dev), B, mesh=mesh)
+        for k in range(4):
+            x = f.step(ym_mhe[k], u_prev=np.zeros((B, 1)))
+        return x.cpu().numpy()
+
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    worst = {}
+    for name, fn, bar in (("BatchedLinMPC", lin, 1e-6), ("CompiledClosedLoop.run_fleet f32",
+                                                          loop, 5e-5),
+                          ("BatchedNonLinMPC", nonlin, 1e-6), ("BatchedMHE", mhe, 1e-6)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ref = fn(None)
+        for k in (1, 2, 4):
+            got = fn(mesh_devices_k(torch, k))
+            err = float(np.max(np.abs(got - ref)))
+            worst[(name, k)] = err
+            check(np.all(np.isfinite(got)) and err <= bar,
+                  f"mesh {name} k={k}: |sharded - unsharded| {err:.3e} > {bar:g}")
+        torch.cuda.synchronize()
+        for kk, v in ops.LAUNCHES.items():
+            launches[kk] += v
+        print(f"mesh {name} (B={B}) on 1, 2, 4 shards of {mesh_devices_k(torch, 4)}: max "
+              f"|sharded - unsharded| {[worst[(name, k)] for k in (1, 2, 4)]} (bar {bar:g}); "
+              f"launches {dict(ops.LAUNCHES)}", flush=True)
+    check(launches["gi_solve"] > 0 and launches["admm_sweep"] > 0,
+          f"mesh pipelines: a kernel was never launched ({launches})")
+    return launches
+
+
+def headline_mesh_phase(torch, ops, dev, periods=8, n_d=256, reps=16):
+    """Phase 36b: the headline-GI fleet (256 distinct x 16 = 4096 lanes,
+    float32, float64 slots) unsharded and on 1, 2 and 4 shards, in one
+    closed loop driven by the unsharded fleet's u: every period each sharded
+    u within F32_TOL·(1 + max|u|) of the unsharded one and every lane
+    converged; the period wall time (median of ``periods`` after one warm
+    period), GI launches a period and solves/s for each k."""
+    from mpc_tpu_torch.parallel import BatchedLinMPC, random_cstr_controllers
+    cs = random_cstr_controllers(n_d, Hp=10, Hc=2, seed=0, qp_solver="active_set",
+                                 device=dev)
+    kw = dict(reps=reps, dtype=torch.float32)
+    fleets = {0: BatchedLinMPC(cs, device=dev, **kw)}
+    for k in (1, 2, 4):
+        fleets[k] = BatchedLinMPC(cs, mesh=mesh_devices_k(torch, k), **kw)
+    loop = ClosedLoop(torch, cs, reps, dev, torch.float32)
+    B = fleets[0].B
+    walls = {k: [] for k in fleets}
+    launches = {k: 0 for k in fleets}
+    worst = {k: 0.0 for k in fleets}
+    for p in range(periods + 1):
+        ym, ry = loop.measure(p)
+        outs = {}
+        for k, f in fleets.items():
+            torch.cuda.synchronize()
+            n0 = ops.LAUNCHES["gi_solve"]
+            t0 = time.perf_counter()
+            u, nc = f.step(ym, ry)
+            nc = int(nc)
+            dt = time.perf_counter() - t0
+            launches[k] += ops.LAUNCHES["gi_solve"] - n0
+            if p:
+                walls[k].append(dt)
+            outs[k] = u
+            check(nc == B, f"headline-GI mesh k={k}: {nc}/{B} converged in period {p}")
+        for k in (1, 2, 4):
+            err = float((outs[k] - outs[0]).abs().max())
+            worst[k] = max(worst[k], err)
+            check(err <= F32_TOL * (1 + float(outs[0].abs().max())),
+                  f"headline-GI mesh k={k}: |sharded - unsharded| {err:.3e} in period {p}")
+        loop.advance(outs[0])
+    out = {}
+    for k in fleets:
+        med = statistics.median(walls[k])
+        out[k] = dict(period_ms=med * 1e3, solves_per_s=B / med,
+                      gi_launches_per_period=launches[k] / (periods + 1), err=worst[k])
+    label = {0: "unsharded", 1: "k=1", 2: "k=2", 4: "k=4"}
+    print(f"headline-GI on a mesh (B={B}, f32, f64 slots, "
+          f"{periods} periods after 1 warm): " + "; ".join(
+              f"{label[k]} period median {v['period_ms']:.3f} ms, {v['solves_per_s']:.0f} "
+              f"solves/s, {v['gi_launches_per_period']:g} GI launches a period, max |du| vs "
+              f"unsharded {v['err']:.3e}" for k, v in out.items()), flush=True)
+    return {"gi_solve": sum(launches.values()), "admm_sweep": 0}, out
+
+
+def f32_spread(torch, fleet, ops, ym, ry):
+    """Lanes whose u moves beyond F32_TOL·(1 + max|u|) when the same period
+    of ``fleet`` (an ADMM fleet, from one snapshot) runs with the plain
+    sweep instead of the kernel: the float32 spread that exists without
+    any change of batch layout.  The fleet's state is restored."""
+    snap = fleet.state
+    u_k, _ = fleet.step(ym, ry)
+    fleet.state, fleet.sweep = snap, ops.admm_sweep_reference
+    u_p, _ = fleet.step(ym, ry)
+    fleet.state, fleet.sweep = snap, ops.admm_sweep
+    du = (u_k - u_p).abs().amax(1)
+    return int((du > F32_TOL * (1 + float(u_p.abs().max()))).sum()), float(du.max())
+
+
+def large_chunks_phase(torch, mt, ops, dev, periods=4, n_d=32, reps=128, f64_reps=8):
+    """Phase 36c: large-ADMM (32 distinct 8x8 plants, Hp=15, Hc=4, x 128 =
+    4096 lanes, float32) with ``grouped_chunks`` 1 and 8, ``periods``
+    closed-loop periods each from the same start after one warm period: the
+    same converged count, and u within F32_TOL·(1 + max|u|) on all but at
+    most CHUNK_FLIPS lanes; the period wall time, the sweep launches and
+    host syncs a period.  In float32 a lane's ADMM answer depends on the
+    launch's batch layout (8 chunks launch 512 lanes, whose sums the
+    kernel and the plain version alike order otherwise), so the f32 spread
+    of one period, kernel against plain at one layout, is printed beside
+    it; the chunking itself is held in float64 (x ``f64_reps``, 2 periods),
+    every lane within 1e-9·(1 + max|u|)."""
+    from mpc_tpu_torch.parallel import BatchedLinMPC
+    cs = large_controllers(mt, n_d, device=dev)
+    launches = 0
+    for dt, rp, n_per in ((torch.float64, f64_reps, 2), (torch.float32, reps, periods)):
+        fleets = {n: BatchedLinMPC(cs, reps=rp, device=dev, dtype=dt, grouped_chunks=n)
+                  for n in (1, 8)}
+        B = fleets[1].B
+        loop = ClosedLoop(torch, cs, rp, dev, dt)
+        stats = {n: dict(walls=[], launches=0, syncs=0) for n in fleets}
+        worst, flips = 0.0, 0
+        for p in range(n_per + 1):
+            ym, ry = loop.measure(p)
+            outs = {}
+            for n, f in fleets.items():
+                n0 = ops.LAUNCHES["admm_sweep"]
+                t0 = time.perf_counter()
+                (u, nc), syncs = count_syncs(torch, lambda: f.step(ym, ry))
+                dt_s = time.perf_counter() - t0
+                outs[n] = (u, int(nc))
+                stats[n]["launches"] += ops.LAUNCHES["admm_sweep"] - n0
+                if p:
+                    stats[n]["walls"].append(dt_s)
+                    stats[n]["syncs"] += syncs
+            du = (outs[8][0] - outs[1][0]).abs().amax(1)
+            bar = (1e-9 if dt == torch.float64 else F32_TOL) * (1 + float(outs[1][0].abs().max()))
+            over = int((du > bar).sum())
+            worst, flips = max(worst, float(du.max())), max(flips, over)
+            check(bool(torch.isfinite(outs[8][0]).all()) and outs[8][1] == outs[1][1]
+                  and outs[1][1] >= 0.99 * B,
+                  f"large-ADMM {dt} grouped_chunks=8: n_conv {outs[8][1]} against "
+                  f"{outs[1][1]} of {B} in period {p}")
+            check(over <= (0 if dt == torch.float64 else CHUNK_FLIPS),
+                  f"large-ADMM {dt} grouped_chunks=8: {over} lanes beyond {bar:.3e} of 1 chunk "
+                  f"(max |du| {float(du.max()):.3e}) in period {p}")
+            loop.advance(outs[1][0])
+        launches += sum(s["launches"] for s in stats.values())
+        if dt == torch.float64:
+            print(f"large-ADMM grouped_chunks f64 (B={B}, 2 periods after 1 warm): max |du| "
+                  f"8 chunks vs 1 {worst:.3e} (bar 1e-9·(1 + max|u|)); n_conv {outs[1][1]}",
+                  flush=True)
+            continue
+        spread = f32_spread(torch, fleets[1], ops, *loop.measure(n_per + 1))
+        out = {n: dict(period_ms=statistics.median(s["walls"]) * 1e3,
+                       sweep_launches_per_period=s["launches"] / (n_per + 1),
+                       host_syncs_per_period=s["syncs"] / n_per,
+                       n_conv_last=outs[n][1]) for n, s in stats.items()}
+        print(f"large-ADMM grouped_chunks (B={B}, f32, {n_per} periods after 1 warm, timed "
+              f"with the sync-debug mode on): " + "; ".join(
+                  f"{n} chunk(s) period median {v['period_ms']:.2f} ms, "
+                  f"{v['sweep_launches_per_period']:g} sweep launches and "
+                  f"{v['host_syncs_per_period']:g} host syncs a period, last n_conv "
+                  f"{v['n_conv_last']}" for n, v in out.items())
+              + f"; max |du| 8 chunks vs 1 {worst:.3e}, at most {flips} lanes beyond F32_TOL "
+              f"a period; f32 spread of one period, kernel vs plain sweep unchunked: "
+              f"{spread[0]} lanes beyond F32_TOL, max |du| {spread[1]:.3e}", flush=True)
+    return {"admm_sweep": launches, "gi_solve": 0}, dict(out, flips=flips, worst=worst,
+                                                         spread=spread)
+
+
+def mesh_phase(torch, mt, ops, dev, small=False):
+    """Phase 36: the mesh and the chunks (36a-c); returns the launch counts.
+    ``small`` cuts 36b and 36c to B=64 for a rehearsal on the CPU."""
+    launches = dryrun_pipelines(torch, mt, ops, dev)
+    head_l, head = headline_mesh_phase(torch, ops, dev, **(dict(n_d=16, reps=4) if small else {}))
+    large_l, large = large_chunks_phase(torch, mt, ops, dev,
+                                        **(dict(n_d=8, reps=8) if small else {}))
+    for k in launches:
+        launches[k] += head_l[k] + large_l[k]
+    return launches, head, large
 
 
 def main():
@@ -2929,6 +3350,19 @@ def main():
           f"GI {scan['active_set']['steps_per_s']:.0f} and ADMM "
           f"{scan['admm']['steps_per_s']:.0f} controlled steps/s (B={SCAN_B}, N={SCAN_N}, "
           f"f32)", flush=True)
+
+    # --- 34-36. the embedded C export, the native executor, the mesh and the
+    # chunks: each drives the kernels on the card through the port's API
+    t_x = time.perf_counter()
+    exp_launches, readme_gi = export_phase(torch, mt, ops, dev)
+    rt_phase(readme_gi)
+    mesh_launches, head_mesh, large_chunks = mesh_phase(torch, mt, ops, dev)
+    for run in (exp_launches, mesh_launches):
+        admm_launches["admm_sweep"] += run["admm_sweep"]
+        gi_launches += run["gi_solve"]
+    print(f"phases 34-36: {time.perf_counter() - t_x:.1f} s; headline-GI on a mesh "
+          f"{json.dumps(head_mesh)}; large-ADMM grouped_chunks {json.dumps(large_chunks)}",
+          flush=True)
 
     # --- the kernels line: times, bounds and residency at every shape ------
     head, hgi, lgi = checks["headline"], gi_checks["headline-GI"], gi_checks["large-GI"]

@@ -3,7 +3,7 @@
 A second package beside ``mpc_tpu`` (the JAX reference), with the same
 module layout and names.  It imports torch, NumPy and SciPy, never JAX.
 
-Ported so far: the linear-MPC path of the reference — lti, LinModel, the
+Ported: every module of the reference.  The linear-MPC path: lti, LinModel, the
 linear estimators (SteadyKalmanFilter, KalmanFilter, Luenberger,
 InternalModel, ManualEstimator, host NumPy at run time), LinMPC with
 ``moveinput``/``getinfo``/``setmodel``, custom constraints and the
@@ -17,7 +17,12 @@ single controller and fleet); NonLinMPC and ExplicitMPC with their fleets;
 moving horizon estimation (``MovingHorizonEstimator`` and
 ``parallel.BatchedMHE``); the compiled closed loops (``sim_compiled``:
 whole N-step loops and Monte-Carlo fleets of them with one upload and one
-download) and the SymPy model bridge (``utils.symbolic``).  The ADMM inner sweep and the whole per-lane
+download) and the SymPy model bridge (``utils.symbolic``); the embedded
+C export (``codegen``: ``export_c``, ``compile_and_load``) and the native
+real-time executor (``native``: ``RTStats``, ``build_executor``,
+``rt_run_exported``); the fleets' and compiled loops' ``mesh=`` lane
+sharding over a sequence of devices (``parallel.mesh``) and the fleet's
+``grouped_chunks``.  The ADMM inner sweep and the whole per-lane
 GI solve are hand-written CUDA kernels for Hopper (``csrc/admm_sweep.cu``,
 ``csrc/gi_solve.cu``) that every QP, single controller or fleet, goes
 through on the GPU.  Every entry point runs on the GPU unless the caller

@@ -40,7 +40,7 @@ from ..estimators import (InternalModel, StateEstimator, SteadyKalmanFilter,
 from ..models import LinModel, NonLinModel, RungeKutta
 from ..ops.qp import solve_qp
 from ..ops.qp_active import solve_qp_active
-from ..utils.config import BIG, resolve_device
+from ..utils.config import BIG, as_device, resolve_device
 from ..utils.lanes import mtv, mv
 from ..utils.linalg import repeatdiag
 from .base import PredictiveController, default_Hp, info2debugstr
@@ -279,23 +279,25 @@ class NonLinMPC(PredictiveController):
             self._fns_cache = {}
         self._solved_once = False
 
-    def _params_on(self, dt):
-        """The params as tensors on the device in ``dt``, uploaded again
-        only after a change."""
-        ver, cached = self._p_dev.get(dt, (None, None))
+    def _params_on(self, dt, dev=None):
+        """The params as tensors on the device (or ``dev``) in ``dt``,
+        uploaded again only after a change."""
+        dev = as_device(self.device if dev is None else dev)
+        ver, cached = self._p_dev.get((dt, dev), (None, None))
         if ver != self._params_version:
-            dev = self.device
             t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dt, device=dev)
             cached = {k: (_tree_map(t, v) if k == "p_user" else t(v))
                       for k, v in self.params.items()}
-            self._p_dev[dt] = (self._params_version, cached)
+            self._p_dev[(dt, dev)] = (self._params_version, cached)
         return cached
 
-    def _fns(self, dt):
-        """``(step, diag, coldstart)`` for data type ``dt`` (made once)."""
-        if dt not in self._fns_cache:
-            self._fns_cache[dt] = self._make_step(dt)
-        return self._fns_cache[dt]
+    def _fns(self, dt, dev=None):
+        """``(step, diag, coldstart)`` for data type ``dt`` on the device (or
+        ``dev``), made once."""
+        key = (dt, as_device(self.device if dev is None else dev))
+        if key not in self._fns_cache:
+            self._fns_cache[key] = self._make_step(*key)
+        return self._fns_cache[key]
 
     # ------------------------------------------------------------------
     def setconstraint(self, **kw):
@@ -372,7 +374,7 @@ class NonLinMPC(PredictiveController):
         return self
 
     # ------------------------------------------------------------------
-    def _rollout_fn(self, f_hat, h_hat, dt):
+    def _rollout_fn(self, f_hat, h_hat, dt, dev):
         """The rollout of the augmented model for this transcription, on ONE
         sample: ``rollout(p, Z, x0_hat, lastu0, Df, Dh) -> (Ŷ0, x̂end, Ŝ,
         U0)`` with Df, Dh (Hp, nd)."""
@@ -407,7 +409,7 @@ class NonLinMPC(PredictiveController):
 
         if not self.is_colloc:
             return outputs_ms if self.is_ms else outputs_ss
-        t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dt, device=self.device)
+        t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dt, device=dev)
         Cs_u, As_s = t(estim.Cs_u), t(estim.As)
         f_cont = lambda x, u, d: model._f_user(x, u, d, model.p)
         vfc = vmap(f_cont)
@@ -462,7 +464,7 @@ class NonLinMPC(PredictiveController):
         return outputs_ortho
 
     # ------------------------------------------------------------------
-    def _make_step(self, dt):
+    def _make_step(self, dt, dev):
         """``(step, diag, coldstart)`` in data type ``dt``.  The functions
         named ``*_1`` below act on ONE lane (as the reference's traced step
         does) and run under ``vmap``; the rest is written over the lane
@@ -478,9 +480,8 @@ class NonLinMPC(PredictiveController):
         JE, gc, Ewt = self.JE, self.gc, self.weights.Ewt
         p_const = self.p
         getp = (lambda p: p["p_user"]) if self._p_traced else (lambda p: p_const)
-        dev = self.device
         f_hat, h_hat = estim.tensor_fns(dt, dev)
-        rollout = self._rollout_fn(f_hat, h_hat, dt)
+        rollout = self._rollout_fn(f_hat, h_hat, dt, dev)
         sqp_iters, sqp_tol = self.sqp_iters, self.sqp_tol
         kkt_tol, kkt_feas_tol = self.kkt_tol, self.kkt_feas_tol
         # the structured nullspace applies to plain MultipleShooting only:

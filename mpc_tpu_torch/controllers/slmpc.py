@@ -28,7 +28,7 @@ from ..estimators.kalman import _default_P0, _default_sigmas, kf_correct, kf_pre
 from ..models import NonLinModel
 from ..ops.qp import solve_qp
 from ..ops.qp_active import solve_qp_active
-from ..utils.config import BIG, resolve_device
+from ..utils.config import BIG, as_device, resolve_device
 from ..utils.lanes import mtv, mv
 from .base import PredictiveController
 from .construct import ControllerWeights
@@ -102,6 +102,7 @@ class SLMPC(PredictiveController):
             Z=np.zeros(self.nZt), ydual=np.zeros(self.n_rows)))
         self._lane = torch.zeros(1, dtype=torch.int32, device=self.device)
         self._step = self._make_step()
+        self._steps_on = {}          # the step on other devices (mesh shards)
         self._bounds_cache = None
 
     def state_from_arrays(self, state):
@@ -155,7 +156,7 @@ class SLMPC(PredictiveController):
     updatestate = initstate = preparestate
 
     # ------------------------------------------------------------------
-    def _make_step(self):
+    def _make_step(self, dev=None):
         """The period over a leading lane axis:
         ``step(st, ym, ry, d, bounds, lane_ctrl) -> (u, converged, st)``.
         ``st``, ``ym``, ``ry`` and ``d`` have the lane axis, ``bounds`` not;
@@ -167,7 +168,7 @@ class SLMPC(PredictiveController):
         Hp, Hc, n_eps, nZt = self.Hp, self.Hc, self.n_eps, self.nZt
         use_as = self.qp_solver == "active_set"
         fd, hh, p_mod = model._fd, model._h_user, model.p
-        dt, dev = self.dtype, self.device
+        dt, dev = self.dtype, self.device if dev is None else dev
         ja = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dt, device=dev)
         As, Cs_u, Cs_y = ja(self.As), ja(self.Cs_u), ja(self.Cs_y)
         i_ym = list(self.i_ym)
@@ -346,6 +347,15 @@ class SLMPC(PredictiveController):
         u, conv, st = self._step(st, ym_t, ry_t, d_t, self.bounds(), self._lane)
         self.state = {k: v[0] for k, v in st.items()}
         return u[0].cpu().numpy(), bool(conv[0])
+
+    def _step_on(self, dev):
+        """``_step`` with its constants on ``dev`` (made once a device)."""
+        dev = as_device(dev)
+        if dev == as_device(self.device):
+            return self._step
+        if dev not in self._steps_on:
+            self._steps_on[dev] = self._make_step(dev)
+        return self._steps_on[dev]
 
     # ------------------------------------------------------------------
     def fleet_state(self, B):

@@ -44,6 +44,7 @@ from ..ops.admm_kernel import admm_sweep
 from ..ops.qp import solve_qp
 from ..ops.qp_active import solve_qp_active
 from ..utils.small_linalg import inv_spd_small
+from .mesh import LaneShards
 
 
 def _nan_any(a):
@@ -81,8 +82,12 @@ class BatchedMHE:
     gi_chunks == 0``) and changes nothing: the reference splits its GI solve
     into lane ranges so that each range's lockstep pivot loop exits at its
     own slowest lane, but the GI kernel runs every lane on its own warp and
-    has no lockstep tail, so the fleet runs one solve.  ``mesh`` is not
-    ported (ROADMAP queue 1, item 8).
+    has no lockstep tail, so the fleet runs one solve; it is refused with a
+    mesh, as in the reference.  ``mesh`` (``parallel/mesh.py``) shards the
+    streams: a sub-fleet a shard holds its lanes' windows and runs their
+    window and solve on its device, while the host arrival recursion and
+    the H̃ build stay here, once for the fleet; the fleet then lives on
+    ``mesh[0]``.
 
     ``dtype`` is the data dtype (float64 by default; ``torch.float32`` is
     the reference's f32 fleet, with float64 GI slots and H̃⁻¹).  The fleet
@@ -94,16 +99,13 @@ class BatchedMHE:
     def __init__(self, template: MovingHorizonEstimator, batch: int,
                  mesh=None, dtype=None, solver: str = "auto",
                  gi_max_active: int | None = None, gi_chunks: int = 1):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded fleets are not ported yet (ROADMAP queue 1, item 8)")
         if not template.direct:
             raise ValueError("BatchedMHE supports the direct (p=0) form")
         if solver not in ("auto", "general"):
             raise ValueError("solver must be 'auto' or 'general'")
         if int(gi_chunks) < 1:
             raise ValueError("gi_chunks must be ≥ 1")
-        if int(gi_chunks) > 1 and int(batch) % int(gi_chunks):
+        if int(gi_chunks) > 1 and (mesh is not None or int(batch) % int(gi_chunks)):
             raise ValueError("gi_chunks requires a single-device fleet "
                              "with batch % gi_chunks == 0")
         self.t = t = template
@@ -111,11 +113,35 @@ class BatchedMHE:
         self.dtype = torch.float64 if dtype is None else dtype
         if self.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
-        self.device = dev = t.device
+        self.mesh = None if mesh is None else LaneShards(mesh, B)
+        self.device = dev = t.device if mesh is None else self.mesh.home
         self.gi, self.sweep = gi_solve, admm_sweep
-        He, nym, nx = t.He, t.nym, t.nx_hat
-        nu, nd = t.model.nu, t.model.nd
-        dt = self.dtype
+        self._configure(solver, gi_max_active)
+        if self.mesh is None:
+            self._place(B, dev)
+            self._subs = [self]
+        else:
+            # one sub-fleet a shard, holding its lanes' windows and solving
+            # them on its device; the host mirror below stays here, once
+            self._subs = [self._sub(self.mesh.size, d) for d in self.mesh.devices]
+        # host mirrors of the data-independent parts (LinModel covestim);
+        # a NonLinModel fleet keeps a per-lane P̄ on the device instead
+        self.Nk = 0
+        self.P_arr = t.P0_hat.copy()
+        self.invP_arr = np.linalg.inv(self.P_arr)
+        self._nan_guard = 0       # steps until NaN-touched windows drain
+        ce = t.covestim
+        if self._lin:
+            self._P_correct = lambda P: _kf_P_correct(P, ce.Cm_hat, ce.R_hat)
+            self._P_predict = lambda P: ce.A_hat @ P @ ce.A_hat.T + ce.Q_hat
+        self.last_ok = torch.ones(B, dtype=torch.bool, device=dev)
+        self.last_pivots = torch.zeros((), dtype=torch.int32, device=dev)
+        self.last_iters = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def _configure(self, solver, gi_max_active):
+        """The fleet's routes and the host-side construct-time matrices."""
+        t = self.t
+        self._solver = solver
         self._lin = isinstance(t.model, LinModel)
         # MS windows ride the SAME fast path: for a LinModel the defect
         # equalities are linear, so condensing X̂ out is exact — the fleet
@@ -124,9 +150,32 @@ class BatchedMHE:
         self._fast = solver == "auto" and self._lin and t.nc == 0
         self._ms_cond = bool(self._fast and t.is_ms)
         self._gi_cap = gi_max_active
+        self._nan_fast_ok = False
+        if self._fast:
+            self._mats = mhe_fast.build_pred_mats(t)
+            # NaN-tolerant fast variant: with a DIAGONAL invR, a NaN element
+            # removes exactly one scalar V row from that lane's window QP — a
+            # low-rank downdate of the shared H̃
+            invR_np = np.asarray(t.invR, float)
+            self._nan_fast_ok = bool(np.allclose(invR_np, np.diag(np.diag(invR_np))))
+
+    def _sub(self, B, dev):
+        """A sub-fleet of ``B`` lanes on ``dev`` (one shard of a mesh)."""
+        sub = object.__new__(BatchedMHE)
+        sub.t, sub.B, sub.dtype, sub.device = self.t, B, self.dtype, dev
+        sub.mesh, sub.gi, sub.sweep = None, self.gi, self.sweep
+        sub._configure(self._solver, self._gi_cap)
+        sub._place(B, dev)
+        return sub
+
+    def _place(self, B, dev):
+        """The lanes' windows and the solver constants on ``dev``."""
+        t, dt = self.t, self.dtype
+        He, nym, nx = t.He, t.nym, t.nx_hat
+        nu, nd = t.model.nu, t.model.nd
         z = lambda *s: torch.zeros(s, dtype=dt, device=dev)
         # ---- device-resident per-stream window state ----------------------
-        self.state = dict(
+        self._state = dict(
             Y0m=torch.full((B, He, nym), float("nan"), dtype=dt, device=dev),
             U0=z(B, He, nu), D0=z(B, He + 1, nd), X0_old=z(B, He, nx),
             # condensed SS-form decisions for fast MS fleets (X̂ exactly
@@ -142,58 +191,57 @@ class BatchedMHE:
             yop_m=t.model.yop[np.asarray(t.i_ym, int)], uop=t.model.uop,
             dop=t.model.dop, xop_hat=t.xop_hat)
         if self._fast:
-            self._mats = mats = mhe_fast.build_pred_mats(t)
+            mats = self._mats
             A_rows = mhe_fast.build_rows(mats, t.C_xmin, t.C_xmax, t.C_wmin,
                                          t.C_wmax, t.C_vmin, t.C_vmax)
             self._m_rows = A_rows.shape[0]
             consts.update(A_rows=A_rows, Su=mats["Su"], Sd=mats["Sd"], s1=mats["s1"],
                           Gy=mats["Gy"], Gx=mats["Gx"], Cm=mats["Cm"], Ddm=mats["Ddm"])
-            self.state["y_warm"] = z(B, self._m_rows)
+            self._state["y_warm"] = z(B, self._m_rows)
             self._asm = mhe_fast.make_assembler(mats)
-            # NaN-tolerant fast variant: with a DIAGONAL invR, a NaN element
-            # removes exactly one scalar V row from that lane's window QP — a
-            # low-rank downdate of the shared H̃
-            invR_np = np.asarray(t.invR, float)
-            self._nan_fast_ok = bool(np.allclose(invR_np, np.diag(np.diag(invR_np))))
             if self._nan_fast_ok:
                 self._ddn = mhe_fast.make_nan_downdate(mats)
-                self._r_diag = torch.as_tensor(2.0 * np.diag(invR_np), dtype=torch.float64,
-                                               device=dev)
+                self._r_diag = torch.as_tensor(2.0 * np.diag(np.asarray(t.invR, float)),
+                                               dtype=torch.float64, device=dev)
             self._A_lanes = None          # A_rows per lane, made on first NaN
-        else:
-            self._nan_fast_ok = False
         self._c = upload(consts, dt, dev)
         # the lane maps, one tensor each for the fleet's life (the kernels'
         # lane grouping is cached per map): every lane reads controller 0
         # (the shared H̃⁻¹ and A), or its own
         self._lc0 = torch.zeros(B, dtype=torch.int32, device=dev)
         self._lane = torch.arange(B, dtype=torch.int32, device=dev)
-        # host mirrors of the data-independent parts (LinModel covestim);
-        # a NonLinModel fleet keeps a per-lane P̄ on the device instead
-        self.Nk = 0
-        self.P_arr = t.P0_hat.copy()
-        self.invP_arr = np.linalg.inv(self.P_arr)
-        self._nan_guard = 0       # steps until NaN-touched windows drain
-        ce = t.covestim
-        if self._lin:
-            self._P_correct = lambda P: _kf_P_correct(P, ce.Cm_hat, ce.R_hat)
-            self._P_predict = lambda P: ce.A_hat @ P @ ce.A_hat.T + ce.Q_hat
-        else:
+        if not self._lin:
             # per-lane in-graph arrival covariance: the reference advances
             # P̄ with the covestim at each stream's own arrival state
             # (mhe/execute.jl:729-779); here the EKF-linearized law (exactly
             # the covestim=ExtendedKalmanFilter recursion incl. its per-lane
             # NaN skip; a UKF covestim is approximated by it)
+            ce = t.covestim
             self._ce = upload(dict(Q=ce.Q_hat, R=ce.R_hat), dt, dev)
             f_hat, h_hat = t.tensor_fns(dt, dev)
             i_ym = torch.as_tensor(list(t.i_ym), device=dev)
             h_m = lambda x, d: h_hat(x, d)[i_ym]
             self._h_m, self._jh = vmap(h_m), vmap(jacrev(h_m))
             self._jf = vmap(jacrev(f_hat))
-            self.state["P_arr"] = upload(dict(P=t.P0_hat), dt, dev)["P"].repeat(B, 1, 1)
-        self.last_ok = torch.ones(B, dtype=torch.bool, device=dev)
-        self.last_pivots = torch.zeros((), dtype=torch.int32, device=dev)
-        self.last_iters = torch.zeros(2, dtype=torch.int32, device=dev)
+            self._state["P_arr"] = upload(dict(P=t.P0_hat), dt, dev)["P"].repeat(B, 1, 1)
+
+    @property
+    def state(self):
+        """The lanes' device state dict (the lane axis first; gathered on
+        ``mesh[0]`` for a sharded fleet)."""
+        if self.mesh is None:
+            return self._state
+        return {k: self.mesh.gather([sub._state[k] for sub in self._subs])
+                for k in self._subs[0]._state}
+
+    @state.setter
+    def state(self, st):
+        if self.mesh is None:
+            self._state = st
+            return
+        parts = {k: self.mesh.split(v) for k, v in st.items()}
+        for i, sub in enumerate(self._subs):
+            sub._state = {k: parts[k][i] for k in st}
 
     # ------------------------------------------------------------------
     def _shift_insert(self, st, ym, u_prev, d, has_u, Nk_prev):
@@ -376,25 +424,65 @@ class BatchedMHE:
         return out["ym"], out["u"], out["d"]
 
     def _run(self, ym, u, d, has_u, route, Nk_prev, invP=None, Pq=None, Pinv=None):
-        """One period on the device by ``route`` ("fast", "nan", "gen",
-        "nl") from the window count ``Nk_prev``."""
+        """One period of this (sub-)fleet's lanes on its device by ``route``
+        ("fast", "nan", "gen", "nl") from the window count ``Nk_prev``:
+        ``(x̂, converged, GI pivots or None, GN iterations or None)``."""
+        piv = its = None
         if route in ("fast", "nan"):
-            self.state, x_abs, ok, piv = self._advance_fast(
-                self.state, ym, u, d, has_u, invP, Nk_prev, Pq, Pinv, route == "nan")
-            self.last_pivots = piv
+            self._state, x_abs, ok, piv = self._advance_fast(
+                self._state, ym, u, d, has_u, invP, Nk_prev, Pq, Pinv, route == "nan")
         elif route == "gen":
-            st = {k: v for k, v in self.state.items() if k != "y_warm"}
+            st = {k: v for k, v in self._state.items() if k != "y_warm"}
             new_st, x_abs, ok, its = self._advance(st, ym, u, d, has_u, invP, Nk_prev)
             if self._fast:
                 # a general step invalidates the fast path's dual warm start
-                new_st["y_warm"] = torch.zeros_like(self.state["y_warm"])
-            self.state = new_st
+                new_st["y_warm"] = torch.zeros_like(self._state["y_warm"])
+            self._state = new_st
         else:
-            self.state, x_abs, ok, its = self._advance_nl(self.state, ym, u, d, has_u, Nk_prev)
-        if route in ("gen", "nl"):
+            self._state, x_abs, ok, its = self._advance_nl(self._state, ym, u, d, has_u,
+                                                           Nk_prev)
+        return x_abs, ok, piv, its
+
+    def _inputs_split(self, ym, u_prev, d, lead=()):
+        """Per sub-fleet ``(ym, u_prev, d)`` on its device (``_inputs``):
+        host arrays are sliced on the lane axis and each shard uploads its
+        slice, tensors go through the mesh's split."""
+        if self.mesh is None:
+            return [self._inputs(ym, u_prev, d, lead)]
+        k, dim = self.mesh.k, len(lead)
+        sp = lambda a: [None] * k if a is None else self.mesh.split(
+            a if torch.is_tensor(a) else np.asarray(a, float).reshape(lead + (self.B, -1)), dim)
+        return [sub._inputs(*x, lead) for sub, *x in zip(self._subs, sp(ym), sp(u_prev), sp(d))]
+
+    def _period(self, ins, has_u, route, Nk_prev, mats):
+        """One period of every lane: ``ins`` and ``mats`` (invP, Pq, Pinv
+        on the device in the solve's dtypes) per sub-fleet; returns x̂ on
+        the fleet's device and sets ``last_ok``, ``last_pivots`` (fast
+        path) or ``last_iters`` (general path)."""
+        outs = []
+        for sub, x, m in zip(self._subs, ins, mats):
+            sub.gi, sub.sweep = self.gi, self.sweep
+            outs.append(sub._run(*x, has_u, route, Nk_prev, *m))
+        cat = (lambda a: a[0]) if self.mesh is None else self.mesh.gather
+        x_abs, ok = cat([o[0] for o in outs]), cat([o[1] for o in outs])
+        if outs[0][2] is not None:
+            self.last_pivots = (outs[0][2] if self.mesh is None else
+                                torch.stack([o[2].to(self.device) for o in outs]).max())
+        if outs[0][3] is not None:
+            its = cat([o[3] for o in outs])
             self.last_iters = torch.stack([its.max(), its.sum() // self.B])
         self.last_ok = ok
         return x_abs
+
+    def _host_mats(self, arrays, dt, use_fast):
+        """The period's host matrices (``invP``, and ``Pq``, ``Pinv`` on the
+        fast path; float64, any leading axes) uploaded once per device:
+        ``[(invP, Pq, Pinv)]`` per sub-fleet, invP and Pq in ``dt``."""
+        def put(dev):
+            m = upload(arrays, torch.float64, dev)
+            return (m["invP"].to(dt), m["Pq"].to(dt) if use_fast else None,
+                    m.get("Pinv"))
+        return [put(self.device)] if self.mesh is None else self.mesh.per_device(put)
 
     def step(self, ym, u_prev=None, d=None):
         """Append measurements for every stream and solve in lockstep.
@@ -410,9 +498,9 @@ class BatchedMHE:
         t = self.t
         has_u = u_prev is not None
         moving = (self.Nk + 1) > t.He
-        ym_t, u_t, d_t = self._inputs(ym, u_prev, d)
+        ins = self._inputs_split(ym, u_prev, d)
         if not self._lin:
-            x = self._run(ym_t, u_t, d_t, has_u, "nl", self.Nk)
+            x = self._period(ins, has_u, "nl", self.Nk, [()] * len(ins))
             if not moving:
                 self.Nk += 1
             return x
@@ -429,12 +517,10 @@ class BatchedMHE:
         use_fast = self._fast and (not nan_live or self._nan_fast_ok)
         Nk_prev = self.Nk
         invP, Pq, Pinv = self._host_period(moving, use_fast)
-        dev, dt = self.device, self.dtype
-        m = upload(dict(invP=invP, **({"Pq": Pq, "Pinv": Pinv} if use_fast else {})),
-                   torch.float64, dev)
+        mats = self._host_mats(dict(invP=invP, **({"Pq": Pq, "Pinv": Pinv} if use_fast
+                                                  else {})), self.dtype, use_fast)
         route = ("nan" if nan_live else "fast") if use_fast else "gen"
-        return self._run(ym_t, u_t, d_t, has_u, route, Nk_prev, m["invP"].to(dt),
-                         m["Pq"].to(dt) if use_fast else None, m.get("Pinv"))
+        return self._period(ins, has_u, route, Nk_prev, mats)
 
     def multistep(self, ym_seq, u_prev_seq=None, d_seq=None):
         """K estimation periods with ONE upload (serving mode): ``ym_seq``
@@ -452,12 +538,13 @@ class BatchedMHE:
         t = self.t
         K = len(ym_seq)
         has_u = u_prev_seq is not None
-        ym_s, u_s, d_s = self._inputs(ym_seq, u_prev_seq, d_seq, lead=(K,))
+        ins = self._inputs_split(ym_seq, u_prev_seq, d_seq, lead=(K,))
+        at = lambda k: [tuple(a[k] for a in x) for x in ins]
         if not self._lin:
             X = []
             for k in range(K):
                 moving = (self.Nk + 1) > t.He
-                X.append(self._run(ym_s[k], u_s[k], d_s[k], has_u, "nl", self.Nk))
+                X.append(self._period(at(k), has_u, "nl", self.Nk, [()] * len(ins)))
                 if not moving:
                     self.Nk += 1
             return torch.stack(X)
@@ -484,14 +571,11 @@ class BatchedMHE:
         arrays = {"invP": np.stack([h[0] for h in host])}
         if use_fast:
             arrays.update(Pq=np.stack([h[1] for h in host]), Pinv=np.stack([h[2] for h in host]))
-        m = upload(arrays, torch.float64, self.device)
-        dt = self.dtype
+        mats = self._host_mats(arrays, self.dtype, use_fast)
         X = []
         for k in range(K):
-            X.append(self._run(ym_s[k], u_s[k], d_s[k], has_u, route, Nk_prevs[k],
-                               m["invP"][k].to(dt),
-                               m["Pq"][k].to(dt) if use_fast else None,
-                               m["Pinv"][k] if use_fast else None))
+            mk = [tuple(None if a is None else a[k] for a in m) for m in mats]
+            X.append(self._period(at(k), has_u, route, Nk_prevs[k], mk))
         return torch.stack(X)
 
 

@@ -15,11 +15,11 @@ from ..utils.lti import tf
 
 
 def random_cstr_controllers(n, Hp=10, Hc=2, seed=0, qp_solver="admm",
-                            gi_max_active=None, device=None):
+                            gi_max_active=None, device=None, dtype=None):
     """``n`` LinMPC controllers on randomized first-order-MIMO plants
-    (``qp_solver``, the GI slot cap ``gi_max_active`` and ``device``, the
-    GPU by default, pass through to ``LinMPC``, as bench.py's large-plant
-    builder passes them)."""
+    (``qp_solver``, the GI slot cap ``gi_max_active``, ``device``, the
+    GPU by default, and the step's ``dtype`` pass through to ``LinMPC``, as
+    bench.py's large-plant constructor passes them)."""
     rng = np.random.default_rng(seed)
     ctrls = []
     for _ in range(n):
@@ -31,7 +31,7 @@ def random_cstr_controllers(n, Hp=10, Hc=2, seed=0, qp_solver="admm",
         model = LinModel(G, 2.0)
         c = LinMPC(model, Hp=Hp, Hc=Hc, Mwt=[1.0, 1.0], Nwt=[0.1, 0.1],
                    Cwt=1e5, qp_solver=qp_solver, gi_max_active=gi_max_active,
-                   device=device)
+                   device=device, dtype=dtype)
         c.setconstraint(umin=[-10.0, -10.0], umax=[10.0, 10.0],
                         dumax=[4.0, 4.0], dumin=[-4.0, -4.0],
                         ymin=[-60.0, -60.0], ymax=[60.0, 60.0])

@@ -29,8 +29,11 @@ kernels group them into one block per controller), and
 The linear and MHE loops keep ``sweep`` and ``gi`` attributes, the ADMM
 sweep and the GI solve their QPs go through (checks set the plain
 versions); the SL and NonLin loops solve through their controller module's
-``solve_qp_active``/``solve_qp``, as their fleets do.  ``mesh=`` is not
-ported (ROADMAP queue 1, item 8) and raises.
+``solve_qp_active``/``solve_qp``, as their fleets do.
+``CompiledClosedLoop.run_fleet`` and ``CompiledSLLoop.run_fleet`` take a
+``mesh`` (``parallel/mesh.py``): the noise is drawn on the host for every
+lane as without it, then each shard uploads its lanes' inputs once, runs
+their N periods on its device and is read back once.
 """
 from __future__ import annotations
 
@@ -51,16 +54,11 @@ from .ops.admm_kernel import admm_sweep
 from .ops.gi_kernel import gi_solve, slot_dtype_for
 from .ops.qp import solve_qp
 from .ops.qp_active import gi_state_init, solve_qp_active
+from .parallel.mesh import LaneShards
 from .sim import SimResult, _copy_model
+from .utils.config import as_device
 from .utils.lanes import mv, take
 from .utils.small_linalg import chol_small, inv_spd_small
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded compiled loops are not ported yet (ROADMAP queue 1, "
-            "item 8, batch sharding)")
 
 
 def _vec(v, n):
@@ -160,12 +158,28 @@ def _picker(i_ym, device):
 
 
 def _lanes(cache, B, device, shared):
-    """The loop's lane map for B lanes, made once per B: all zeros (one
-    controller for every lane) or 0..B−1."""
-    if B not in cache:
-        cache[B] = (torch.zeros(B, dtype=torch.int32, device=device) if shared
-                    else torch.arange(B, dtype=torch.int32, device=device))
-    return cache[B]
+    """The loop's lane map for B lanes, made once per B and device: all
+    zeros (one controller for every lane) or 0..B−1."""
+    key = (B, torch.device(device))
+    if key not in cache:
+        cache[key] = (torch.zeros(B, dtype=torch.int32, device=device) if shared
+                      else torch.arange(B, dtype=torch.int32, device=device))
+    return cache[key]
+
+
+def _sharded(mesh, B, per_step, per_lane, run):
+    """``run(B_s, per_step_s, per_lane_s, device) -> record`` on each
+    shard's lanes (host slices of the (B, ·) inputs), then the records read
+    back, one copy a shard, and joined on the lane axis: ``(outputs,
+    None)`` as ``_Record.host()``."""
+    lanes = LaneShards(mesh, B)
+    sl = lambda d: {k: lanes.split(v) for k, v in d.items()}
+    ps, pl = sl(per_step), sl(per_lane)
+    recs = [run(lanes.size, {k: v[s] for k, v in ps.items()},
+                {k: v[s] for k, v in pl.items()}, dev)
+            for s, dev in enumerate(lanes.devices)]
+    outs = [r.host()[0] for r in recs]
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}, None
 
 
 def _plant_dict(plants):
@@ -177,12 +191,14 @@ def _plant_dict(plants):
                 uop=g(lambda p: p.uop), yop=g(lambda p: p.yop), dop=g(lambda p: p.dop))
 
 
-def _qp_state0(ctrl, B):
-    """Initial GI cross-period operator state of B lanes (None for ADMM);
-    the operator stays in the solver's slot precision."""
+def _qp_state0(ctrl, B, device=None):
+    """Initial GI cross-period operator state of B lanes (None for ADMM) on
+    ``device`` (default the controller's); the operator stays in the
+    solver's slot precision."""
     if ctrl.qp_solver != "active_set":
         return None
-    return gi_state_init(ctrl.gi_slots, B, slot_dtype_for(ctrl.dtype, None), ctrl.device)
+    return gi_state_init(ctrl.gi_slots, B, slot_dtype_for(ctrl.dtype, None),
+                         ctrl.device if device is None else device)
 
 
 def _lin_step(ctrl, p, lane, sweep, gi):
@@ -211,7 +227,7 @@ def _solver_state(ctrl, B, dtype, device):
     return dict(Z_tilde=torch.zeros(B, ctrl.nZt, dtype=dtype, device=device),
                 y_dual=torch.zeros(B, ctrl.A_stack.shape[0], dtype=dtype, device=device),
                 rho_rung=torch.full((B,), 4, dtype=torch.int32, device=device),
-                qp_state=_qp_state0(ctrl, B))
+                qp_state=_qp_state0(ctrl, B, device))
 
 
 class CompiledClosedLoop:
@@ -259,14 +275,18 @@ class CompiledClosedLoop:
                           self.dtype, self.device)
         self._lane_maps = {}
 
-    def _loop(self, N, B, xs, st, p, lane, ep, pp, ctrl):
+    def _loop(self, N, B, xs, st, p, lane, ep, pp, ctrl, ym=None):
         """N periods of B lanes: ``xs`` the (N, B, ·) inputs, ``st`` the
-        carried state; returns the output record and the final state."""
+        carried state, every tensor on one device (``ym`` picks the
+        measured outputs there; default this loop's device); returns the
+        output record and the final state."""
         nd, is_kf = self.nd, self._kf
+        dev = xs["ry"].device
+        ym = self._ym if ym is None else ym
         solve = _lin_step(ctrl, p, lane, self.sweep, self.gi)
         nx_hat = ep["A_hat"].shape[-1]
         rec = _Record(N, B, dict(y=self.ny, u=self.nu, y_est=self.ny, x_p=pp["A"].shape[-1],
-                                 x_hat=nx_hat, conv=1), self.dtype, self.device)
+                                 x_hat=nx_hat, conv=1), self.dtype, dev)
         for k in range(N):
             dk = xs["d"][k]
             d0p = dk - pp["dop"] if nd else dk
@@ -276,7 +296,7 @@ class CompiledClosedLoop:
                 y = y + mv(pp["Dd"], d0p)
             # estimator correction (direct form)
             d0 = dk - ep["dop"] if nd else dk
-            y0m = self._ym(y) - ep["yop_m"]
+            y0m = ym(y) - ep["yop_m"]
             x0 = st["x0_hat"]
             y0m_pred = mv(ep["Cm_hat"], x0)
             if nd:
@@ -314,10 +334,20 @@ class CompiledClosedLoop:
             st = new
         return rec, st
 
-    def _start(self, B, lanes_in):
+    def _on(self, dev):
+        """``(params, estimator, plant, measured-output picker)`` on
+        ``dev``: this loop's own on its device, copies elsewhere."""
+        p = self.ctrl._device_params()
+        if as_device(dev) == as_device(self.device):
+            return p, self._ep, self._pp, self._ym
+        to = lambda d: {k: v.to(dev) for k, v in d.items()}
+        return to(p), to(self._ep), to(self._pp), _picker(self.i_ym, dev)
+
+    def _start(self, B, lanes_in, device=None):
         """The carried state at the start: the uploaded lane arrays and the
-        solver's zeros."""
-        st = _solver_state(self.ctrl, B, self.dtype, self.device)
+        solver's zeros (on ``device``, default this loop's)."""
+        st = _solver_state(self.ctrl, B, self.dtype,
+                           self.device if device is None else device)
         st.update({k: lanes_in[k] for k in ("x0_p", "x0_hat", "lastu0", "P_hat")
                    if k in lanes_in})
         return st
@@ -335,8 +365,9 @@ class CompiledClosedLoop:
         plant states ``x_0`` (B, nx) and estimator states ``x_hat_0`` (B,
         nx̂).  Stateless: controller/plant objects are not advanced.
         Returns a dict of stacked trajectories (Y (B,N,ny), U, Y_est, X,
-        X_hat, conv)."""
-        _no_mesh(mesh)
+        X_hat, conv).  ``mesh`` (a sequence of devices) shards the lanes:
+        each shard runs its lanes on its device, with one upload and one
+        download."""
         estim, plant, model = self.estim, self.plant, self.estim.model
         nu, ny, nd, nx = self.nu, self.ny, self.nd, plant.nx
         B, N = int(B), int(N)
@@ -352,14 +383,18 @@ class CompiledClosedLoop:
             lastu0=np.zeros((B, nu)))
         if self._kf:
             lanes_in["P_hat"] = np.tile(np.asarray(estim.P_hat, float), (B, 1, 1))
-        xs = _inputs(self.dtype, self.device,
-                     dict(ry=Ry, d=np.tile(d, (B, N, 1)) if nd else np.zeros((B, N, 0)),
-                          u_step=np.zeros((B, N, nu)), y_step=np.zeros((B, N, ny)),
-                          eps_y=eps_y, eps_u=eps_u, eps_x=eps_x), lanes_in)
-        rec, _ = self._loop(N, B, xs, self._start(B, xs), self.ctrl._device_params(),
-                            _lanes(self._lane_maps, B, self.device, True), self._ep,
-                            self._pp, self.ctrl)
-        out, _ = rec.host()
+        per_step = dict(ry=Ry, d=np.tile(d, (B, N, 1)) if nd else np.zeros((B, N, 0)),
+                        u_step=np.zeros((B, N, nu)), y_step=np.zeros((B, N, ny)),
+                        eps_y=eps_y, eps_u=eps_u, eps_x=eps_x)
+
+        def run(Bs, per_step, per_lane, dev):
+            xs = _inputs(self.dtype, dev, per_step, per_lane)
+            p, ep, pp, ym = self._on(dev)
+            return self._loop(N, Bs, xs, self._start(Bs, xs, dev), p,
+                              _lanes(self._lane_maps, Bs, dev, True), ep, pp, self.ctrl,
+                              ym)[0]
+        out, _ = (run(B, per_step, lanes_in, self.device).host() if mesh is None
+                  else _sharded(mesh, B, per_step, lanes_in, run))
         return dict(Y=out["y"], U=out["u"], Y_est=out["y_est"], X=out["x_p"],
                     X_hat=out["x_hat"], conv=out["conv"][..., 0] > 0.5)
 
@@ -547,19 +582,26 @@ class CompiledSLLoop:
         self._lane_maps = {}
 
     def _loop(self, N, B, xs, st, x0p):
-        ctrl, po, nd = self.ctrl, self._pop, self.nd
-        step, bounds = ctrl._step, ctrl.bounds()
-        lane = _lanes(self._lane_maps, B, self.device, False)
+        """N periods of B lanes on the device of the inputs ``xs``."""
+        ctrl, nd, dev = self.ctrl, self.nd, xs["ry"].device
+        step = ctrl._step_on(dev)
+        if as_device(dev) == as_device(self.device):
+            bounds, po, xop_hat, ym = ctrl.bounds(), self._pop, self._xop_hat, self._ym
+        else:
+            to = lambda d: {k: v.to(dev) for k, v in d.items()}
+            bounds, po, ym = to(ctrl.bounds()), to(self._pop), _picker(self.i_ym, dev)
+            xop_hat = self._xop_hat.to(dev)
+        lane = _lanes(self._lane_maps, B, dev, False)
         rec = _Record(N, B, dict(y=self.ny, u=self.nu, x_p=self.plant.nx,
-                                 x_hat=ctrl.nx_hat, conv=1), self.dtype, self.device)
+                                 x_hat=ctrl.nx_hat, conv=1), self.dtype, dev)
         for k in range(N):
             dk = xs["d"][k]
             d0p = dk - po["dop"] if nd else dk
             y = self._vh(x0p, d0p) + po["yop"] + xs["eps_y"][k]
-            u, conv, st = step(st, self._ym(y), xs["ry"][k], dk, bounds, lane)
+            u, conv, st = step(st, ym(y), xs["ry"][k], dk, bounds, lane)
             u0p = (u + xs["u_step"][k] + xs["eps_u"][k]) - po["uop"]
             rec.put(k, y=y, u=u, conv=conv, x_p=x0p + po["xop"],
-                    x_hat=st["x_hat"] + self._xop_hat)
+                    x_hat=st["x_hat"] + xop_hat)
             x0p = self._vf(x0p, u0p, d0p) + po["fop_m_xop"] + xs["eps_x"][k]
         return rec, st, x0p
 
@@ -606,8 +648,9 @@ class CompiledSLLoop:
         ``ry``: (ny,), (B, ny) or (B, N, ny); ``x_0``: (B, nx) absolute
         initial plant states.  All lanes start from the controller's current
         state.  Stateless (does not advance ``ctrl``/``plant``).  Returns a
-        dict of stacked trajectories (Y, U, X, X_hat, conv)."""
-        _no_mesh(mesh)
+        dict of stacked trajectories (Y, U, X, X_hat, conv).  ``mesh`` (a
+        sequence of devices) shards the lanes: each shard runs its lanes on
+        its device, with one upload and one download."""
         ctrl, plant = self.ctrl, self.plant
         nu, ny, nd, nx = self.nu, self.ny, self.nd, plant.nx
         B, N = int(B), int(N)
@@ -617,12 +660,15 @@ class CompiledSLLoop:
                                            _vec(u_noise, nu), _vec(x_noise, nx), seed)
         x0p = (np.tile(np.asarray(plant.x0, float), (B, 1)) if x_0 is None
                else np.asarray(x_0, float) - plant.xop)
-        xs = _inputs(self.dtype, self.device,
-                     dict(ry=Ry, d=np.tile(d, (B, N, 1)) if nd else np.zeros((B, N, 0)),
-                          u_step=np.zeros((B, N, nu)), eps_y=eps_y, eps_u=eps_u,
-                          eps_x=eps_x), dict(x0_p=x0p))
-        rec, _, _ = self._loop(N, B, xs, ctrl.fleet_state(B), xs["x0_p"])
-        out, _ = rec.host()
+        per_step = dict(ry=Ry, d=np.tile(d, (B, N, 1)) if nd else np.zeros((B, N, 0)),
+                        u_step=np.zeros((B, N, nu)), eps_y=eps_y, eps_u=eps_u, eps_x=eps_x)
+
+        def run(Bs, per_step, per_lane, dev):
+            xs = _inputs(self.dtype, dev, per_step, per_lane)
+            st = {k: v.to(dev) for k, v in ctrl.fleet_state(Bs).items()}
+            return self._loop(N, Bs, xs, st, xs["x0_p"])[0]
+        out, _ = (run(B, per_step, dict(x0_p=x0p), self.device).host() if mesh is None
+                  else _sharded(mesh, B, per_step, dict(x0_p=x0p), run))
         return dict(Y=out["y"], U=out["u"], X=out["x_p"], X_hat=out["x_hat"],
                     conv=out["conv"][..., 0] > 0.5)
 
@@ -729,13 +775,11 @@ class CompiledNonLinLoop:
                          D_data=dks if nd else np.zeros((N, 1)),
                          X_data=out["x_p"], X_est_data=out["x_hat"])
 
-    def run_fleet(self, B, N, ry=None, *, x_0=None, y_noise=None, d=None, seed=0,
-                  mesh=None):
+    def run_fleet(self, B, N, ry=None, *, x_0=None, y_noise=None, d=None, seed=0):
         """B independent NonLinMPC closed loops on one lane axis
         (stateless; lane i ≡ ``run(seed=seed+i)``).  Returns a dict of
         stacked trajectories (Y, U, X, X_hat, J); ``last_iters`` (B, N)
         holds each lane's SQP iterations."""
-        _no_mesh(mesh)
         plant, model = self.plant, self.ctrl.estim.model
         ny, nd = self.ny, self.nd
         B, N = int(B), int(N)

@@ -36,3 +36,12 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {str(dev)!r} was requested but "
                            "torch.cuda.is_available() is False")
     return dev
+
+
+def as_device(device) -> torch.device:
+    """``torch.device(device)``, a CUDA device without an index made the
+    current card's, so that equal devices compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

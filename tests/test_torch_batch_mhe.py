@@ -313,10 +313,9 @@ def test_gn_last_step_round_off_tie(gn):
 
 @pytest.mark.parametrize("case", ["direct", "solver", "chunks", "chunk_split", "mesh", "dtype"])
 def test_fleet_validation(case):
-    """The reference's argument checks (batch_mhe.py:89-101); ``mesh`` is
-    not ported and says so."""
-    err = NotImplementedError if case == "mesh" else (TypeError if case == "dtype"
-                                                      else ValueError)
+    """The reference's argument checks (batch_mhe.py:89-101); a ``mesh``
+    that is not a sequence of devices is a ``TypeError``."""
+    err = TypeError if case in ("mesh", "dtype") else ValueError
     kw = {"solver": dict(solver="osqp"), "chunks": dict(gi_chunks=0),
           "chunk_split": dict(gi_chunks=3), "mesh": dict(mesh=object()),
           "dtype": dict(dtype=torch.int32)}.get(case, {})

@@ -111,8 +111,10 @@ def test_chunk_changes_no_answer():
 
 def test_options_and_validation():
     c = bench(mt, Hp=6)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="mesh"):
         BatchedNonLinMPC(c, 4, mesh=object())
+    fl = BatchedNonLinMPC(c, 4, mesh=["cpu", CPU], chunk=3)   # chunk ignored
+    assert fl.chunk is None and fl.state["Z_tilde"].shape[0] == 4
     with pytest.raises(TypeError, match="dtype"):
         BatchedNonLinMPC(c, 4, dtype=np.float32)
     lin = mt.NonLinMPC(mt.LinModel(mt.tf(3, [10, 1]), 1.0), Hp=5, device=CPU)

@@ -549,3 +549,74 @@ def test_compiled_loop_on_card_matches_cpu(name):
             assert np.all(np.isfinite(a) == np.isfinite(b)), k
             err = np.max(np.abs(np.nan_to_num(a - b)), initial=0.0)
             assert err <= bar * (1 + np.max(np.abs(np.nan_to_num(b)), initial=0.0)), k
+
+
+def _export_case(dev, solver):
+    """tests/test_codegen.py's SISO controller (ADMM export) or the README
+    controller (GI in both the export and the controller) on ``dev``."""
+    import mpc_tpu_torch as mt
+    if solver == "admm":
+        m = mt.LinModel(mt.tf(3, [10, 1]), 1.0)
+        m.setop(uop=[2.0], yop=[5.0])
+        c = mt.LinMPC(m, Hp=10, Hc=2, Cwt=1e5, device=dev)
+        c.setconstraint(umin=[-10], umax=[10], dumax=[3], dumin=[-3], ymax=[9.0], ymin=[0.0])
+        return c, [7.0], 2e-4, "admm_sweep"
+    G = mt.tf_matrix([[mt.tf(2, [10, 1]) * mt.delay(20)], [mt.tf(10, [4, 1])]])
+    c = mt.LinMPC(mt.LinModel(G, 1.0), Mwt=[1, 0], Nwt=[0.1], qp_solver="active_set",
+                  device=dev)
+    c.setconstraint(ymax=[np.inf, 35])
+    return c, [5.0, 0.0], 1e-9, "gi_solve"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["admm", "active_set"])
+def test_export_of_a_card_controller_matches_moveinput(solver):
+    """``export_c`` of a ``device="cuda"`` controller (read from its host
+    params) against its own ``moveinput`` on the card, over 15 noisy
+    periods, at the bar of the reference's test of that controller."""
+    import ctypes
+    import shutil
+    from mpc_tpu_torch.codegen import compile_and_load, export_c
+    dev = _card()
+    if shutil.which("gcc") is None:
+        pytest.skip("no C compiler")
+    ctrl, ry, bar, kernel = _export_case(dev, solver)
+    lib = compile_and_load(export_c(ctrl, name="cx", solver=solver), name="cx")
+    m = ctrl.A_stack.shape[0]
+    fields = [("xhat", ctypes.c_double * ctrl.estim.nx_hat),
+              ("lastu0", ctypes.c_double * ctrl.estim.model.nu),
+              ("z", ctypes.c_double * ctrl.nZt)]
+    fields += [("zd", ctypes.c_double * m)] if solver == "admm" else []
+    st = type("State", (ctypes.Structure,), {"_fields_": fields + [("yd", ctypes.c_double * m)]})()
+    lib.cx_init(ctypes.byref(st))
+    nu, ny = ctrl.estim.model.nu, ctrl.estim.model.ny
+    u_c, rng, n0 = (ctypes.c_double * nu)(), np.random.default_rng(3), LAUNCHES[kernel]
+    for k in range(15):
+        y = np.full(ny, 5.0 if solver == "admm" else 0.0) + rng.normal(size=ny) * 0.3
+        ctrl.preparestate(y)
+        u = ctrl.moveinput(ry)
+        ctrl.updatestate(u, y)
+        lib.cx_step(ctypes.byref(st), (ctypes.c_double * ny)(*y),
+                    (ctypes.c_double * ny)(*ry), (ctypes.c_double * 1)(), u_c)
+        assert np.max(np.abs(np.array(u_c[:]) - u)) < bar, k
+    assert LAUNCHES[kernel] > n0
+
+
+@pytest.mark.cuda
+def test_two_shard_headline_fleet_matches_unsharded():
+    """The headline-GI fleet's controllers (16 distinct × 8 replicas,
+    float32, float64 slots) on a mesh of two shards of the card against the
+    unsharded fleet: u within 1e-4·(1 + max|u|), the same converged count."""
+    dev = _card()
+    ctrls = random_cstr_controllers(16, Hp=10, Hc=2, seed=0, qp_solver="active_set",
+                                    device="cpu")
+    kw = dict(reps=8, dtype=torch.float32, device=dev)
+    sharded = BatchedLinMPC(ctrls, mesh=["cuda:0", "cuda:0"], **kw)
+    plain = BatchedLinMPC(ctrls, **kw)
+    rng = np.random.default_rng(0)
+    for k in range(4):
+        ym, ry = rng.normal(size=(128, 2)), 2.0 + rng.normal(size=(128, 2))
+        (us, ns), (up, np_) = sharded.step(ym, ry), plain.step(ym, ry)
+        err = float((us - up).abs().max())
+        assert err <= 1e-4 * (1.0 + float(up.abs().max())), (k, err)
+        assert int(ns) == int(np_) == 128

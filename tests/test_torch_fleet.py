@@ -308,17 +308,22 @@ def test_gi_state_round_trip_continues_reference_run():
 @pytest.mark.parametrize("option", ["mesh", "grouped_chunks",
                                     "limit_solve_time"])
 def test_unported_options_raise(option):
-    """mesh and grouped_chunks raise; limit_solve_time is ported (its
-    parity cases are tests/test_torch_deadline.py) and builds a fleet with
-    the deadline bookkeeping at rest."""
+    """Every option of the reference's fleet is ported: mesh and
+    grouped_chunks build a fleet that steps as the plain one (their parity
+    cases are tests/test_torch_mesh.py); limit_solve_time (its parity cases
+    are tests/test_torch_deadline.py) builds a fleet with the deadline
+    bookkeeping at rest."""
     ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(2, seed=0, device=CPU)
     if option == "limit_solve_time":
         fleet = BatchedLinMPC(ctrls, limit_solve_time=True, device=CPU)
         assert fleet.limit_solve_time and fleet.Ts == 2.0
         assert fleet.last_step_time is None and fleet.deadline_miss_count == 0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if option == "mesh":
-            BatchedLinMPC(ctrls, mesh=object(), device=CPU)
-        else:
-            BatchedLinMPC(ctrls, reps=2, grouped_chunks=2, device=CPU)
+    kw = dict(mesh=[CPU, "cpu"]) if option == "mesh" else dict(grouped_chunks=2)
+    fleet = BatchedLinMPC(ctrls, reps=2, device=CPU, **kw)
+    plain = BatchedLinMPC(ctrls, reps=2, device=CPU)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        ym, ry = rng.normal(size=(4, 2)), rng.normal(size=(4, 2))
+        (u, nc), (u0, nc0) = fleet.step(ym, ry), plain.step(ym, ry)
+        assert torch.allclose(u, u0, rtol=0, atol=1e-12) and int(nc) == int(nc0) == 4

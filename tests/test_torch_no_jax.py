@@ -38,6 +38,10 @@ def test_import_pulls_in_no_jax():
             "CompiledMHELoop, CompiledMHEMPCLoop, CompiledNonLinLoop); "
             "from mpc_tpu_torch.sim_compiled import CompiledClosedLoopFleet; "
             "from mpc_tpu_torch.utils.symbolic import nonlinmodel_from_sympy; "
+            "import mpc_tpu_torch.codegen, mpc_tpu_torch.native, mpc_tpu_torch.parallel.mesh; "
+            "from mpc_tpu_torch.codegen import export_c, compile_and_load; "
+            "from mpc_tpu_torch.native import RTStats, build_executor, rt_run_exported; "
+            "from mpc_tpu_torch.parallel.mesh import LaneShards; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'mpc_tpu.')) "
             "or m == 'mpc_tpu'); "

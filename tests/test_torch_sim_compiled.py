@@ -225,11 +225,17 @@ def _siso_fns(pkg):
 
 
 def test_mesh_is_not_ported():
-    """The reference shards run_fleet over a mesh; the port raises
-    (ROADMAP queue 1, item 8) rather than ignore it."""
+    """run_fleet shards over a mesh of devices, as the reference's over a
+    ``jax.sharding.Mesh``: a CPU mesh gives the unsharded answers, and a
+    mesh that is not a sequence of devices is a ``TypeError`` (the parity
+    cases are tests/test_torch_mesh.py)."""
     loop = ps.CompiledClosedLoop(mk(mt, qp_solver="active_set"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="mesh"):
         loop.run_fleet(8, 10, ry=[5, 1], seed=2, mesh=object())
+    a = loop.run_fleet(8, 10, ry=[5, 1], seed=2, y_noise=[0.1, 0.1], mesh=["cpu"] * 2)
+    b = loop.run_fleet(8, 10, ry=[5, 1], seed=2, y_noise=[0.1, 0.1])
+    for k in b:
+        assert np.allclose(a[k], b[k], rtol=0, atol=1e-12), k
 
 
 def test_active_set_float32():

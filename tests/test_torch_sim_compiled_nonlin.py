@@ -176,7 +176,13 @@ def test_rejections_and_mesh():
                             **on_cpu(pkg))
         with pytest.raises(TypeError, match="UnscentedKalmanFilter"):
             L.CompiledNonLinLoop(ekf)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the reference's NonLin fleet takes no mesh; the SL fleet shards over one
+    for L, c in ((rs, nonlinmpc(mr)), (ps, nonlinmpc(mt))):
+        with pytest.raises(TypeError, match="mesh"):
+            L.CompiledNonLinLoop(c).run_fleet(2, 3, mesh=object())
+    with pytest.raises(TypeError, match="mesh"):
         ps.CompiledSLLoop(slmpc(mt)).run_fleet(2, 3, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ps.CompiledNonLinLoop(nonlinmpc(mt)).run_fleet(2, 3, mesh=object())
+    a = ps.CompiledSLLoop(slmpc(mt)).run_fleet(2, 3, mesh=["cpu", "cpu"])
+    b = ps.CompiledSLLoop(slmpc(mt)).run_fleet(2, 3)
+    for k in b:
+        assert np.allclose(a[k], b[k], rtol=0, atol=1e-12), k
