@@ -13,7 +13,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    and the kernel's device time (profiler, and CUDA events around the
    launch alone); 3b. both kernels on every lane
    layout, and the sweep on QPs wider than its block (n=300);
-4. the kernel's shared-memory size guard;
+4. QPs beyond a block's shared memory (n=64, m=1024): the sweep in float32
+   and float64 and the GI solve in float64 run in the kernels' global
+   layout and hold to their plain versions;
 5. a small float64 fleet on the card against the same fleet on the CPU
    (the plain path, which the CPU tests hold to the JAX reference);
 6. THE MAIN PATH: the headline fleet — 256 randomized 2x2 CSTR-like LinMPC
@@ -137,7 +139,26 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    F32_TOL·(1 + max|u|) on all but CHUNK_FLIPS lanes, with the period wall
    time, sweep launches and host syncs, the float32 spread of one period
    (kernel against plain sweep) beside it, and the same chunks in float64
-   (B=256), every lane within 1e-9·(1 + max|u|).
+   (B=256), every lane within 1e-9·(1 + max|u|);
+37. THE GLOBAL LAYOUT'S MAIN PATHS, QPs whose one-lane block exceeds the
+   shared memory of an SM: (a) one 8x8 LinMPC of bench.py's plants at
+   Hp=25, Hc=4, float64 (n=33, m=897), ``sim`` for 30 periods with GI (33
+   slots) and ADMM on the card against the CPU (u to 1e-6, GI's iteration
+   counts equal), the median ``moveinput``, each kernel against its plain
+   version on one more period's inputs; (b) bench_horizon.py's fleet at
+   Hp=60: 32 random 8x8 plants x 128 = 4096 lanes, float32 (n=33, m=2017),
+   GI (``gi_max_active=12``) then ADMM, each kernel against its plain
+   version on a steady period's inputs at B=256 (32 x 8), then 8 periods
+   with the launch counts read around them, the converged share against
+   0.99 (required for GI; ADMM's is reported: its 250-iteration budget
+   stops lanes at this horizon in the reference too); (c)
+   examples/mhe_estimation.py's MovingHorizonEstimator at He=40, float64
+   (n=82, m=202, 82 slots), 50 periods card vs CPU (x̂ to 1e-9·(1 +
+   max|x̂|)), the GI kernel against its plain version on one more window;
+   (d) the global layout forced on the captured inputs of headline-GI,
+   large-GI, headline-ADMM and 8x8/Hp=15 ADMM: the resident layout's bits
+   (max |Δ| = 0 on x, λ, the iterations and flags, and on x, z, y) and
+   each layout's device time.
 
 The line before the last is the card's name and power limit, and before it
 a JSON object of the kernels; the last line is
@@ -359,34 +380,52 @@ def gi_bound(torch, args, it):
     return bound(nbytes, flops, sd)
 
 
-def admm_residency(torch, ops, _build, a):
-    """Lanes resident per SM for a sweep launch on these inputs (the
-    runtime's occupancy calculator at the launch's geometry)."""
+def card_geometry(torch):
+    """(shared-memory budget of a block, SMs) of the card, as the wrappers
+    read them."""
+    from mpc_tpu_torch.ops import _build
+    props = torch.cuda.get_device_properties(0)
+    return _build.launch_budget(props), props.multi_processor_count
+
+
+def admm_geometry(torch, a, layout=None):
+    """The launch geometry a sweep on these inputs takes (``layout`` None:
+    the wrapper's choice)."""
     from mpc_tpu_torch.ops import admm_kernel
     n, m, s = a["x"].shape[1], a["z"].shape[1], a["x"].element_size()
-    props = torch.cuda.get_device_properties(0)
-    table, _, warps, grouped, smem = admm_kernel.launch_geometry(
-        a["lane_ctrl"], n, m, s, props.shared_memory_per_block_optin,
-        props.multi_processor_count)
-    blocks = _build.load_library().mpc_admm_blocks_per_sm(int(s == 8), int(grouped),
-                                                          table.shape[1], 32 * warps, smem)
-    return blocks * table.shape[1], dict(blocks_per_sm=blocks, lanes_per_block=table.shape[1],
-                                         threads=32 * warps, grouped=grouped,
-                                         smem_bytes=smem)
+    return admm_kernel.launch_geometry(a["lane_ctrl"], n, m, s, *card_geometry(torch), layout)
 
 
-def gi_residency(torch, _build, args):
+def gi_geometry(torch, args, layout=None):
+    """The launch geometry a GI solve on these inputs takes."""
     from mpc_tpu_torch.ops import gi_kernel
     Pinv, A, lc, q, l = args[:5]
-    n, m, ns = q.shape[1], l.shape[1], args[6].shape[1]
-    props = torch.cuda.get_device_properties(0)
-    table, _, warps, smem = gi_kernel.launch_geometry(
-        lc, n, m, ns, A.element_size(), Pinv.element_size(),
-        props.shared_memory_per_block_optin, props.multi_processor_count)
+    return gi_kernel.launch_geometry(lc, q.shape[1], l.shape[1], args[6].shape[1],
+                                     A.element_size(), Pinv.element_size(),
+                                     *card_geometry(torch), layout)
+
+
+def admm_residency(torch, ops, _build, a, layout=None):
+    """Lanes resident per SM for a sweep launch on these inputs (the
+    runtime's occupancy calculator at the launch's geometry and layout)."""
+    s = a["x"].element_size()
+    table, _, warps, grouped, smem, layout = admm_geometry(torch, a, layout)
+    blocks = _build.load_library().mpc_admm_blocks_per_sm(
+        int(s == 8), int(layout == "global"), int(grouped), table.shape[1], 32 * warps, smem)
+    return blocks * table.shape[1], dict(blocks_per_sm=blocks, lanes_per_block=table.shape[1],
+                                         threads=32 * warps, grouped=grouped,
+                                         smem_bytes=smem, layout=layout)
+
+
+def gi_residency(torch, _build, args, layout=None):
+    Pinv, A = args[:2]
+    table, _, warps, smem, layout = gi_geometry(torch, args, layout)
     variant = {(4, 8): 0, (4, 4): 1, (8, 8): 2}[(A.element_size(), Pinv.element_size())]
-    blocks = _build.load_library().mpc_gi_blocks_per_sm(variant, warps, smem)
+    blocks = _build.load_library().mpc_gi_blocks_per_sm(variant, int(layout == "global"),
+                                                        warps, smem)
     return blocks * warps, dict(blocks_per_sm=blocks, warps=warps,
-                                lanes_per_block=table.shape[1], smem_bytes=smem)
+                                lanes_per_block=table.shape[1], smem_bytes=smem,
+                                layout=layout)
 
 
 class _Captured(Exception):
@@ -469,37 +508,73 @@ def tile_lanes(args, k):
             else base[a] for a in SWEEP_ARGS] + list(args[12:])
 
 
-def sweep_errors(torch, ops, name, args):
+def sweep_errors(torch, ops, name, args, at_floor=False):
     """Kernel and plain sweep on the same inputs, array by array.
 
     Each of x, z and y must agree to F32_TOL·(1 + its own max|plain|); the
     lanes masked off must come back bit-unchanged from both.  ``floor`` is
     the plain float32 sweep's distance to the same sweep in float64: the
-    rounding noise the bar has to admit."""
+    rounding noise the bar has to admit.
+
+    ``at_floor``, for a float32 shape whose floor exceeds that bar (the
+    8x8 fleet at Hp=60, where the ρ ladder's Minv reaches a condition
+    number of ~7e3): each array of the kernel's float32 sweep must lie
+    within floor + F32_TOL·(1 + max|f64|) of the float64 sweep — no
+    farther than the plain float32 sweep lies from it — and the kernel run
+    in float64 on the same inputs must agree with the plain float64 sweep
+    to 1e-10·(1 + max|plain|), which checks its arithmetic at this
+    shape.  The floor after one sweep is printed beside F32_TOL's bar: it
+    shows whether fewer sweeps would bring the float32 check under that
+    bar."""
     base = dict(zip(SWEEP_ARGS, args[:12]))
     iters, sigma, alpha = args[12:]
     runs = {}
-    for label, fn, dt in (("kernel", ops.admm_sweep, None),
-                          ("plain", ops.admm_sweep_reference, None),
-                          ("f64", ops.admm_sweep_reference, torch.float64)):
+    versions = [("kernel", ops.admm_sweep, None), ("plain", ops.admm_sweep_reference, None),
+                ("f64", ops.admm_sweep_reference, torch.float64)]
+    if at_floor:
+        versions.append(("kernel f64", ops.admm_sweep, torch.float64))
+    for label, fn, dt in versions:
         a = {k: (v.to(dt) if dt is not None and v.is_floating_point() else v.clone())
              for k, v in base.items()}
         fn(*(a[k] for k in SWEEP_ARGS), iters, sigma, alpha)
         runs[label] = a
+    if at_floor:
+        one = {}
+        for label, dt in (("f32", None), ("f64", torch.float64)):
+            a = {k: (v.to(dt) if dt is not None and v.is_floating_point() else v.clone())
+                 for k, v in base.items()}
+            ops.admm_sweep_reference(*(a[k] for k in SWEEP_ARGS), 1, sigma, alpha)
+            one[label] = a
+        print(f"{name}: after one sweep the plain float32 floor is "
+              + ", ".join(f"{k} {(one['f32'][k].double() - one['f64'][k]).abs().max().item():.3e}"
+                          f" (F32_TOL bar {F32_TOL * (1 + one['f32'][k].abs().max().item()):.3e})"
+                          for k in ("x", "z", "y")), flush=True)
     off = ~base["active"]
     worst, parts = 0.0, []
     for k in ("x", "z", "y"):
-        ker, pln = runs["kernel"][k], runs["plain"][k]
+        ker, pln, f64 = runs["kernel"][k], runs["plain"][k], runs["f64"][k]
         err = (ker - pln).abs().max().item()
         tol = F32_TOL * (1.0 + pln.abs().max().item())
-        floor = (pln.double() - runs["f64"][k]).abs().max().item()
-        check(np.isfinite(err) and err <= tol,
-              f"{name}: kernel and plain sweep disagree on {k}: {err:.3e} > {tol:.3e}")
-        for label in ("kernel", "plain"):
-            check(torch.equal(runs[label][k][off], base[k][off]),
+        floor = (pln.double() - f64).abs().max().item()
+        if at_floor:
+            dist = (ker.double() - f64).abs().max().item()
+            tol = floor + F32_TOL * (1.0 + f64.abs().max().item())
+            check(np.isfinite(dist) and dist <= tol, f"{name}: the kernel's float32 sweep "
+                  f"is {dist:.3e} from the float64 one on {k} > {tol:.3e}")
+            e64 = (runs["kernel f64"][k] - f64).abs().max().item()
+            tol64 = 1e-10 * (1.0 + f64.abs().max().item())
+            check(np.isfinite(e64) and e64 <= tol64, f"{name}: kernel and plain sweep in "
+                  f"float64 disagree on {k}: {e64:.3e} > {tol64:.3e}")
+            parts.append(f"{k} {err:.3e} (kernel to float64 {dist:.3e}, tol {tol:.3e}, f32 "
+                         f"floor {floor:.3e}; in float64 {e64:.3e}, tol {tol64:.3e})")
+        else:
+            check(np.isfinite(err) and err <= tol,
+                  f"{name}: kernel and plain sweep disagree on {k}: {err:.3e} > {tol:.3e}")
+            parts.append(f"{k} {err:.3e} (tol {tol:.3e}, f32 floor {floor:.3e})")
+        for label in runs:
+            check(torch.equal(runs[label][k][off], base[k][off].to(runs[label][k].dtype)),
                   f"{name}: the {label} sweep moved {k} of masked-off lanes")
         worst = max(worst, err)
-        parts.append(f"{k} {err:.3e} (tol {tol:.3e}, f32 floor {floor:.3e})")
     B = base["x"].shape[0]
     on = base["active"]
     warm = int((base["y"][on].abs().amax(1) >= Y_WARM).sum())
@@ -510,12 +585,12 @@ def sweep_errors(torch, ops, name, args):
     return worst
 
 
-def kernel_vs_plain(torch, ops, name, args):
+def kernel_vs_plain(torch, ops, name, args, at_floor=False):
     """Kernel and plain sweep on the same CUDA inputs: error and times."""
     names = SWEEP_ARGS
     base = dict(zip(names, args[:12]))
     iters, sigma, alpha = args[12:]
-    err = sweep_errors(torch, ops, name, args)
+    err = sweep_errors(torch, ops, name, args, at_floor)
     torch.cuda.synchronize()
 
     def fresh():
@@ -542,7 +617,7 @@ def kernel_vs_plain(torch, ops, name, args):
           f"around the launch, {ms_k:.4f} ms call (CUDA events); plain {ms_p:.4f} ms; bound "
           f"{b_ms:.4f} ms ({b_by}), roofline share {b_ms / ms_d:.4f}", flush=True)
     return dict(err=err, ms=ms_d, event_ms=ms_e, call_ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by, args=base)
+                bound_by=b_by, args=base, tail=(iters, sigma, alpha))
 
 
 def pallas_test_batch(torch, dev):
@@ -645,11 +720,12 @@ def small_fleet_check(torch, BatchedLinMPC, ctrls, label):
           f"{worst:.3e} (bar 1e-6)", flush=True)
 
 
-def drive(torch, ops, name, fleet, loop, n_step, K=4):
+def drive(torch, ops, name, fleet, loop, n_step, K=4, conv_bar=0.99):
     """THE MAIN PATH of one fleet: a first period from rest, then — with the
     launch counts set to 0 — ``n_step`` closed-loop ``step`` periods and one
     ``multistep(K)``.  Fails on non-finite u or a last period below
-    0.99·B converged.  Returns the launch counts and the median solves/s."""
+    ``conv_bar``·B converged (None: reported only).  Returns the launch
+    counts, the median solves/s and the last period's converged count."""
     B = fleet.B
     zero = torch.zeros(B, fleet.nym, device=fleet.device, dtype=fleet.dtype)
     u, _ = fleet.step(zero, torch.zeros(B, fleet.ny, device=fleet.device,
@@ -694,9 +770,10 @@ def drive(torch, ops, name, fleet, loop, n_step, K=4):
     print(f"{name} main path: {n_step + K} periods, kernel launches {launches}, "
           f"median {med:.0f} solves/s over the {n_step} step periods", flush=True)
     check(finite, f"{name} main path: non-finite u")
-    check(n_conv >= 0.99 * B, f"{name} main path: last period n_conv {n_conv} < 0.99·{B}")
+    check(conv_bar is None or n_conv >= conv_bar * B,
+          f"{name} main path: last period n_conv {n_conv} < {conv_bar}·{B}")
     check(U.shape == (K, B, fleet.nu), f"{name}: multistep U has shape {tuple(U.shape)}")
-    return launches, med
+    return launches, med, n_conv
 
 
 def plain_period(torch, name, fleet, loop, attr, kernel_fn, plain_fn):
@@ -913,10 +990,11 @@ def layout_sweep_inputs(torch, dev, lc, n, m, dtype, n_lad=9, seed=0):
             torch.tensor(rng.random(B) >= 0.2, device=dev), 10, 1e-6, 1.6]
 
 
-def gi_layout_inputs(torch, ops, dev, lc, n=6, m=24, cap=3, seed=0):
+def gi_layout_inputs(torch, ops, dev, lc, n=6, m=24, cap=3, seed=0, **kw):
     """float64 GI solve inputs of gi_random_inputs' kind with P and A per
     controller of ``lc`` (bounds per lane, around its controller's rows) and
-    junk dual warm starts on half the lanes."""
+    junk dual warm starts on half the lanes (``kw``: more ``solve_qp_active``
+    options)."""
     rng = np.random.default_rng(seed)
     lcn = lc.cpu().numpy()
     B, n_d = lcn.size, int(lcn.max()) + 1
@@ -937,7 +1015,7 @@ def gi_layout_inputs(torch, ops, dev, lc, n=6, m=24, cap=3, seed=0):
         return ops.gi_solve_reference(*args)
     ops.solve_qp_active(t(P), t(rng.normal(size=(B, n))), t(A), t(l), t(Ax + margin), y0,
                         lane_ctrl=lc, cache=dict(gic_Pinv=t(Pinv)), max_active=cap,
-                        solve=capture)
+                        solve=capture, **kw)
     return rec["args"]
 
 
@@ -3112,6 +3190,312 @@ def mesh_phase(torch, mt, ops, dev, small=False):
     return launches, head, large
 
 
+# --- 4 and 37. QPs beyond a block's shared memory: the global layout ---------
+BIG_HP = 25            # 37a: the 8x8 controller at Hp=25 (n=33, m=897 in float64)
+FLEET_HP = 60          # 37b: bench_horizon.py's 8x8 fleet with MPC_HORIZONS=60
+MHE_HE = 40            # 37c: examples/mhe_estimation.py's estimator at He=40
+MHE_GI_TOL = 1e-9      # x̂ card vs CPU with GI: 1e-9·(1 + max|x̂|) (PERF.md §2)
+
+
+def beyond_smem_phase(torch, ops, dev):
+    """Phase 4: QPs of n=64, m=1024, whose one-lane block fits no SM's
+    shared memory, solve on the card in the global layout and hold to the
+    plain versions: the sweep in float32 and float64 (B=2, one controller,
+    10 sweeps: x, z, y to F32_TOL·(1 + max|plain|), 1e-10 in float64, the
+    frozen lane bit-unchanged) and the GI solve in float64 (B=64, 4
+    controllers, junk dual warm starts on half the lanes: equal flags,
+    iterations and active sets, x to 1e-9·(1 + max|x|), the float64 bar of
+    tests/test_torch_cuda.py: over the ~250 rank-one updates of Ginv that
+    the junk costs here the kernel's and the plain version's sums, taken in
+    other orders, part by ~1e-11; the cap is 600 pivots).  Returns the
+    largest errors."""
+    from mpc_tpu_torch.ops import admm_kernel
+    n, m = 64, 1024
+    zi = lambda k: torch.zeros(k, dtype=torch.int32, device=dev)
+    worst = {}
+    for dt in (torch.float32, torch.float64):
+        a = dict(zip(SWEEP_ARGS, layout_sweep_inputs(torch, dev, zi(2), n, m, dt)))
+        check(admm_geometry(torch, a)[-1] == "global", "n=64, m=1024 sweep: not the global "
+              "layout")
+        worst["admm_sweep"] = max(worst.get("admm_sweep", 0.0), sweep_layout_check(
+            torch, ops, dev, "beyond shared memory", zi(2), n, m, dt,
+            admm_kernel.WARP_LANES_PER_SM))
+    lc = (torch.arange(64, device=dev) % 4).to(torch.int32)
+    args = gi_layout_inputs(torch, ops, dev, lc, n=n, m=m, cap=None, max_pivots=600)
+    check(gi_geometry(torch, args)[-1] == "global", "n=64, m=1024 GI: not the global layout")
+    out = {}
+    for label, fn in (("kernel", ops.gi_solve), ("plain", ops.gi_solve_reference)):
+        a = _clone(args)
+        x, _, it, conv = fn(*a)
+        out[label] = (x, it, conv, a[6])
+    torch.cuda.synchronize()
+    (xk, itk, ck, ik), (xp, itp, cp, ip) = out["kernel"], out["plain"]
+    err = (xk - xp).abs().max().item()
+    tol = 1e-9 * (1.0 + xp.abs().max().item())
+    print(f"GI beyond shared memory: B=64 n_d=4 f64 n={n} m={m} slots={n} (global layout): "
+          f"converged {int(ck.sum())}/64, equal flags {int((ck == cp).sum())}, iterations "
+          f"{int((itk == itp).sum())} (max {int(itp.max())}), active sets "
+          f"{int((ik == ip).all(1).sum())}; max |x kernel - x plain| {err:.3e} (tol {tol:.3e})",
+          flush=True)
+    check(torch.equal(ck, cp) and torch.equal(itk, itp) and torch.equal(ik, ip),
+          "GI beyond shared memory: flags, iterations or active sets differ")
+    check(np.isfinite(err) and err <= tol, f"GI beyond shared memory: x differs by {err:.3e}")
+    worst["gi_solve"] = err
+    return worst
+
+
+class Counted(Timed):
+    """``Timed`` that also records the QP iterations of every period."""
+
+    def __init__(self, ctrl):
+        super().__init__(ctrl)
+        self.ctrl, self.iters = ctrl, []
+
+    def __call__(self, *args, **kw):
+        u = super().__call__(*args, **kw)
+        self.iters.append(int(self.ctrl.getinfo()["iters"]))
+        return u
+
+
+def big_single_phase(torch, mt, ops, _build, dev, periods=30):
+    """37a: one 8x8 LinMPC of bench.py's plants at Hp=BIG_HP, Hc=4, float64
+    (n=33, m=897: the global layout of both kernels), in ``sim`` for
+    ``periods`` periods to a setpoint that saturates inputs, with GI (33
+    slots) and with ADMM, on the card against the same ``sim`` on the CPU:
+    u to 1e-6, GI's iteration counts equal in every period; the median
+    ``moveinput``; then each kernel against its plain version on one more
+    period's inputs, with both times."""
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    ry = np.random.default_rng(2).normal(size=8) * 4.0
+    out = {}
+    for qp_solver, kernel, key in SOLVERS:
+        ctrls = {d: large_controllers(mt, 1, Hp=BIG_HP, qp_solver=qp_solver,
+                                      dtype=torch.float64, device=d)[0] for d in ("cpu", dev)}
+        counts = {d: Counted(c) for d, c in ctrls.items()}
+        ref = mt.sim(ctrls["cpu"], periods, ry)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = mt.sim(ctrls[dev], periods, ry)
+        run = dict(ops.LAUNCHES)
+        for k in launches:
+            launches[k] += run[k]
+        c = ctrls[dev]
+        err = float(np.abs(res.U_data - ref.U_data).max())
+        same_it = counts[dev].iters == counts["cpu"].iters
+        med = statistics.median(counts[dev].times[5:])
+        name = f"8x8/Hp={BIG_HP} single {qp_solver}"
+        print(f"{name} f64 (QP n={c.n_qp} m={c.A_stack.shape[0]}), {periods} periods: kernel "
+              f"launches {run}; card vs CPU max |du| {err:.3e} (bar 1e-6); QP iterations card "
+              f"{counts[dev].iters} CPU {counts['cpu'].iters}; max |u| "
+              f"{np.abs(res.U_data).max():.4f}; moveinput median {med * 1e3:.3f} ms (periods "
+              f"5-{periods})", flush=True)
+        check(np.isfinite(res.U_data).all() and err < 1e-6,
+              f"{name}: card vs CPU |du| {err:.3e} ≥ 1e-6")
+        check(kernel != "gi_solve" or same_it, f"{name}: iteration counts differ")
+        check(run[kernel] >= periods, f"{name}: the {kernel} kernel was launched "
+              f"{run[kernel]} times in {periods} periods")
+        args = single_kernel_inputs(ops, c, key, res.Y_data[-1], ry)
+        chk = (gi_vs_plain(torch, ops, name, args, True) if key == "gi"
+               else kernel_vs_plain(torch, ops, name, args))
+        chk.update(moveinput_ms=med * 1e3, launches=run[kernel],
+                   per_period=run[kernel] / periods)
+        out[qp_solver] = chk
+    return launches, out
+
+
+def big_fleet_phase(torch, mt, ops, _build, dev, n_d=32, reps=128, check_reps=8):
+    """37b: bench_horizon.py's fleet at Hp=FLEET_HP: n_d random 8x8 plants
+    (Hc=4) x ``reps``, float32 (n=33, m=2017: the global layout), GI with
+    ``gi_max_active=12`` (float64 slots), then ADMM.  Each kernel is held to
+    its plain version on a steady period's inputs twice: at
+    bench_horizon.py's batch (n_d x ``check_reps``) and on the fleet itself
+    (n_d x ``reps``), whose launch geometry the main path runs (on an H100
+    GI 16 warps a block, the sweep two lanes a block in step); the times,
+    bound and residency of the main path's row come from the latter.  The sweep is checked
+    at its float32 floor (``sweep_errors``) and, at the fleet's lane map
+    and shape, on ``layout_sweep_inputs`` to F32_TOL·(1 + max|plain|) in
+    float32 and 1e-10 in float64.  Then the fleet's closed loop (``drive``:
+    4 periods and one multistep(4), the launch counts read around them).
+    GI must keep ≥ 0.99 of the lanes converged; ADMM's share is reported
+    against the same limit (the reference's f32 ADMM at this horizon stops
+    lanes at the 250-iteration budget too: bench_horizon.py's
+    docstring)."""
+    from mpc_tpu_torch.ops import admm_kernel
+    from mpc_tpu_torch.parallel import BatchedLinMPC
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    out = {}
+    for qp_solver, kernel, attr in (("active_set", "gi_solve", "gi"), ("admm", "admm_sweep",
+                                                                        "sweep")):
+        gi = kernel == "gi_solve"
+        name = f"8x8 fleet Hp={FLEET_HP} {'GI' if gi else 'ADMM'}"
+        t0 = time.perf_counter()
+        cs = large_controllers(mt, n_d, Hp=FLEET_HP, qp_solver=qp_solver,
+                               gi_max_active=12 if gi else None, device="cpu")
+        small = BatchedLinMPC(cs, reps=check_reps, device=dev, dtype=torch.float32)
+        print(f"{name}: {n_d} distinct, QP n={small.n_qp} m={small.params['A_stack'].shape[1]}, "
+              f"controllers built in {time.perf_counter() - t0:.1f} s", flush=True)
+        if gi:
+            chk_small = gi_vs_plain(torch, ops, f"{name} B={small.B}",
+                                    gi_steady_inputs(torch, small, cs, check_reps), False)
+        else:
+            chk_small = kernel_vs_plain(torch, ops, f"{name} B={small.B}",
+                                        steady_inputs(torch, small, cs, check_reps),
+                                        at_floor=True)
+        del small
+        fleet = BatchedLinMPC(cs, reps=reps, device=dev, dtype=torch.float32)
+        B = fleet.B
+        if gi:
+            args = gi_steady_inputs(torch, fleet, cs, reps)
+            table, _, warps, _, layout = gi_geometry(torch, args)
+            print(f"{name} B={B}: launch geometry {layout}, {table.shape[0]} blocks of "
+                  f"{table.shape[1]} lanes, {warps} warps a block", flush=True)
+            chk = gi_vs_plain(torch, ops, f"{name} B={B}", args, False)
+        else:
+            args = steady_inputs(torch, fleet, cs, reps)
+            a = dict(zip(SWEEP_ARGS, args[:12]))
+            table, _, warps, grouped, _, layout = admm_geometry(torch, a)
+            print(f"{name} B={B}: launch geometry {layout}, {table.shape[0]} blocks of "
+                  f"{table.shape[1]} lanes ({'in step' if grouped else 'a warp a lane'})",
+                  flush=True)
+            chk = kernel_vs_plain(torch, ops, f"{name} B={B}", args, at_floor=True)
+            n, m = a["x"].shape[1], a["z"].shape[1]
+            chk["err_synthetic"] = max(
+                sweep_layout_check(torch, ops, dev, f"fleet Hp={FLEET_HP} lane map",
+                                   a["lane_ctrl"], n, m, dt, admm_kernel.WARP_LANES_PER_SM)
+                for dt in (torch.float32, torch.float64))
+        chk["check_small"] = chk_small
+        loop = ClosedLoop(torch, cs, reps, dev, torch.float32)
+        run, med, n_conv = drive(torch, ops, name, fleet, loop, 4,
+                                 conv_bar=0.99 if gi else None)
+        for k in launches:
+            launches[k] += run[k]
+        check(run[kernel] > 0, f"{name}: the {kernel} kernel was never launched")
+        share = n_conv / B
+        print(f"{name}: B={B}, converged share of the last period {share:.4f} (limit 0.99), "
+              f"median {med:.0f} solves/s, {run[kernel] / 8:g} {kernel} launches a period",
+              flush=True)
+        chk.update(launches=run[kernel], per_period=run[kernel] / 8, conv_share=share,
+                   solves_per_s=med)
+        out[qp_solver] = chk
+        del fleet
+    return launches, out
+
+
+def big_mhe_phase(torch, mt, ops, _build, dev, periods=50):
+    """37c: examples/mhe_estimation.py's MovingHorizonEstimator (tf(3, [10,
+    1]), ``nint_ym=[1]``, x̂ ≥ 0) at He=MHE_HE, float64 (n=82, m=202, 82
+    slots: the global layout), ``periods`` periods of the plant's response
+    to u = 1 with an unmeasured output step at period 20 and noise, on the
+    card against the CPU: x̂ to MHE_GI_TOL·(1 + max|x̂|) after every
+    ``preparestate`` and ``updatestate``; then the GI kernel against its
+    plain version on the last window's solve."""
+    from mpc_tpu_torch.estimators import mhe_fast
+    ests = {}
+    for d in ("cpu", dev):
+        e = mt.MovingHorizonEstimator(mt.LinModel(mt.tf(3, [10, 1]), 1.0), He=MHE_HE,
+                                      sigmaQ=[0.1], sigmaR=[0.5], nint_ym=[1], device=d)
+        ests[d] = e.setconstraint(xhatmin=[0.0] + [-np.inf] * (e.nx_hat - 1))
+    plant = mt.LinModel(mt.tf(3, [10, 1]), 1.0)
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times = []
+    for k in range(periods):
+        y = plant.evaloutput() + (0.8 if k >= 20 else 0.0) + 0.05 * rng.normal(1)
+        for step in ("preparestate", "updatestate"):
+            a = (y,) if step == "preparestate" else ([1.0], y)
+            x_cpu = np.asarray(getattr(ests["cpu"], step)(*a))
+            t0 = time.perf_counter()
+            x_dev = np.asarray(getattr(ests[dev], step)(*a))
+            if step == "preparestate":
+                times.append(time.perf_counter() - t0)
+            err = float(np.abs(x_dev - x_cpu).max() / (1.0 + np.abs(x_cpu).max()))
+            check(np.isfinite(x_dev).all() and err <= MHE_GI_TOL,
+                  f"MHE He={MHE_HE} period {k} {step}: card vs CPU {err:.3e}")
+            worst = max(worst, err)
+        plant.updatestate([1.0])
+    run = dict(ops.LAUNCHES)
+    med = statistics.median(times[MHE_HE:])
+    print(f"MHE He={MHE_HE} f64 (QP n={ests[dev].nx_hat * (MHE_HE + 1)}), {periods} periods: "
+          f"kernel launches {run}; card vs CPU max |dx̂| / (1 + max|x̂|) {worst:.3e} (bar "
+          f"{MHE_GI_TOL:g}); preparestate median {med * 1e3:.3f} ms over the full windows",
+          flush=True)
+    check(run["gi_solve"] >= periods, f"MHE He={MHE_HE}: {run['gi_solve']} GI launches in "
+          f"{periods} periods")
+    # the GI kernel against its plain version on one more window's solve
+    rec = {}
+    inner = mhe_fast.solve_qp_active
+
+    def capture(*args):
+        rec.setdefault("args", _clone(args))
+        return ops.gi_solve(*args)
+    mhe_fast.solve_qp_active = functools.partial(inner, solve=capture)
+    try:
+        ests[dev].preparestate(plant.evaloutput() + 0.8)
+    finally:
+        mhe_fast.solve_qp_active = inner
+    check("args" in rec, f"MHE He={MHE_HE}: no GI solve was captured")
+    chk = gi_vs_plain(torch, ops, f"MHE He={MHE_HE} B=1", rec["args"], True)
+    chk.update(launches=run["gi_solve"], per_period=run["gi_solve"] / periods,
+               preparestate_ms=med * 1e3, err_x=worst)
+    return run, chk
+
+
+def layout_equivalence_phase(torch, ops, cases):
+    """37d: the global layout forced on captured inputs of shapes the
+    resident layout takes (``cases``: name → (kernel, check)), against the
+    resident one: the same bits of x, λ, the iteration counts and flags
+    (GI) or of x, z and y (the sweep), and each layout's device time."""
+    out = {}
+    for name, (kernel, chk) in cases.items():
+        args, gi = chk["args"], kernel == "gi_solve"
+        if gi:
+            runs = {}
+            for layout in ("resident", "global"):
+                a = _clone(args)
+                runs[layout] = (*ops.gi_solve(*a, _layout=layout), *a[6:10])
+            diff = [((r.double() - g.double()).abs().max().item() if r.is_floating_point()
+                     else float((r != g).sum())) for r, g in zip(*runs.values())]
+            holder = {}
+
+            def setup():
+                holder["a"] = _clone(args)
+
+            def fn():
+                ops.gi_solve(*holder["a"], _layout="global")
+            names, count = GI_KERNELS, "gi_solve"
+            geo = gi_geometry(torch, args, "global")
+            geo = f"{geo[2]} warps a block"
+        else:
+            runs = {}
+            for layout in ("resident", "global"):
+                a = {k: v.clone() for k, v in args.items()}
+                ops.admm_sweep(*(a[k] for k in SWEEP_ARGS), *chk["tail"], _layout=layout)
+                runs[layout] = [a[k] for k in ("x", "z", "y")]
+            diff = [(r - g).abs().max().item() for r, g in zip(*runs.values())]
+            holder = {}
+
+            def setup():
+                holder["a"] = {k: v.clone() for k, v in args.items()}
+
+            def fn():
+                ops.admm_sweep(*(holder["a"][k] for k in SWEEP_ARGS), *chk["tail"],
+                               _layout="global")
+            names, count = ADMM_KERNELS, "admm_sweep"
+            geo = admm_geometry(torch, args, "global")
+            geo = f"{geo[0].shape[1]} lanes a block{' in step' if geo[3] else ''}"
+        torch.cuda.synchronize()
+        ms = device_ms(torch, fn, setup, names, launches=lambda: ops.LAUNCHES[count])
+        what = "x, λ, it, conv, idx, side, vmask, Ginv" if gi else "x, z, y"
+        print(f"layouts {name} ({geo}): max |resident - global| on {what}: {diff}; device ms "
+              f"resident {chk['ms']:.4f}, global {ms:.4f} ({ms / chk['ms']:.2f}x)", flush=True)
+        check(all(d == 0.0 for d in diff), f"layouts {name}: the global layout differs from "
+              f"the resident one: {diff}")
+        out[name] = dict(resident_ms=chk["ms"], global_ms=ms, max_diff=max(diff), geometry=geo)
+    return out
+
+
 def main():
     try:
         import torch
@@ -3179,29 +3563,11 @@ def main():
     # --- 3b. every lane layout, kernel vs plain ----------------------------
     layout_worst = layout_phase(torch, ops, dev)
 
-    # --- 4. size guards ----------------------------------------------------
-    n, m, Bg = 64, 1024, 2
-    z = lambda *s, dt=torch.float32: torch.zeros(s, device=dev, dtype=dt)
-    zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
-    try:
-        ops.admm_sweep(z(1, 1, n, n), z(1, m, n), zi(Bg), zi(Bg), z(Bg, n), z(Bg, m),
-                       z(Bg, m), z(1, 1, m) + 1, z(Bg, n), z(Bg, m), z(Bg, m),
-                       torch.ones(Bg, dtype=torch.bool, device=dev), 1, 1e-6, 1.6)
-        raise Fail("size guard: n=64, m=1024 float32 was not refused")
-    except ValueError as err:
-        print(f"size guard: n={n} m={m} refused ({err})")
-    f64 = torch.float64
-    try:
-        ops.gi_solve(z(1, n, n, dt=f64), z(1, m, n, dt=f64), zi(Bg), z(Bg, n, dt=f64),
-                     z(Bg, m, dt=f64), z(Bg, m, dt=f64), zi(Bg, 4), zi(Bg, 4),
-                     torch.zeros(Bg, 4, dtype=torch.bool, device=dev), z(Bg, 4, 4, dt=f64),
-                     zi(Bg, 4), zi(Bg, 4), zi(Bg), False, zi(Bg) + 5, 1e-9)
-        raise Fail("GI size guard: n=64, m=1024 float64 was not refused")
-    except ValueError as err:
-        print(f"GI size guard: n={n} m={m} float64 refused ({err})")
+    # --- 4. QPs beyond a block's shared memory: the global layout ----------
+    beyond_worst = beyond_smem_phase(torch, ops, dev)
 
     # --- 6. the ADMM main path -------------------------------------------
-    admm_launches, _ = drive(torch, ops, "headline-ADMM", fleet, loop, 12)
+    admm_launches, _, _ = drive(torch, ops, "headline-ADMM", fleet, loop, 12)
     per_period = {"headline-ADMM": admm_launches["admm_sweep"] / 16}
     path_launches = {"headline-ADMM": admm_launches["admm_sweep"]}
     check(admm_launches["admm_sweep"] > 0,
@@ -3248,7 +3614,7 @@ def main():
               "lanes enter the captured solve with a valid slot (< 5 %)")
         gi_checks[name] = chk
         gloop = ClosedLoop(torch, cs, reps, dev, torch.float32)
-        launches, _ = drive(torch, ops, name, gfleet, gloop, n_step)
+        launches, _, _ = drive(torch, ops, name, gfleet, gloop, n_step)
         check(launches["gi_solve"] > 0, f"{name} main path: the GI kernel was never launched")
         gi_launches += launches["gi_solve"]
         path_launches[name] = launches["gi_solve"]
@@ -3364,6 +3730,31 @@ def main():
           f"{json.dumps(head_mesh)}; large-ADMM grouped_chunks {json.dumps(large_chunks)}",
           flush=True)
 
+    # --- 37. QPs beyond a block's shared memory (THIS SLICE'S MAIN PATHS): the
+    # 8x8 controller at Hp=25, the 8x8 fleet at Hp=60 and the MHE at He=40 in
+    # the global layout of both kernels, then the global layout forced at
+    # the resident shapes
+    t_g = time.perf_counter()
+    big_launches, big = big_single_phase(torch, mt, ops, _build, dev)
+    fl_launches, big_fleet = big_fleet_phase(torch, mt, ops, _build, dev)
+    mhe_big_launches, mhe_big = big_mhe_phase(torch, mt, ops, _build, dev)
+    for run in (big_launches, fl_launches, mhe_big_launches):
+        admm_launches["admm_sweep"] += run["admm_sweep"]
+        gi_launches += run["gi_solve"]
+    equiv = layout_equivalence_phase(torch, ops, {
+        "headline-GI": ("gi_solve", gi_checks["headline-GI"]),
+        "large-GI": ("gi_solve", gi_checks["large-GI"]),
+        "headline-ADMM": ("admm_sweep", checks["headline"]),
+        "8x8/Hp=15 ADMM": ("admm_sweep", checks["large_8x8_hp15"]),
+        "8x8/Hp=15 ADMM B=4096": ("admm_sweep", checks["large_8x8_hp15_B4096"])})
+    print(f"phase 37: {time.perf_counter() - t_g:.1f} s; 8x8/Hp={BIG_HP} moveinput median GI "
+          f"{big['active_set']['moveinput_ms']:.3f} ms, ADMM {big['admm']['moveinput_ms']:.3f} "
+          f"ms (f64); 8x8 fleet Hp={FLEET_HP} converged GI "
+          f"{big_fleet['active_set']['conv_share']:.4f}, ADMM "
+          f"{big_fleet['admm']['conv_share']:.4f} (limit 0.99); MHE He={MHE_HE} preparestate "
+          f"median {mhe_big['preparestate_ms']:.3f} ms; layouts {json.dumps(equiv)}",
+          flush=True)
+
     # --- the kernels line: times, bounds and residency at every shape ------
     head, hgi, lgi = checks["headline"], gi_checks["headline-GI"], gi_checks["large-GI"]
     res = {"admm headline": admm_residency(torch, ops, _build, head["args"]),
@@ -3380,7 +3771,16 @@ def main():
            "admm scan": admm_residency(torch, ops, _build, scan["admm"]["args"]),
            "admm fleet": admm_residency(torch, ops, _build, hetero["admm"]["args"]),
            "gi scan": gi_residency(torch, _build, scan["active_set"]["args"]),
-           "gi fleet": gi_residency(torch, _build, hetero["active_set"]["args"])}
+           "gi fleet": gi_residency(torch, _build, hetero["active_set"]["args"]),
+           "gi 8x8/Hp=25": gi_residency(torch, _build, big["active_set"]["args"]),
+           "admm 8x8/Hp=25": admm_residency(torch, ops, _build, big["admm"]["args"]),
+           "gi fleet Hp=60": gi_residency(torch, _build, big_fleet["active_set"]["args"]),
+           "admm fleet Hp=60": admm_residency(torch, ops, _build, big_fleet["admm"]["args"]),
+           "gi fleet Hp=60 B=256": gi_residency(
+               torch, _build, big_fleet["active_set"]["check_small"]["args"]),
+           "admm fleet Hp=60 B=256": admm_residency(
+               torch, ops, _build, big_fleet["admm"]["check_small"]["args"]),
+           "gi MHE He=40": gi_residency(torch, _build, mhe_big["args"])}
     for k, (lanes, geo) in res.items():
         print(f"residency {k}: {lanes} lanes per SM ({geo})", flush=True)
     per_period.update({"SLMPC GI": sl_gi["per_period"], "SLMPC ADMM": sl_admm["per_period"],
@@ -3408,9 +3808,13 @@ def main():
     print(f"roofline shares: {json.dumps(shares)}", flush=True)
 
     def shape(name, c, launches, lpp, lanes):
-        """One shape of a kernel: its check's numbers and, where a main path
-        runs it at this shape, that path's launches (0 for a check only)."""
-        return {"shape": name, "launches": launches, "max_abs_err": c["err"],
+        """One shape of a kernel: its check's numbers, the layout it takes
+        and, where a main path runs it at this shape, that path's launches
+        (0 for a check only)."""
+        args = c["args"]
+        layout = (admm_geometry(torch, args) if isinstance(args, dict)
+                  else gi_geometry(torch, args))[-1]
+        return {"shape": name, "layout": layout, "launches": launches, "max_abs_err": c["err"],
                 "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": None,
                 "roofline_share": c["bound_ms"] / c["ms"], "launches_per_period": lpp,
@@ -3439,7 +3843,15 @@ def main():
               scan["admm"]["per_period"], res["admm scan"][0]),
         shape(f"CompiledClosedLoopFleet B=n_d=128 {sweep_dims(hetero['admm'])} f64 (compiled "
               "loop)", hetero["admm"], hetero["admm"]["launches"], hetero["admm"]["per_period"],
-              res["admm fleet"][0])]
+              res["admm fleet"][0]),
+        shape(f"8x8/Hp={BIG_HP} single B=1 {sweep_dims(big['admm'])} f64 (37a)", big["admm"],
+              big["admm"]["launches"], big["admm"]["per_period"], res["admm 8x8/Hp=25"][0]),
+        shape(f"8x8 fleet Hp={FLEET_HP} B=4096 {sweep_dims(big_fleet['admm'])} f32 (37b, the "
+              "fleet's own inputs)", big_fleet["admm"], big_fleet["admm"]["launches"],
+              big_fleet["admm"]["per_period"], res["admm fleet Hp=60"][0]),
+        shape(f"8x8 fleet Hp={FLEET_HP} B=256 {sweep_dims(big_fleet['admm'])} f32 (37b check at "
+              "bench_horizon.py's batch)", big_fleet["admm"]["check_small"], 0, None,
+              res["admm fleet Hp=60 B=256"][0])]
     gi_shapes = [
         shape("headline-GI B=4096 n=5 m=101 f32/f64", hgi, path_launches["headline-GI"],
               per_period["headline-GI"], res["gi headline-GI"][0]),
@@ -3472,7 +3884,19 @@ def main():
               res["gi scan"][0]),
         shape(f"CompiledClosedLoopFleet B=n_d=128 {gi_dims(hetero['active_set'])} f64 "
               "(compiled loop)", hetero["active_set"], hetero["active_set"]["launches"],
-              hetero["active_set"]["per_period"], res["gi fleet"][0])]
+              hetero["active_set"]["per_period"], res["gi fleet"][0]),
+        shape(f"8x8/Hp={BIG_HP} single B=1 {gi_dims(big['active_set'])} f64 (37a)",
+              big["active_set"], big["active_set"]["launches"],
+              big["active_set"]["per_period"], res["gi 8x8/Hp=25"][0]),
+        shape(f"8x8 fleet Hp={FLEET_HP} B=4096 {gi_dims(big_fleet['active_set'])} f32/f64 (37b, "
+              "the fleet's own inputs)", big_fleet["active_set"],
+              big_fleet["active_set"]["launches"], big_fleet["active_set"]["per_period"],
+              res["gi fleet Hp=60"][0]),
+        shape(f"8x8 fleet Hp={FLEET_HP} B=256 {gi_dims(big_fleet['active_set'])} f32/f64 (37b "
+              "check at bench_horizon.py's batch)", big_fleet["active_set"]["check_small"], 0,
+              None, res["gi fleet Hp=60 B=256"][0]),
+        shape(f"MHE He={MHE_HE} B=1 {gi_dims(mhe_big)} f64 (37c)", mhe_big, mhe_big["launches"],
+              mhe_big["per_period"], res["gi MHE He=40"][0])]
 
     def entry(name, source, replaces, launches, shapes, extra_err):
         c = shapes[0]
@@ -3487,11 +3911,13 @@ def main():
     print(json.dumps({"kernels": [
         entry("admm_sweep", "mpc_tpu_torch/csrc/admm_sweep.cu",
               "mpc_tpu/ops/pallas_qp.py:31", admm_launches["admm_sweep"], admm_shapes,
-              [unc["admm"]["err"], layout_worst["admm_sweep"]]),
+              [unc["admm"]["err"], layout_worst["admm_sweep"], beyond_worst["admm_sweep"],
+               big_fleet["admm"]["err_synthetic"]]),
         entry("gi_solve", "mpc_tpu_torch/csrc/gi_solve.cu",
               "docs/pallas_gi_experiment.py:84 + mpc_tpu/ops/qp_active.py:407", gi_launches,
               gi_shapes, [unc["gi n=6"]["err"], unc["gi n=12"]["err"],
-                          layout_worst["gi_solve"]])]}))
+                          layout_worst["gi_solve"], beyond_worst["gi_solve"]])],
+        "layouts": equiv}))
     print(f"total {time.perf_counter() - t_start:.1f} s after the card check")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,15 @@
 //   against the kernel's 1e-4·(1 + max|plain|) bar, and the f64 path (DMMA,
 //   mma.sync m8n8k4) is left for later work.
 //
+// A second layout, "global", takes QPs whose block would not fit the SM's
+// shared memory (ops/admm_kernel.py::launch_geometry picks it when one
+// lane's block of the variant exceeds the opt-in budget).  It is the same
+// two kernels (the template parameter GLOBAL): A is read where it lies in
+// device memory, and what a block keeps after A in shared memory (its lanes'
+// l, u, ρ, z, y, Minv or x, q, rhs, x̃, and the Aᵀv partial sums) lies in
+// the block's own slice of a workspace the wrapper allocates, in the same
+// order.  Every sum keeps its order, so the two layouts return the same bits.
+//
 // What bounds it on this card (NVIDIA H100 SXM: 3.35 TB/s, 67 TFLOP/s f32):
 // per lane and sweep ~4mn + 2n² flops (2,070 at the 2x2 Hp=10 headline, n=5,
 // m=101; 83.5k at 8x8 Hp=15, n=33, m=577), against one read of l, u, z, y,
@@ -76,9 +85,22 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src, int count, int 
   for (int e = t; e < count; e += nt) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
 }
 
+// a lane's inputs into its slice: asynchronous copies into shared memory, or
+// plain loads and stores into the workspace (cp.async writes shared memory
+// only); either way complete after __pipeline_wait_prior(0) and a barrier
+template <bool GLOBAL, typename T>
+__device__ __forceinline__ void copy_in(T* dst, const T* src, int count, int t, int nt) {
+  if constexpr (GLOBAL) {
+    for (int e = t; e < count; e += nt) dst[e] = src[e];
+  } else {
+    copy_async(dst, src, count, t, nt);
+  }
+}
+
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
 
-// shared memory, in the order of ops/admm_kernel.py::smem_bytes
+// shared memory, in the order of ops/admm_kernel.py::smem_bytes; the global
+// layout's workspace holds each block's part after A (workspace_bytes)
 template <typename T>
 __host__ __device__ size_t warp_slice(int n, int m) {
   return align16(sizeof(T) * (5 * (size_t)m + n * n + 2 * n + (32 / n) * n));
@@ -100,22 +122,35 @@ __host__ __device__ size_t group_part(int n, int width) {
 }
 
 // ---- one warp per lane (n ≤ 32) ------------------------------------------------
-template <typename T>
+template <typename T, bool GLOBAL>
 __global__ void __launch_bounds__(32 * kMaxWarps, kWarpMinBlocks)
 admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                  const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
                  int width, const int32_t* __restrict__ rung, const T* __restrict__ q,
                  const T* __restrict__ l, const T* __restrict__ u, const T* __restrict__ rhovs,
                  T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
-                 const uint8_t* __restrict__ active, int n, int m, int n_lad, int iters,
-                 T sigma, T alpha) {
+                 const uint8_t* __restrict__ active, unsigned char* ws, int n, int m, int n_lad,
+                 int iters, T sigma, T alpha) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int c = block_ctrl[blockIdx.x];
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sA = reinterpret_cast<T*>(smem_raw);                       // m*n
-  unsigned char* wsm = smem_raw + align16(sizeof(T) * (size_t)m * n) + warp * warp_slice<T>(n, m);
+  const size_t slice = warp_slice<T>(n, m);
+  const T* sA;                                                  // m*n
+  unsigned char* wsm;
+  if constexpr (GLOBAL) {
+    sA = A + (size_t)c * m * n;
+    wsm = ws + ((size_t)blockIdx.x * (blockDim.x >> 5) + warp) * slice;
+  } else {
+    T* A_s = reinterpret_cast<T*>(smem_raw);
+    copy_async(A_s, A + (size_t)c * m * n, m * n, tid, blockDim.x);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    sA = A_s;
+    wsm = smem_raw + align16(sizeof(T) * (size_t)m * n) + warp * slice;
+  }
   T* sl = reinterpret_cast<T*>(wsm);   // m
   T* su = sl + m;                      // m
   T* srho = su + m;                    // m
@@ -126,21 +161,16 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
   T* sxt = srhs + n;                   // n    x̃
   T* spart = sxt + n;                  // (32/n)*n partial sums of Aᵀv
 
-  copy_async(sA, A + (size_t)c * m * n, m * n, tid, blockDim.x);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
   const int b = warp < width ? table[(size_t)blockIdx.x * width + warp] : -1;
   if (b < 0 || !active[b]) return;
   const size_t bn = (size_t)b * n, bm = (size_t)b * m;
   const size_t rg = (size_t)c * n_lad + rung[b];
-  copy_async(sl, l + bm, m, lane, 32);
-  copy_async(su, u + bm, m, lane, 32);
-  copy_async(srho, rhovs + rg * m, m, lane, 32);
-  copy_async(sz, z + bm, m, lane, 32);
-  copy_async(sy, y + bm, m, lane, 32);
-  copy_async(sM, Minvs + rg * n * n, n * n, lane, 32);
+  copy_in<GLOBAL>(sl, l + bm, m, lane, 32);
+  copy_in<GLOBAL>(su, u + bm, m, lane, 32);
+  copy_in<GLOBAL>(srho, rhovs + rg * m, m, lane, 32);
+  copy_in<GLOBAL>(sz, z + bm, m, lane, 32);
+  copy_in<GLOBAL>(sy, y + bm, m, lane, 32);
+  copy_in<GLOBAL>(sM, Minvs + rg * n * n, n * n, lane, 32);
   __pipeline_commit();
   T xj = T(0), qj = T(0);
   if (lane < n) {
@@ -200,24 +230,27 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
 // first nact, and the products run over all W with no per-lane test in the
 // inner loops; a slice past nact computes on whatever it holds and is never
 // read back.
-template <typename T, int W>
+template <typename T, int W, bool GLOBAL>
 __global__ void __launch_bounds__(kGroupThreads)
 admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                   const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
                   int width, const int32_t* __restrict__ rung, const T* __restrict__ q,
                   const T* __restrict__ l, const T* __restrict__ u, const T* __restrict__ rhovs,
                   T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
-                  const uint8_t* __restrict__ active, int n, int m, int n_lad, int iters,
-                  T sigma, T alpha) {
+                  const uint8_t* __restrict__ active, unsigned char* ws, int n, int m,
+                  int n_lad, int iters, T sigma, T alpha) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int c = block_ctrl[blockIdx.x];
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_lane[W];
   __shared__ int s_nact;
-  T* sA = reinterpret_cast<T*>(smem_raw);                       // m*n
-  unsigned char* lanes0 = smem_raw + align16(sizeof(T) * (size_t)m * n);
   const size_t lane_bytes = group_lane<T>(n, m);
+  T* const A_s = reinterpret_cast<T*>(smem_raw);
+  const T* sA = GLOBAL ? A + (size_t)c * m * n : A_s;          // m*n
+  unsigned char* lanes0 =
+      GLOBAL ? ws + (size_t)blockIdx.x * (W * lane_bytes + group_part<T>(n, W))
+             : smem_raw + align16(sizeof(T) * (size_t)m * n);
   T* spart = reinterpret_cast<T*>(lanes0 + W * lane_bytes);     // parts*W*n
   // lane w's slice: l, u, ρ, z, y, v = ρ∘z − y (m each), then x, q, rhs, x̃ (n each)
   T* S[W];
@@ -235,17 +268,17 @@ admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
   __syncthreads();
   const int nact = s_nact;
   if (nact == 0) return;
-  copy_async(sA, A + (size_t)c * m * n, m * n, tid, nt);
+  if constexpr (!GLOBAL) copy_async(A_s, A + (size_t)c * m * n, m * n, tid, nt);
   for (int w = 0; w < nact; ++w) {
     const size_t b = s_lane[w];
     const size_t rg = (size_t)c * n_lad + rung[b];
-    copy_async(S[w], l + b * m, m, tid, nt);
-    copy_async(S[w] + m, u + b * m, m, tid, nt);
-    copy_async(S[w] + 2 * m, rhovs + rg * m, m, tid, nt);
-    copy_async(S[w] + 3 * m, z + b * m, m, tid, nt);
-    copy_async(S[w] + 4 * m, y + b * m, m, tid, nt);
-    copy_async(S[w] + 6 * m, x + b * n, n, tid, nt);
-    copy_async(S[w] + 6 * m + n, q + b * n, n, tid, nt);
+    copy_in<GLOBAL>(S[w], l + b * m, m, tid, nt);
+    copy_in<GLOBAL>(S[w] + m, u + b * m, m, tid, nt);
+    copy_in<GLOBAL>(S[w] + 2 * m, rhovs + rg * m, m, tid, nt);
+    copy_in<GLOBAL>(S[w] + 3 * m, z + b * m, m, tid, nt);
+    copy_in<GLOBAL>(S[w] + 4 * m, y + b * m, m, tid, nt);
+    copy_in<GLOBAL>(S[w] + 6 * m, x + b * n, n, tid, nt);
+    copy_in<GLOBAL>(S[w] + 6 * m + n, q + b * n, n, tid, nt);
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
@@ -333,18 +366,23 @@ admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
   }
 }
 
-// the group kernel for a table `width` (≤ kGroup) wide
+// the instantiation a launch of this variant, table width and layout takes
 template <typename T>
-const void* group_kernel(int width) {
-  return width <= 1 ? (const void*)admm_group_kernel<T, 1> : (const void*)admm_group_kernel<T, 2>;
+const void* kernel_for(int grouped, int width, int global) {
+  if (!grouped) return global ? (const void*)admm_warp_kernel<T, true>
+                              : (const void*)admm_warp_kernel<T, false>;
+  if (width <= 1) return global ? (const void*)admm_group_kernel<T, 1, true>
+                                : (const void*)admm_group_kernel<T, 1, false>;
+  return global ? (const void*)admm_group_kernel<T, 2, true>
+                : (const void*)admm_group_kernel<T, 2, false>;
 }
 
 template <typename T>
 int launch(const void* Minvs, const void* A, const void* table, const void* block_ctrl,
            const void* rung, const void* q, const void* l, const void* u, const void* rhovs,
-           void* x, void* z, void* y, const void* active, int n_blocks, int width, int warps,
-           int grouped, int n, int m, int n_lad, int iters, int smem_bytes, double sigma,
-           double alpha, void* stream) {
+           void* x, void* z, void* y, const void* active, void* ws, int n_blocks, int width,
+           int warps, int grouped, int n, int m, int n_lad, int iters, int smem_bytes,
+           int global, double sigma, double alpha, void* stream) {
   if (n_blocks <= 0 || iters <= 0) return 0;
   if (n < 1 || m < 1 || n_lad < 1 || width < 1) return (int)cudaErrorInvalidValue;
   if (!grouped && n > 32) return (int)cudaErrorInvalidValue;
@@ -361,23 +399,25 @@ int launch(const void* Minvs, const void* A, const void* table, const void* bloc
            group_part<T>(n, width);
     threads = kGroupThreads;
   }
-  if ((size_t)smem_bytes != need) return (int)cudaErrorInvalidValue;
-  const void* fn = by_warp ? (const void*)admm_warp_kernel<T> : group_kernel<T>(width);
+  if (global) need = 0;
+  if ((size_t)smem_bytes != need || (global && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_for<T>(grouped, width, global);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   using Kern = void (*)(const T*, const T*, const int32_t*, const int32_t*, int, const int32_t*,
-                        const T*, const T*, const T*, const T*, T*, T*, T*, const uint8_t*, int,
-                        int, int, int, T, T);
+                        const T*, const T*, const T*, const T*, T*, T*, T*, const uint8_t*,
+                        unsigned char*, int, int, int, int, T, T);
   auto kern = reinterpret_cast<Kern>(const_cast<void*>(fn));
   kern<<<n_blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(Minvs), static_cast<const T*>(A),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(block_ctrl), width,
       static_cast<const int32_t*>(rung), static_cast<const T*>(q), static_cast<const T*>(l),
       static_cast<const T*>(u), static_cast<const T*>(rhovs), static_cast<T*>(x),
-      static_cast<T*>(z), static_cast<T*>(y), static_cast<const uint8_t*>(active), n, m, n_lad,
-      iters, static_cast<T>(sigma), static_cast<T>(alpha));
+      static_cast<T*>(z), static_cast<T*>(y), static_cast<const uint8_t*>(active),
+      static_cast<unsigned char*>(ws), n, m, n_lad, iters, static_cast<T>(sigma),
+      static_cast<T>(alpha));
   return (int)cudaGetLastError();
 }
 
@@ -387,26 +427,25 @@ int launch(const void* Minvs, const void* A, const void* table, const void* bloc
   extern "C" int NAME(const void* Minvs, const void* A, const void* table,                    \
                       const void* block_ctrl, const void* rung, const void* q, const void* l, \
                       const void* u, const void* rhovs, void* x, void* z, void* y,            \
-                      const void* active, int n_blocks, int width, int warps, int grouped,    \
-                      int n, int m, int n_lad, int iters, int smem_bytes, double sigma,       \
-                      double alpha, void* stream) {                                           \
-    return launch<T>(Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y, active,      \
-                     n_blocks, width, warps, grouped, n, m, n_lad, iters, smem_bytes, sigma,  \
-                     alpha, stream);                                                          \
+                      const void* active, void* ws, int n_blocks, int width, int warps,       \
+                      int grouped, int n, int m, int n_lad, int iters, int smem_bytes,        \
+                      int global, double sigma, double alpha, void* stream) {                 \
+    return launch<T>(Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y, active, ws,  \
+                     n_blocks, width, warps, grouped, n, m, n_lad, iters, smem_bytes, global, \
+                     sigma, alpha, stream);                                                   \
   }
 
 MPC_ADMM_ENTRY(mpc_admm_sweep_f32, float)
 MPC_ADMM_ENTRY(mpc_admm_sweep_f64, double)
 
 // Blocks of `threads` threads and `smem_bytes` of shared memory resident on
-// one SM (the runtime's occupancy calculator) for a variant and a table
-// `width`: one warp a lane, or (`grouped`) the lanes in step.  Returns −1 on
-// an error.
-extern "C" int mpc_admm_blocks_per_sm(int f64, int grouped, int width, int threads,
+// one SM (the runtime's occupancy calculator) for a variant, a table `width`
+// and a layout (`global` 0: resident, 1: global): one warp a lane, or
+// (`grouped`) the lanes in step.  Returns −1 on an error.
+extern "C" int mpc_admm_blocks_per_sm(int f64, int global, int grouped, int width, int threads,
                                       int smem_bytes) {
-  const void* fn = !grouped ? (f64 ? (const void*)admm_warp_kernel<double>
-                                   : (const void*)admm_warp_kernel<float>)
-                            : (f64 ? group_kernel<double>(width) : group_kernel<float>(width));
+  const void* fn = f64 ? kernel_for<double>(grouped, width, global)
+                       : kernel_for<float>(grouped, width, global);
   // as a launch does: raise the kernel's shared-memory limit above the default
   // 48 KB only (a lower setting would refuse a later, larger launch)
   if (smem_bytes > 48 * 1024 &&

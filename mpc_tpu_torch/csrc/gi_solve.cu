@@ -23,6 +23,17 @@
 // lane).  A lane's l, u, Ginv, x, λ, the slot table Aact and its slot-space
 // vectors live in the warp's own slice of shared memory.
 //
+// A second layout, "global", takes QPs whose block would not fit the SM's
+// shared memory (ops/gi_kernel.py::launch_geometry picks it when one warp's
+// block exceeds the opt-in budget).  It is the same kernel (the template
+// parameter GLOBAL): A and P⁻¹ are read where they lie in device memory (A's
+// rows unpadded, lda = n, so loaded one element at a time), each block
+// computes the row norms into its own slice of a workspace the wrapper
+// allocates, and each lane's slice (the same carve-up as a warp's slice of
+// shared memory) lies in that workspace at the lane's index, so no two lanes
+// of a block share one.  Shared memory holds only the block's lane counter.
+// Every sum keeps its order, so the two layouts return the same bits.
+//
 // Warp-synchronous solve: the lane's scalar carry (it, done, p, the step
 // lengths, every pivot decision) is held by all 32 threads of the warp in
 // registers, each computing it from the same shared vectors, so it is the
@@ -97,6 +108,18 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src, int count, int 
   for (int e = t; e < count; e += nt) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
 }
 
+// a lane's inputs into its slice: asynchronous copies into shared memory, or
+// plain loads and stores into the workspace (cp.async writes shared memory
+// only); either way complete after __pipeline_wait_prior(0) and a barrier
+template <bool GLOBAL, typename T>
+__device__ __forceinline__ void copy_in(T* dst, const T* src, int count, int t, int nt) {
+  if constexpr (GLOBAL) {
+    for (int e = t; e < count; e += nt) dst[e] = src[e];
+  } else {
+    copy_async(dst, src, count, t, nt);
+  }
+}
+
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
 
 // A's rows in shared memory start on 16 bytes: n rounded up to 4 floats or 2
@@ -107,7 +130,9 @@ __host__ __device__ constexpr int row_stride(int n) {
 }
 
 // Shared memory of the block, in the order of ops/gi_kernel.py::smem_bytes:
-// the controller's part (P⁻¹, A, row norms), then one slice per warp.
+// the controller's part (P⁻¹, A, row norms), then one slice per warp.  The
+// global layout's workspace (ops/gi_kernel.py::workspace_bytes): the row
+// norms of each block, then one such slice per lane.
 template <typename TD, typename TS>
 __host__ __device__ size_t ctrl_bytes(int n, int m) {
   return align16(sizeof(TS) * n * n) + sizeof(TD) * (size_t)m * row_stride<TD>(n) +
@@ -123,11 +148,11 @@ __host__ __device__ size_t warp_bytes(int n, int m, int ns) {
 // aᵢ·x of R rows at once in the data type: each row one thread's sum in j
 // order (the same multiply-adds, in the same order, as one row and one
 // element at a time), the rows' chains interleaved so that a thread has R
-// independent multiply-adds in flight; 16 bytes of each row and of x are
-// read at a time
-template <int R, typename TD>
+// independent multiply-adds in flight; with VEC (rows on 16 bytes) 16 bytes
+// of each row and of x are read at a time, else one element
+template <int R, bool VEC, typename TD>
 __device__ __forceinline__ void rows_dot(const TD* __restrict__ A, int lda, const int* r,
-                                         const TD* __restrict__ x, int n, TD* ax) {
+                                         const TD* x, int n, TD* ax) {
   const TD* a[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
@@ -135,7 +160,7 @@ __device__ __forceinline__ void rows_dot(const TD* __restrict__ A, int lda, cons
     ax[k] = TD(0);
   }
   int j = 0;
-  if constexpr (sizeof(TD) == 4) {
+  if constexpr (VEC && sizeof(TD) == 4) {
     for (; j + 4 <= n; j += 4) {
       const float4 x4 = *reinterpret_cast<const float4*>(x + j);
 #pragma unroll
@@ -147,7 +172,7 @@ __device__ __forceinline__ void rows_dot(const TD* __restrict__ A, int lda, cons
         ax[k] += a4.w * x4.w;
       }
     }
-  } else {
+  } else if constexpr (VEC) {
     for (; j + 2 <= n; j += 2) {
       const double2 x2 = *reinterpret_cast<const double2*>(x + j);
 #pragma unroll
@@ -168,12 +193,13 @@ __device__ __forceinline__ void rows_dot(const TD* __restrict__ A, int lda, cons
 // The violation scan (the work of kmv) over the rows lane, lane + 32, …, R
 // at a time: each thread's best (scaled violation, row, aᵢ·x), NaN first,
 // ties to the lower row.  Past m a row index is clamped to m − 1, whose
-// repeat cannot change the argmax.
-template <int R, typename TD>
-__device__ __forceinline__ void scan_rows(const TD* __restrict__ sA, int lda,
-                                          const TD* __restrict__ sxd, const TD* __restrict__ sl,
-                                          const TD* __restrict__ su, const TD* __restrict__ srn,
-                                          TD xnorm, int n, int m, int lane, TD& best, int& best_i,
+// repeat cannot change the argmax.  The lane's vectors are not __restrict__:
+// in the global layout they lie in device memory that the kernel writes, and
+// must not be read through the non-coherent cache.
+template <int R, bool VEC, typename TD>
+__device__ __forceinline__ void scan_rows(const TD* __restrict__ sA, int lda, const TD* sxd,
+                                          const TD* sl, const TD* su, const TD* srn, TD xnorm,
+                                          int n, int m, int lane, TD& best, int& best_i,
                                           TD& best_ax) {
   const TD inf_d = static_cast<TD>(INFINITY);
   const TD big = static_cast<TD>(kBig);
@@ -182,7 +208,7 @@ __device__ __forceinline__ void scan_rows(const TD* __restrict__ sA, int lda,
     TD ax[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) r[k] = min(i0 + 32 * k, m - 1);
-    rows_dot<R>(sA, lda, r, sxd, n, ax);
+    rows_dot<R, VEC>(sA, lda, r, sxd, n, ax);
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const int i = r[k];
@@ -222,11 +248,13 @@ __device__ __forceinline__ void per_row(int lane, int rows, int len, F f, O out)
   }
 }
 
-// One lane's whole solve, run by one warp.  Every thread of the warp returns
-// with the same (it, done && feas) and the lane's state written back.
-template <typename TD, typename TS>
-__device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
-                           const TD* __restrict__ srn, const TS* __restrict__ sP,
+// One lane's whole solve, run by one warp, in the slice ``wsm`` (shared
+// memory, or the lane's slice of the workspace in the GLOBAL layout) with
+// A's rows ``lda`` apart.  Every thread of the warp returns with the same
+// (it, done && feas) and the lane's state written back.
+template <typename TD, typename TS, bool GLOBAL>
+__device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA, int lda,
+                           const TD* srn, const TS* __restrict__ sP,
                            const TD* __restrict__ q, const TD* __restrict__ l,
                            const TD* __restrict__ u, int32_t* __restrict__ idx_g,
                            int32_t* __restrict__ side_g, uint8_t* __restrict__ vmask_g,
@@ -250,13 +278,13 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
   TS* sck = sr + ns;                         // ns   a row of Ginv
   TS* sdv = sck + ns;                        // ns   KKT right-hand side (warm)
   TS* slw = sdv + ns;                        // ns   KKT multipliers (warm)
-  const int lda = row_stride<TD>(n);
+  const int ldx = row_stride<TD>(n);
   TD* sxd = reinterpret_cast<TD*>(wsm + align16(sizeof(TS) * (ns * ns + 5 * n + 6 * ns)));
-  TD* sl = sxd + lda;                        // m    (sxd: x in the data type)
+  TD* sl = sxd + ldx;                        // m    (sxd: x in the data type)
   TD* su = sl + m;                           // m
   TD* sAact = su + m;                        // ns*n slot table, data type
   int* sidx = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(sxd) +
-                                     align16(sizeof(TD) * (lda + 2 * m + ns * n)));
+                                     align16(sizeof(TD) * (ldx + 2 * m + ns * n)));
   int* sside = sidx + ns;                    // ns
   int* svm = sside + ns;                     // ns
 
@@ -277,9 +305,9 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
   };
 
   // ---- load the lane ---------------------------------------------------------
-  copy_async(sl, l + (size_t)b * m, m, lane, 32);
-  copy_async(su, u + (size_t)b * m, m, lane, 32);
-  copy_async(sG, Ginv_g + (size_t)b * ns * ns, ns * ns, lane, 32);
+  copy_in<GLOBAL>(sl, l + (size_t)b * m, m, lane, 32);
+  copy_in<GLOBAL>(su, u + (size_t)b * m, m, lane, 32);
+  copy_in<GLOBAL>(sG, Ginv_g + (size_t)b * ns * ns, ns * ns, lane, 32);
   __pipeline_commit();
   for (int s = lane; s < ns; s += 32) {
     sidx[s] = idx_g[(size_t)b * ns + s];
@@ -422,11 +450,14 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
     TD best = -inf_d, best_ax = TD(0);
     int best_i = 0x7fffffff;
     if (m > 64)
-      scan_rows<4>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i, best_ax);
+      scan_rows<4, !GLOBAL>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i,
+                             best_ax);
     else if (m > 32)
-      scan_rows<2>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i, best_ax);
+      scan_rows<2, !GLOBAL>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i,
+                             best_ax);
     else
-      scan_rows<1>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i, best_ax);
+      scan_rows<1, !GLOBAL>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i,
+                             best_ax);
     for (int off = 16; off > 0; off >>= 1) {
       const TD ov = __shfl_xor_sync(kFull, best, off);
       const int oi = __shfl_xor_sync(kFull, best_i, off);
@@ -599,8 +630,10 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
 }
 
 // MINB blocks of kMaxWarps warps fit an SM's registers: 2 (64 registers a
-// thread) where two blocks' shared memory fits an SM, else 1 (128)
-template <typename TD, typename TS, int MINB>
+// thread) where two blocks' shared memory fits an SM, else 1 (128; always in
+// the GLOBAL layout, whose blocks no shared memory limits).  ``ws`` is the
+// GLOBAL layout's workspace (unused in the resident one).
+template <typename TD, typename TS, int MINB, bool GLOBAL>
 __global__ void __launch_bounds__(32 * kMaxWarps, MINB)
 gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
                 const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
@@ -611,33 +644,51 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
                 const int32_t* __restrict__ wside_g, const int32_t* __restrict__ wcnt_g,
                 const int32_t* __restrict__ max_it_g, TS* __restrict__ x_out,
                 TS* __restrict__ lam_out, int32_t* __restrict__ it_out,
-                uint8_t* __restrict__ conv_out, int n, int m, int ns, int warm, double tol) {
+                uint8_t* __restrict__ conv_out, unsigned char* ws, int n, int m,
+                int ns, int warm, double tol) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int c = block_ctrl[blockIdx.x];
   const int32_t* lanes = table + (size_t)blockIdx.x * width;
+  const size_t slice = warp_bytes<TD, TS>(n, m, ns);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int next_slot;
-  const int lda = row_stride<TD>(n);
-  TS* sP = reinterpret_cast<TS*>(smem_raw);                       // n*n P⁻¹
-  TD* sA = reinterpret_cast<TD*>(smem_raw + align16(sizeof(TS) * n * n));  // m*lda A
-  TD* srn = sA + (size_t)m * lda;                                 // m row norms
-  unsigned char* wsm = smem_raw + ctrl_bytes<TD, TS>(n, m) + warp * warp_bytes<TD, TS>(n, m, ns);
-
-  // ---- the controller's part, once per block ---------------------------------
-  const TD* Ac = A + (size_t)c * m * n;
-  for (int e = tid; e < m * n; e += nt) {
-    const int i = e / n, j = e - i * n;
-    __pipeline_memcpy_async(sA + (size_t)i * lda + j, Ac + e, sizeof(TD));
+  const TS* sP;            // n*n P⁻¹
+  const TD* sA;            // m rows of A, lda apart
+  TD* srn;                 // m row norms
+  int lda;
+  unsigned char* wsm;      // the warp's slice (resident), the lanes' slices (global)
+  if constexpr (GLOBAL) {
+    // ---- the controller's tables where they lie; the block's row norms ------
+    sP = Pinv + (size_t)c * n * n;
+    sA = A + (size_t)c * m * n;
+    lda = n;
+    srn = reinterpret_cast<TD*>(ws + (size_t)blockIdx.x * align16(sizeof(TD) * m));
+    wsm = ws + (size_t)gridDim.x * align16(sizeof(TD) * m);
+    if (tid == 0) next_slot = nt >> 5;
+  } else {
+    // ---- the controller's part, once per block ---------------------------------
+    lda = row_stride<TD>(n);
+    TS* P_s = reinterpret_cast<TS*>(smem_raw);
+    TD* A_s = reinterpret_cast<TD*>(smem_raw + align16(sizeof(TS) * n * n));
+    const TD* Ac = A + (size_t)c * m * n;
+    for (int e = tid; e < m * n; e += nt) {
+      const int i = e / n, j = e - i * n;
+      __pipeline_memcpy_async(A_s + (size_t)i * lda + j, Ac + e, sizeof(TD));
+    }
+    copy_async(P_s, Pinv + (size_t)c * n * n, n * n, tid, nt);
+    __pipeline_commit();
+    if (tid == 0) next_slot = nt >> 5;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    sP = P_s;
+    sA = A_s;
+    srn = A_s + (size_t)m * lda;
+    wsm = smem_raw + ctrl_bytes<TD, TS>(n, m) + warp * slice;
   }
-  copy_async(sP, Pinv + (size_t)c * n * n, n * n, tid, nt);
-  __pipeline_commit();
-  if (tid == 0) next_slot = nt >> 5;
-  __pipeline_wait_prior(0);
-  __syncthreads();
   for (int i = tid; i < m; i += nt) {
     TD s2 = TD(0);
     for (int j = 0; j < n; ++j) s2 += sA[i * lda + j] * sA[i * lda + j];
@@ -650,9 +701,10 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
   while (slot < width) {
     const int b = lanes[slot];
     if (b < 0) break;        // −1 pads the end of the list
-    solve_lane<TD, TS>(b, wsm, sA, srn, sP, q, l, u, idx_g, side_g, vmask_g, Ginv_g,
-                       widx_g, wside_g, wcnt_g, max_it_g, x_out, lam_out, it_out, conv_out,
-                       n, m, ns, warm, tol);
+    solve_lane<TD, TS, GLOBAL>(b, GLOBAL ? wsm + (size_t)b * slice : wsm, sA, lda, srn, sP, q,
+                               l, u, idx_g, side_g, vmask_g, Ginv_g, widx_g, wside_g, wcnt_g,
+                               max_it_g, x_out, lam_out, it_out, conv_out, n, m, ns, warm,
+                               tol);
     int nxt = 0;
     if (lane == 0) nxt = atomicAdd(&next_slot, 1);
     slot = __shfl_sync(kFull, nxt, 0);
@@ -661,19 +713,28 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
 
 inline bool two_blocks(int smem_bytes) { return 2 * (smem_bytes + kSmemPerBlock) <= kSmemPerSM; }
 
+// the instantiation a launch of this layout and shared memory takes
+template <typename TD, typename TS>
+auto kernel_for(int global, int smem_bytes) {
+  return global ? gi_solve_kernel<TD, TS, 1, true>
+                : (two_blocks(smem_bytes) ? gi_solve_kernel<TD, TS, 2, false>
+                                          : gi_solve_kernel<TD, TS, 1, false>);
+}
+
 template <typename TD, typename TS>
 int launch(const void* Pinv, const void* A, const void* table, const void* block_ctrl,
            const void* q, const void* l, const void* u, void* idx, void* side, void* vmask,
            void* Ginv, const void* widx, const void* wside, const void* wcnt,
-           const void* max_it, void* x, void* lam, void* it, void* conv, int n_blocks,
-           int width, int warps, int n, int m, int ns, int warm, int smem_bytes, double tol,
-           void* stream) {
+           const void* max_it, void* x, void* lam, void* it, void* conv, void* ws, int n_blocks,
+           int width, int warps, int n, int m, int ns, int warm, int smem_bytes, int global,
+           double tol, void* stream) {
   if (n_blocks <= 0) return 0;
   if (warps <= 0 || warps > kMaxWarps || width < 1) return (int)cudaErrorInvalidValue;
   if (ns < 1 || ns > n) return (int)cudaErrorInvalidValue;
-  const size_t need = ctrl_bytes<TD, TS>(n, m) + warps * warp_bytes<TD, TS>(n, m, ns);
-  if ((size_t)smem_bytes != need) return (int)cudaErrorInvalidValue;
-  auto kern = two_blocks(smem_bytes) ? gi_solve_kernel<TD, TS, 2> : gi_solve_kernel<TD, TS, 1>;
+  const size_t need =
+      global ? 0 : ctrl_bytes<TD, TS>(n, m) + warps * warp_bytes<TD, TS>(n, m, ns);
+  if ((size_t)smem_bytes != need || (global && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  auto kern = kernel_for<TD, TS>(global, smem_bytes);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
@@ -687,7 +748,8 @@ int launch(const void* Pinv, const void* A, const void* table, const void* block
       static_cast<TS*>(Ginv), static_cast<const int32_t*>(widx),
       static_cast<const int32_t*>(wside), static_cast<const int32_t*>(wcnt),
       static_cast<const int32_t*>(max_it), static_cast<TS*>(x), static_cast<TS*>(lam),
-      static_cast<int32_t*>(it), static_cast<uint8_t*>(conv), n, m, ns, warm, tol);
+      static_cast<int32_t*>(it), static_cast<uint8_t*>(conv), static_cast<unsigned char*>(ws),
+      n, m, ns, warm, tol);
   return (int)cudaGetLastError();
 }
 
@@ -698,12 +760,12 @@ int launch(const void* Pinv, const void* A, const void* table, const void* block
                       const void* block_ctrl, const void* q, const void* l, const void* u,    \
                       void* idx, void* side, void* vmask, void* Ginv, const void* widx,       \
                       const void* wside, const void* wcnt, const void* max_it, void* x,       \
-                      void* lam, void* it, void* conv, int n_blocks, int width, int warps,    \
-                      int n, int m, int ns, int warm, int smem_bytes, double tol,             \
-                      void* stream) {                                                         \
+                      void* lam, void* it, void* conv, void* ws, int n_blocks, int width,     \
+                      int warps, int n, int m, int ns, int warm, int smem_bytes, int global,  \
+                      double tol, void* stream) {                                             \
     return launch<TD, TS>(Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv, widx,  \
-                          wside, wcnt, max_it, x, lam, it, conv, n_blocks, width, warps, n,   \
-                          m, ns, warm, smem_bytes, tol, stream);                              \
+                          wside, wcnt, max_it, x, lam, it, conv, ws, n_blocks, width, warps,  \
+                          n, m, ns, warm, smem_bytes, global, tol, stream);                   \
   }
 
 MPC_GI_ENTRY(mpc_gi_solve_f32_f64, float, double)
@@ -711,17 +773,13 @@ MPC_GI_ENTRY(mpc_gi_solve_f32_f32, float, float)
 MPC_GI_ENTRY(mpc_gi_solve_f64_f64, double, double)
 
 // Blocks of `warps` warps and `smem_bytes` of shared memory resident on one
-// SM (the runtime's occupancy calculator); variant 0 = (f32 data, f64 slots),
-// 1 = (f32, f32), 2 = (f64, f64).  Returns −1 on an error.
-extern "C" int mpc_gi_blocks_per_sm(int variant, int warps, int smem_bytes) {
-  const bool two = two_blocks(smem_bytes);
-  const void* fn =
-      variant == 0 ? (two ? (const void*)gi_solve_kernel<float, double, 2>
-                          : (const void*)gi_solve_kernel<float, double, 1>)
-      : variant == 1 ? (two ? (const void*)gi_solve_kernel<float, float, 2>
-                            : (const void*)gi_solve_kernel<float, float, 1>)
-                     : (two ? (const void*)gi_solve_kernel<double, double, 2>
-                            : (const void*)gi_solve_kernel<double, double, 1>);
+// SM (the runtime's occupancy calculator) in a layout (`global` 0: resident,
+// 1: global); variant 0 = (f32 data, f64 slots), 1 = (f32, f32), 2 = (f64,
+// f64).  Returns −1 on an error.
+extern "C" int mpc_gi_blocks_per_sm(int variant, int global, int warps, int smem_bytes) {
+  const void* fn = variant == 0   ? (const void*)kernel_for<float, double>(global, smem_bytes)
+                   : variant == 1 ? (const void*)kernel_for<float, float>(global, smem_bytes)
+                                  : (const void*)kernel_for<double, double>(global, smem_bytes);
   // as a launch does: raise the kernel's shared-memory limit above the default
   // 48 KB only (a lower setting would refuse a later, larger launch)
   if (smem_bytes > 48 * 1024 &&

@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 LIB_NAME = "libmpc_tpu_torch_kernels.so"
@@ -40,13 +42,27 @@ def reset_launch_counts():
 
 
 # Launch geometry both kernels share.  Shared memory one block may use on an
-# H100 (232,448 bytes): the budget the plain versions check, so the CPU tests
-# exercise the same guard.  A block runs lanes of one controller, at most
+# H100 (232,448 bytes, or the card's own opt-in if less): the launch budget.
+# A QP whose one-lane block fits it runs in the resident layout (the
+# controller's tables and the lanes' state in shared memory), any other in
+# the global layout (all of it in device memory, in a workspace); the plain
+# versions have no budget.  A block runs lanes of one controller, at most
 # MAX_WARPS warps (kMaxWarps in both sources), one warp a lane at the fleet
 # shapes; a GI block pulls up to LANES_PER_BLOCK lanes through its warps.
 HOPPER_SMEM_OPTIN = 232448
+LAYOUTS = ("resident", "global")
 MAX_WARPS = 16
 LANES_PER_BLOCK = 32
+
+
+def launch_budget(props) -> int:
+    """Shared memory a block may use on the card of ``props``."""
+    return min(HOPPER_SMEM_OPTIN, props.shared_memory_per_block_optin)
+
+
+def check_layout(layout):
+    if layout is not None and layout not in LAYOUTS:
+        raise ValueError(f"_layout must be None or one of {LAYOUTS}, got {layout!r}")
 
 
 def align16(b: int) -> int:
@@ -130,21 +146,21 @@ def load_library():
         for name in ("mpc_admm_sweep_f32", "mpc_admm_sweep_f64"):
             fn = getattr(lib, name)
             # Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y,
-            # active, n_blocks, width, warps, grouped, n, m, n_lad, iters,
-            # smem_bytes, sigma, alpha, stream
-            fn.argtypes = [ptr] * 13 + [i32] * 9 + [f64, f64, ptr]
+            # active, ws, n_blocks, width, warps, grouped, n, m, n_lad,
+            # iters, smem_bytes, global, sigma, alpha, stream
+            fn.argtypes = [ptr] * 14 + [i32] * 10 + [f64, f64, ptr]
             fn.restype = i32
         for name in ("mpc_gi_solve_f32_f64", "mpc_gi_solve_f32_f32",
                      "mpc_gi_solve_f64_f64"):
             fn = getattr(lib, name)
             # Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv,
-            # widx, wside, wcnt, max_it, x, lam, it, conv, n_blocks, width,
-            # warps, n, m, ns, warm, smem_bytes, tol, stream
-            fn.argtypes = [ptr] * 19 + [i32] * 8 + [f64, ptr]
+            # widx, wside, wcnt, max_it, x, lam, it, conv, ws, n_blocks,
+            # width, warps, n, m, ns, warm, smem_bytes, global, tol, stream
+            fn.argtypes = [ptr] * 20 + [i32] * 9 + [f64, ptr]
             fn.restype = i32
-        # residency: (variant, warps, smem) and (f64, grouped, width,
-        # threads, smem) → blocks per SM
-        lib.mpc_gi_blocks_per_sm.argtypes = [i32] * 3
-        lib.mpc_admm_blocks_per_sm.argtypes = [i32] * 5
+        # residency: (variant, global, warps, smem) and (f64, global,
+        # grouped, width, threads, smem) → blocks per SM
+        lib.mpc_gi_blocks_per_sm.argtypes = [i32] * 4
+        lib.mpc_admm_blocks_per_sm.argtypes = [i32] * 6
         _lib = lib
     return _lib

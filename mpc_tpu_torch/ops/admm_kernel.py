@@ -9,9 +9,12 @@
 On a CUDA tensor it launches the hand-written kernel
 ``mpc_tpu_torch/csrc/admm_sweep.cu`` (lanes grouped by controller, one
 block per group: one warp per lane for n ≤ 32 in a large batch, else the
-group's lanes in step; see the note at the top of that file).  On a CPU tensor it runs
-``admm_sweep_reference``, the plain torch version beside it.  There is no
-fallback from one to the other: a failed build or launch raises.
+group's lanes in step; see the note at the top of that file), in its
+resident layout when one lane's block fits the card's shared memory and in
+its global layout, with a workspace in device memory, otherwise.  On a CPU
+tensor it runs ``admm_sweep_reference``, the plain torch version beside it,
+which sweeps any shape.  There is no fallback from one to the other: a
+failed build or launch raises.
 
 Shapes, batch leading: the ρ ladder ``Minvs`` (n_d, n_lad, n, n) and
 ``rhovs`` (n_d, n_lad, m) and ``A`` (n_d, m, n) are stacked over distinct
@@ -27,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.lanes import lane_blocks, mtv, mv, take
-from ._build import HOPPER_SMEM_OPTIN, LAUNCHES, MAX_WARPS, align16, pow2
+from ._build import (LAUNCHES, MAX_WARPS, align16, check_layout,
+                     launch_budget, pow2)
 
 # The lanes in step (admm_group_kernel): at most GROUP a block (kGroup), on
 # GROUP_THREADS threads (kGroupThreads).  One warp a lane (admm_warp_kernel)
@@ -55,42 +59,52 @@ def smem_bytes(n: int, m: int, itemsize: int, lanes: int = 1, grouped=None) -> i
             + align16(itemsize * parts * lanes * n))
 
 
-def launch_geometry(lane_ctrl, n, m, itemsize, budget, sms):
-    """``(table, block_ctrl, warps, grouped, smem)`` of a launch: the lanes
-    grouped by controller (``utils/lanes.py::lane_blocks``, cached per
+def workspace_bytes(n: int, m: int, itemsize: int, lanes: int = 1, grouped=None,
+                    blocks: int = 1) -> int:
+    """Device memory of a global-layout launch of ``blocks`` blocks of
+    ``lanes`` lanes, exactly as the kernel lays it out: each block's part
+    of ``smem_bytes`` after A, in the same order (A stays where it lies)."""
+    return blocks * (smem_bytes(n, m, itemsize, lanes, grouped)
+                     - align16(itemsize * m * n))
+
+
+def launch_geometry(lane_ctrl, n, m, itemsize, budget, sms, layout=None):
+    """``(table, block_ctrl, warps, grouped, smem, layout)`` of a launch: the
+    lanes grouped by controller (``utils/lanes.py::lane_blocks``, cached per
     ``lane_ctrl``).  One warp a lane when n ≤ 32 and the B lanes put at
     least ``WARP_LANES_PER_SM`` on each of the card's ``sms``
-    multiprocessors: ⌈B/sms⌉ lanes a block, rounded up to a power of two,
-    up to ``MAX_WARPS`` and the shared-memory budget.  Else the lanes in
-    step: up to ``GROUP`` a block, but no more than leave two blocks for
-    each SM, so a small batch keeps every SM busy before it shares A reads
-    (8x8/Hp=15 on an H100: B=256 runs fastest a lane a block, B=4096 two
-    lanes a block; four and eight were slower there)."""
+    multiprocessors (or the lanes in step do not fit the shared-memory
+    ``budget``): ⌈B/sms⌉ lanes a block, rounded up to a power of two, up to
+    ``MAX_WARPS``.  Else the lanes in step: up to ``GROUP`` a block, but no
+    more than leave two blocks for each SM, so a small batch keeps every SM
+    busy before it shares A reads (8x8/Hp=15 on an H100: B=256 runs fastest
+    a lane a block, B=4096 two lanes a block; four and eight were slower
+    there).  ``layout`` None takes "resident" when one lane's block of that
+    variant fits the budget (lanes are then added while they fit) and
+    "global" otherwise; the variant does not depend on the layout, so at a
+    shape both take they sum in the same order."""
     B = lane_ctrl.shape[0]
     grouped = (n > 32 or B < WARP_LANES_PER_SM * sms
                and smem_bytes(n, m, itemsize, 1, True) <= budget)
+    if layout is None:
+        fits = smem_bytes(n, m, itemsize, 1, grouped) <= budget
+        layout = "resident" if fits else "global"
+    fits = lambda lanes: (layout == "global"
+                          or smem_bytes(n, m, itemsize, lanes, grouped) <= budget)
     if not grouped:
         cap = min(MAX_WARPS, pow2(-(-B // sms)))
-        while cap > 1 and smem_bytes(n, m, itemsize, cap, False) > budget:
+        while cap > 1 and not fits(cap):
             cap -= 1
     else:
         per = max(1, B // (2 * sms))
         cap = GROUP
-        while cap > 1 and (cap > per or smem_bytes(n, m, itemsize, cap, True) > budget):
+        while cap > 1 and (cap > per or not fits(cap)):
             cap //= 2
     table, block_ctrl = lane_blocks(lane_ctrl, cap)
     width = table.shape[1]
     warps = GROUP_THREADS // 32 if grouped else width
-    return table, block_ctrl, warps, grouped, smem_bytes(n, m, itemsize, width, grouped)
-
-
-def _check_budget(n, m, dtype, budget):
-    need = smem_bytes(n, m, torch.empty((), dtype=dtype).element_size())
-    if need > budget:
-        raise ValueError(
-            f"problem too large for the fused ADMM kernel: one lane needs "
-            f"{need} bytes of shared memory (n={n}, m={m}, {dtype}), the "
-            f"block budget is {budget} bytes; use a smaller QP or float32")
+    smem = 0 if layout == "global" else smem_bytes(n, m, itemsize, width, grouped)
+    return table, block_ctrl, warps, grouped, smem, layout
 
 
 def _check_args(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active):
@@ -123,10 +137,8 @@ def _check_args(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active):
 
 def admm_sweep_reference(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y,
                          active, iters, sigma, alpha):
-    """Plain torch version of the kernel (same contract, same budget)."""
-    B, n, m, _ = _check_args(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z,
-                             y, active)
-    _check_budget(n, m, x.dtype, HOPPER_SMEM_OPTIN)
+    """Plain torch version of the kernel (same contract, any shape)."""
+    _check_args(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active)
     lc, rg = lane_ctrl.long(), rung.long()
     Minv, rho = Minvs[lc, rg], rhovs[lc, rg]
     A_l = take(A, lane_ctrl)
@@ -148,11 +160,14 @@ def admm_sweep_reference(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y,
 
 
 def admm_sweep(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active,
-               iters, sigma, alpha):
+               iters, sigma, alpha, *, _layout=None):
     """``iters`` ADMM sweeps in place on the active lanes' (x, z, y).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
+    ``_layout`` ("resident" or "global") forces the kernel's layout, for
+    the checks that hold one against the other; None picks it by size.
     """
+    check_layout(_layout)
     dev = x.device
     if dev.type == "cpu":
         return admm_sweep_reference(Minvs, A, lane_ctrl, rung, q, l, u, rhovs,
@@ -168,21 +183,28 @@ def admm_sweep(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active,
         if not t.is_contiguous():
             raise ValueError("admm_sweep arguments must be contiguous")
     props = torch.cuda.get_device_properties(dev)
-    budget = props.shared_memory_per_block_optin
-    _check_budget(n, m, x.dtype, budget)
     if B == 0 or iters <= 0:
         return x, z, y
     from ._build import load_library
     lib = load_library()
     fn = lib.mpc_admm_sweep_f32 if x.dtype == torch.float32 else lib.mpc_admm_sweep_f64
-    table, block_ctrl, warps, grouped, smem = launch_geometry(
-        lane_ctrl, n, m, x.element_size(), budget, props.multi_processor_count)
+    s = x.element_size()
+    table, block_ctrl, warps, grouped, smem, layout = launch_geometry(
+        lane_ctrl, n, m, s, launch_budget(props), props.multi_processor_count, _layout)
     ptrs = (Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y, active)
+    # the global layout's workspace: a block of the caching allocator, which
+    # hands the same block back to the next launch of this shape on this
+    # stream
+    ws = None
+    if layout == "global":
+        ws = torch.empty(workspace_bytes(n, m, s, table.shape[1], grouped, table.shape[0]),
+                         dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), table.shape[0], table.shape[1],
-                warps, int(grouped), n, m, n_lad, int(iters), smem, float(sigma),
-                float(alpha), stream)
+        rc = fn(*(t.data_ptr() for t in ptrs), None if ws is None else ws.data_ptr(),
+                table.shape[0], table.shape[1], warps, int(grouped), n, m, n_lad,
+                int(iters), smem, int(layout == "global"), float(sigma), float(alpha),
+                stream)
     if rc != 0:
         raise RuntimeError(f"admm_sweep kernel launch failed: CUDA error {rc}")
     LAUNCHES["admm_sweep"] += 1

@@ -14,10 +14,12 @@ one-shot cold restart and the infeasibility certificate.
 
 On a CUDA tensor it launches the hand-written kernel
 ``mpc_tpu_torch/csrc/gi_solve.cu`` (lanes grouped by controller, one block
-per group and one warp per lane; see the note at the top of that file).  On
-a CPU tensor it runs ``gi_solve_reference``,
-the plain torch version beside it.  There is no fallback from one to the
-other: a failed build or launch raises.
+per group and one warp per lane; see the note at the top of that file), in
+its resident layout when one warp's block fits the card's shared memory and
+in its global layout, with a workspace in device memory, otherwise.  On a
+CPU tensor it runs ``gi_solve_reference``, the plain torch version beside
+it, which solves any shape.  There is no fallback from one to the other: a
+failed build or launch raises.
 
 Arguments, batch leading (B lanes, n variables, m rows, ns slots):
 
@@ -40,8 +42,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.lanes import lane_blocks, take
-from ._build import (HOPPER_SMEM_OPTIN, LANES_PER_BLOCK, LAUNCHES, MAX_WARPS,
-                     align16, pow2)
+from ._build import (LANES_PER_BLOCK, LAUNCHES, MAX_WARPS, align16,
+                     check_layout, launch_budget, pow2)
 
 _BIG = 1e18        # ops.qp._BIG: bounds beyond this are infinite
 _TINY = 1e-30
@@ -57,28 +59,58 @@ def smem_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
     row, the KKT right-hand side and multipliers) in the slot dtype, x
     (padded), l, u and the slot table Aact in the data dtype, and idx, side,
     vmask as 4-byte ints."""
-    per = 16 // data_size
-    lda = -(-n // per) * per
+    lda = _row_stride(n, data_size)
     ctrl = align16(slot_size * n * n) + data_size * m * lda + align16(data_size * m)
-    warp = (align16(slot_size * (ns * ns + 5 * n + 6 * ns))
-            + align16(data_size * (lda + 2 * m + ns * n)) + align16(4 * 3 * ns))
-    return ctrl + warps * warp
+    return ctrl + warps * _slice_bytes(n, m, ns, data_size, slot_size)
 
 
-def launch_geometry(lane_ctrl, n, m, ns, data_size, slot_size, budget, sms):
-    """``(table, block_ctrl, warps, smem)`` of a launch: the lanes grouped by
-    controller (``utils/lanes.py::lane_blocks``, cached per ``lane_ctrl``),
-    ⌈B/sms⌉ lanes a block rounded up to a power of two, at most
-    ``LANES_PER_BLOCK``, so that a small batch still spreads over the
+def _row_stride(n, data_size):
+    """n rounded up to 16 bytes of the data dtype (A's rows, x)."""
+    per = 16 // data_size
+    return -(-n // per) * per
+
+
+def _slice_bytes(n, m, ns, data_size, slot_size):
+    """One lane's slice: a warp's part of ``smem_bytes``."""
+    return (align16(slot_size * (ns * ns + 5 * n + 6 * ns))
+            + align16(data_size * (_row_stride(n, data_size) + 2 * m + ns * n))
+            + align16(4 * 3 * ns))
+
+
+def workspace_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
+                    lanes: int = 1, blocks: int = 1) -> int:
+    """Device memory of a global-layout launch of ``blocks`` blocks over
+    ``lanes`` lanes, exactly as the kernel lays it out: each block's row
+    norms (data dtype, rounded up to 16 bytes), then each lane's slice, the
+    same parts as a warp's slice in ``smem_bytes``, at the lane's index.  A
+    and P⁻¹ stay where they lie."""
+    return (blocks * align16(data_size * m)
+            + lanes * _slice_bytes(n, m, ns, data_size, slot_size))
+
+
+def launch_geometry(lane_ctrl, n, m, ns, data_size, slot_size, budget, sms,
+                    layout=None):
+    """``(table, block_ctrl, warps, smem, layout)`` of a launch: the lanes
+    grouped by controller (``utils/lanes.py::lane_blocks``, cached per
+    ``lane_ctrl``), ⌈B/sms⌉ lanes a block rounded up to a power of two, at
+    most ``LANES_PER_BLOCK``, so that a small batch still spreads over the
     card's ``sms`` multiprocessors; as many warps a block as the table is
-    wide, up to ``MAX_WARPS`` and the shared-memory budget."""
+    wide, up to ``MAX_WARPS``.  ``layout`` None takes "resident" when one
+    warp's block fits the shared-memory ``budget`` (the warps then also fit
+    it) and "global" (no shared memory but the lane counter) otherwise."""
+    if layout is None:
+        fits = smem_bytes(n, m, ns, data_size, slot_size) <= budget
+        layout = "resident" if fits else "global"
     B = lane_ctrl.shape[0]
     width = min(LANES_PER_BLOCK, pow2(-(-B // sms)))
     table, block_ctrl = lane_blocks(lane_ctrl, width)
     warps = min(table.shape[1], MAX_WARPS)
+    if layout == "global":
+        return table, block_ctrl, warps, 0, layout
     while warps > 1 and smem_bytes(n, m, ns, data_size, slot_size, warps) > budget:
         warps -= 1
-    return table, block_ctrl, warps, smem_bytes(n, m, ns, data_size, slot_size, warps)
+    return (table, block_ctrl, warps,
+            smem_bytes(n, m, ns, data_size, slot_size, warps), layout)
 
 
 def slot_dtype_for(dt, slot_dtype=None):
@@ -90,17 +122,6 @@ def slot_dtype_for(dt, slot_dtype=None):
         return torch.float32
     raise TypeError(f"slot dtype {slot_dtype} with {dt} data: the slots are "
                     "float64, or float32 with float32 data")
-
-
-def _check_budget(n, m, ns, dt, hi, budget):
-    need = smem_bytes(n, m, ns, torch.empty((), dtype=dt).element_size(),
-                      torch.empty((), dtype=hi).element_size())
-    if need > budget:
-        raise ValueError(
-            f"problem too large for the GI kernel: one lane needs {need} "
-            f"bytes of shared memory (n={n}, m={m}, slots={ns}, data {dt}, "
-            f"slots {hi}), the block budget is {budget} bytes; use a "
-            "smaller QP, fewer slots (max_active) or float32")
 
 
 def _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
@@ -162,7 +183,7 @@ def violation_scan_reference(A_l, x_d, l, u, row_nrm):
 
 def gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv,
                        widx, wside, wcnt, warm, max_it, tol):
-    """Plain torch version of the kernel (same contract, same budget).
+    """Plain torch version of the kernel (same contract, any shape).
 
     ``_gi_impl`` over a leading lane axis: one Python loop per GI loop,
     running while any lane is live, with every carry field committed by
@@ -172,7 +193,6 @@ def gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv,
     B, n, m, ns = _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask,
                               Ginv, widx, wside, wcnt, max_it)
     dt, hi, dev = A.dtype, Ginv.dtype, q.device
-    _check_budget(n, m, ns, dt, hi, HOPPER_SMEM_OPTIN)
     inf = float("inf")
     A_l = take(A, lane_ctrl)                       # (B, m, n) data dtype
     P_l = take(Pinv, lane_ctrl)                    # (B, n, n) slot dtype
@@ -402,11 +422,14 @@ def gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv,
 
 
 def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
-             wside, wcnt, warm, max_it, tol):
+             wside, wcnt, warm, max_it, tol, *, _layout=None):
     """The per-lane GI solve (see the module docstring).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
+    ``_layout`` ("resident" or "global") forces the kernel's layout, for
+    the checks that hold one against the other; None picks it by size.
     """
+    check_layout(_layout)
     dev = q.device
     if dev.type == "cpu":
         return gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side,
@@ -425,8 +448,6 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
             raise ValueError("gi_solve arguments must be contiguous")
     dt, hi = A.dtype, Ginv.dtype
     props = torch.cuda.get_device_properties(dev)
-    budget = props.shared_memory_per_block_optin
-    _check_budget(n, m, ns, dt, hi, budget)
     x = torch.empty(B, n, dtype=hi, device=dev)
     lam = torch.empty(B, ns, dtype=hi, device=dev)
     it = torch.empty(B, dtype=torch.int32, device=dev)
@@ -438,15 +459,24 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
     fn = {(torch.float32, torch.float64): lib.mpc_gi_solve_f32_f64,
           (torch.float32, torch.float32): lib.mpc_gi_solve_f32_f32,
           (torch.float64, torch.float64): lib.mpc_gi_solve_f64_f64}[(dt, hi)]
-    table, block_ctrl, warps, smem = launch_geometry(
-        lane_ctrl, n, m, ns, A.element_size(), Ginv.element_size(), budget,
-        props.multi_processor_count)
+    sizes = (A.element_size(), Ginv.element_size())
+    table, block_ctrl, warps, smem, layout = launch_geometry(
+        lane_ctrl, n, m, ns, *sizes, launch_budget(props),
+        props.multi_processor_count, _layout)
     ptrs = (Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
             wside, wcnt, max_it, x, lam, it, conv)
+    # the global layout's workspace: a block of the caching allocator, which
+    # hands the same block back to the next launch of this shape on this
+    # stream
+    ws = None
+    if layout == "global":
+        ws = torch.empty(workspace_bytes(n, m, ns, *sizes, B, table.shape[0]),
+                         dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), table.shape[0], table.shape[1],
-                warps, n, m, ns, int(bool(warm)), smem, float(tol), stream)
+        rc = fn(*(t.data_ptr() for t in ptrs), None if ws is None else ws.data_ptr(),
+                table.shape[0], table.shape[1], warps, n, m, ns, int(bool(warm)), smem,
+                int(layout == "global"), float(tol), stream)
     if rc != 0:
         raise RuntimeError(f"gi_solve kernel launch failed: CUDA error {rc}")
     LAUNCHES["gi_solve"] += 1

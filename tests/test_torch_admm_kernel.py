@@ -16,9 +16,11 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from mpc_tpu.ops.pallas_qp import _admm_kernel
-from mpc_tpu_torch.ops.admm_kernel import (HOPPER_SMEM_OPTIN, admm_batch,
-                                           admm_sweep, admm_sweep_reference,
-                                           smem_bytes)
+from mpc_tpu_torch.ops._build import HOPPER_SMEM_OPTIN
+from mpc_tpu_torch.ops.admm_kernel import (admm_batch, admm_sweep,
+                                           admm_sweep_reference,
+                                           launch_geometry, smem_bytes,
+                                           workspace_bytes)
 
 torch.set_num_threads(1)
 
@@ -169,18 +171,60 @@ def test_qps_wider_than_the_block_fit_the_layout(itemsize):
 
 
 def test_size_guard_uses_the_hopper_budget():
-    """The Pallas ValueError contract, checked against 232,448 bytes of
-    shared memory per block: the headline and the 8x8/Hp=15 shapes fit in
-    f32, n=64/m=1024 does not."""
+    """The shared-memory budget of 232,448 bytes picks the kernel's layout
+    and refuses nothing: the headline and the 8x8/Hp=15 shapes fit in f32,
+    n=64/m=1024 does not, and the sweep (plain version) runs it as the
+    same sweeps written out in NumPy float64 do, to 1e-12."""
     assert smem_bytes(5, 101, 4) <= HOPPER_SMEM_OPTIN
     assert smem_bytes(33, 897, 4) <= HOPPER_SMEM_OPTIN
-    n, m, B = 64, 1024, 2
-    z = lambda *s: torch.zeros(s, dtype=torch.float32)
-    zi = lambda *s: torch.zeros(s, dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        admm_sweep(z(1, 1, n, n), z(1, m, n), zi(B), zi(B), z(B, n), z(B, m),
-                   z(B, m), z(1, 1, m) + 1, z(B, n), z(B, m), z(B, m),
-                   torch.ones(B, dtype=torch.bool), 1, 1e-6, 1.6)
+    assert smem_bytes(64, 1024, 4, 1, True) > HOPPER_SMEM_OPTIN
+    a = _sweep_inputs(9, n_d=2, reps=2, n=64, m=1024)
+    on = torch.ones(4, dtype=torch.bool)
+    ref = {k: a[k].numpy().copy() for k in ("x", "z", "y")}
+    lc, rg = a["lane_ctrl"].long(), a["rung"].long()
+    M, rho = a["Minvs"][lc, rg].numpy(), a["rhovs"][lc, rg].numpy()
+    A, q, l, u = a["A"][lc].numpy(), a["q"].numpy(), a["l"].numpy(), a["u"].numpy()
+    admm_sweep(*(a[k] for k in ORDER), on, 3, 1e-6, 1.6)
+    x, z, y = ref["x"], ref["z"], ref["y"]
+    for _ in range(3):
+        rhs = 1e-6 * x - q + np.einsum("bmn,bm->bn", A, rho * z - y)
+        xt = np.einsum("bij,bj->bi", M, rhs)
+        zp = 1.6 * np.einsum("bmn,bn->bm", A, xt) + (1 - 1.6) * z
+        zn = np.clip(zp + y / rho, l, u)
+        y = y + rho * (zp - zn)
+        x, z = 1.6 * xt + (1 - 1.6) * x, zn
+    for k, want in (("x", x), ("z", z), ("y", y)):
+        assert np.abs(a[k].numpy() - want).max() < 1e-12 * (1 + np.abs(want).max()), k
+
+
+@pytest.mark.parametrize("n,m,itemsize,B,grouped,layout", [
+    (5, 101, 4, 4096, False, "resident"),     # headline-ADMM
+    (33, 577, 4, 256, True, "resident"),      # 8x8/Hp=15
+    (33, 897, 8, 1, True, "global"),          # 8x8 LinMPC, Hp=25, float64
+    (33, 2017, 4, 4096, True, "global"),      # the large fleet at Hp=60
+    (64, 1024, 4, 2, True, "global"),
+    (5, 12000, 4, 32, False, "global"),       # neither variant fits
+])
+def test_launch_geometry_picks_the_layout_by_size(n, m, itemsize, B, grouped, layout):
+    """The resident layout while one lane's block of the variant fits the
+    budget, the global one above; the variant and the lanes a block do not
+    depend on the layout (so the two sum in one order), a global launch
+    asks for no shared memory, and its workspace is each block's part of
+    ``smem_bytes`` after A."""
+    lc = torch.arange(B, dtype=torch.int32) % max(1, B // 16)
+    table, _, warps, g, smem, got = launch_geometry(lc, n, m, itemsize, HOPPER_SMEM_OPTIN, 132)
+    assert (g, got) == (grouped, layout)
+    assert (smem_bytes(n, m, itemsize, 1, g) <= HOPPER_SMEM_OPTIN) == (layout == "resident")
+    width = table.shape[1]
+    assert smem == (smem_bytes(n, m, itemsize, width, g) if layout == "resident" else 0)
+    a16 = lambda b: (b + 15) // 16 * 16
+    blocks = table.shape[0]
+    assert workspace_bytes(n, m, itemsize, width, g, blocks) == blocks * (
+        smem_bytes(n, m, itemsize, width, g) - a16(itemsize * m * n))
+    forced = launch_geometry(lc, n, m, itemsize, HOPPER_SMEM_OPTIN, 132, "global")
+    assert forced[2:4] == (warps, g) and forced[4:] == (0, "global")
+    if layout == "resident":
+        assert forced[0].shape == table.shape
 
 
 def test_sweep_rejects_bad_arguments():

@@ -68,13 +68,14 @@ SWEEP = ("Minvs", "A", "lane_ctrl", "rung", "q", "l", "u", "rhovs", "x", "z",
          "y", "active")
 
 
-def _sweep_check(dev, dtype, tol, rel=True, **kw):
-    """Kernel and plain sweep, 40 sweeps: x, z and y each to
-    tol·(1 + its max|plain|) (``rel``) or to tol."""
+def _sweep_check(dev, dtype, tol, rel=True, layout=None, **kw):
+    """Kernel (in ``layout``, None: the wrapper's choice) and plain sweep,
+    40 sweeps: x, z and y each to tol·(1 + its max|plain|) (``rel``) or to
+    tol."""
     a = _problem(dev, dtype, **kw)
     b = {k: v.clone() for k, v in a.items()}
     n0 = LAUNCHES["admm_sweep"]
-    admm_sweep(*(a[k] for k in SWEEP), 40, 1e-6, 1.6)
+    admm_sweep(*(a[k] for k in SWEEP), 40, 1e-6, 1.6, _layout=layout)
     admm_sweep_reference(*(b[k] for k in SWEEP), 40, 1e-6, 1.6)
     torch.cuda.synchronize()
     assert LAUNCHES["admm_sweep"] == n0 + 1
@@ -620,3 +621,143 @@ def test_two_shard_headline_fleet_matches_unsharded():
         err = float((us - up).abs().max())
         assert err <= 1e-4 * (1.0 + float(up.abs().max())), (k, err)
         assert int(ns) == int(np_) == 128
+
+
+def _gi_args(a, lane_ctrl, cap, slots):
+    """The per-lane solve's arguments of ``solve_qp_active`` on ``a``."""
+    rec = {}
+
+    def capture(*args):
+        rec["args"] = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        return gi_solve_reference(*args)
+    solve_qp_active(a["P"], a["q"], a["A"], a["l"], a["u"], a["y0"], lane_ctrl=lane_ctrl,
+                    cache=a["cache"], max_active=cap, slot_dtype=slots, solve=capture)
+    return rec["args"]
+
+
+# lanes of 8 controllers, 132 each: on an H100 (132 SMs) the sweep puts two
+# lanes a block in step at n > 32 (B // (2·SMs) ≥ 2) and a GI block up to 8
+# warps; ragged groups put one lane a block
+WIDE = lambda: torch.arange(1056, dtype=torch.int32) % 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ["ragged", "wide"])
+@pytest.mark.parametrize("dtype,slots,cap", [(torch.float64, None, None),
+                                             (torch.float32, None, 12),
+                                             (torch.float32, torch.float32, 8)])
+def test_gi_global_layout_returns_the_resident_bits(dtype, slots, cap, lanes):
+    """At a shape both layouts take (n=33, odd, so A's rows are padded in
+    shared memory and not in device memory; m=150; ragged groups or 1,056
+    lanes of 8 controllers, warm duals), the global layout returns the
+    resident one's x, λ, iteration counts, flags and operator state to the
+    last bit."""
+    dev = _card()
+    lc = (LAYOUTS["ragged"]() if lanes == "ragged" else WIDE()).to(dev)
+    a = _gi_problem(dev, dtype, n=33, m=150, B=lc.numel(), seed=3, lane_ctrl=lc)
+    args = _gi_args(a, lc, cap, slots)
+    out = {}
+    for layout in ("resident", "global"):
+        c = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        out[layout] = (*gi_solve(*c, _layout=layout), *c[6:10])
+    torch.cuda.synchronize()
+    for r, g in zip(out["resident"], out["global"]):
+        assert torch.equal(r, g)
+
+
+def _lanes_a_block(dev, lc, n, m, s, layout):
+    """Lanes a block of a sweep launch on the card."""
+    props = torch.cuda.get_device_properties(dev)
+    table = admm_kernel.launch_geometry(lc.to(dev), n, m, s,
+                                        props.shared_memory_per_block_optin,
+                                        props.multi_processor_count, layout)[0]
+    return table.shape[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,warp_lanes,lanes", [(5, 101, 0, "ragged"),
+                                                  (5, 101, 10**9, "ragged"),
+                                                  (33, 150, 0, "ragged"),
+                                                  (33, 150, 0, "wide")])
+def test_sweep_global_layout_returns_the_resident_bits(dtype, n, m, warp_lanes, lanes,
+                                                       monkeypatch):
+    """Both sweep variants (a warp a lane and the lanes in step, one and two
+    lanes a block) on ragged groups or 1,056 lanes of 8 controllers: the
+    global layout returns the resident one's x, z and y to the last bit."""
+    dev = _card()
+    monkeypatch.setattr(admm_kernel, "WARP_LANES_PER_SM", warp_lanes)
+    lc = LAYOUTS["ragged"]() if lanes == "ragged" else WIDE()
+    if lanes == "wide":
+        s = 4 if dtype == torch.float32 else 8
+        assert [_lanes_a_block(dev, lc, n, m, s, lay) for lay in ("resident", "global")] \
+            == [2, 2]
+    a = _problem(dev, dtype, n=n, m=m, lane_ctrl=lc)
+    out = {}
+    for layout in ("resident", "global"):
+        b = {k: v.clone() for k, v in a.items()}
+        admm_sweep(*(b[k] for k in SWEEP), 40, 1e-6, 1.6, _layout=layout)
+        out[layout] = b
+    torch.cuda.synchronize()
+    for k in ("x", "z", "y"):
+        assert torch.equal(out["resident"][k], out["global"][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(64, 1024), (5, 12000)])
+def test_sweep_beyond_shared_memory_matches_plain_on_card(n, m):
+    """One lane's block of n=64, m=1024 (the lanes in step) or n=5, m=12000
+    (a warp a lane: the batch is too small for it, but the lanes in step do
+    not fit either) exceeds the shared memory of a block in float32 and
+    float64: the sweep runs in the global layout and holds to the plain
+    version as at the resident shapes."""
+    dev = _card()
+    lc = LAYOUTS["tiled"]()
+    props = torch.cuda.get_device_properties(dev)
+    for dt, s in ((torch.float32, 4), (torch.float64, 8)):
+        *_, layout = admm_kernel.launch_geometry(
+            lc.to(dev), n, m, s, props.shared_memory_per_block_optin,
+            props.multi_processor_count)
+        assert layout == "global"
+    _sweep_check(dev, torch.float32, 1e-4, n=n, m=m, lane_ctrl=lc)
+    _sweep_check(dev, torch.float64, 1e-10, rel=False, n=n, m=m, lane_ctrl=lc)
+
+
+@pytest.mark.cuda
+def test_sweep_two_lanes_a_block_global_matches_plain_on_card():
+    """The lanes in step two a block (1,056 lanes of 8 controllers, n=33,
+    m=150) forced to the global layout hold to the plain sweep with the bars
+    of test_kernel_layouts_match_plain_on_card: f32 to 1e-4·(1 + max|plain|),
+    f64 to 1e-10, frozen lanes bit-unchanged."""
+    dev = _card()
+    lc = WIDE()
+    for dt, s in ((torch.float32, 4), (torch.float64, 8)):
+        assert _lanes_a_block(dev, lc, 33, 150, s, "global") == 2
+    _sweep_check(dev, torch.float32, 1e-4, n=33, m=150, lane_ctrl=lc, layout="global")
+    _sweep_check(dev, torch.float64, 1e-10, rel=False, n=33, m=150, lane_ctrl=lc,
+                 layout="global")
+
+
+@pytest.mark.cuda
+def test_gi_beyond_shared_memory_matches_plain_on_card():
+    """n=64, m=1024 in float64 (one warp's block needs 654,080 bytes of
+    shared memory): the GI kernel runs in the global layout and holds to the
+    plain solve: equal flags, iterations and active sets, x to
+    1e-9·(1 + max|x|), the float64 bar of test_gi_kernel_matches_plain_on_card
+    (the junk in the warm duals costs up to ~250 rank-one updates of Ginv
+    here, whose sums the two take in other orders), with a cap of 600
+    pivots."""
+    dev = _card()
+    lc = (torch.arange(64, dtype=torch.int32) % 4).to(dev)
+    a = _gi_problem(dev, torch.float64, n=64, m=1024, B=64, seed=7, lane_ctrl=lc)
+    n0 = LAUNCHES["gi_solve"]
+    k, p = (solve_qp_active(a["P"], a["q"], a["A"], a["l"], a["u"], a["y0"],
+                            lane_ctrl=lc, cache=a["cache"], max_pivots=600, solve=fn)
+            for fn in (gi_solve, gi_solve_reference))
+    torch.cuda.synchronize()
+    assert LAUNCHES["gi_solve"] == n0 + 1
+    assert bool(p.converged.all())
+    assert torch.equal(k.converged, p.converged)
+    assert torch.equal(k.iters, p.iters)
+    assert torch.equal(k.gi_state["gis_idx"], p.gi_state["gis_idx"])
+    assert (k.x - p.x).abs().max().item() < 1e-9 * (1.0 + p.x.abs().max().item())

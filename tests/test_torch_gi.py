@@ -24,7 +24,9 @@ from mpc_tpu.ops.qp_active import build_gi_cache as jax_build_gi_cache
 from mpc_tpu.ops.qp_active import solve_qp_active as jax_solve_qp_active
 from mpc_tpu_torch.ops._build import HOPPER_SMEM_OPTIN
 from mpc_tpu_torch.ops.gi_kernel import (gi_solve, gi_solve_reference,
-                                         smem_bytes, violation_scan_reference)
+                                         launch_geometry, smem_bytes,
+                                         violation_scan_reference,
+                                         workspace_bytes)
 from mpc_tpu_torch.ops.qp_active import (build_gi_cache, gi_state_init,
                                          solve_qp_active)
 
@@ -399,16 +401,55 @@ def test_state_init_and_argument_checks():
 
 
 def test_size_guard_uses_the_hopper_budget():
-    """The headline-GI and large-GI shapes fit a block; n=64, m=1024 in
-    float64 does not, and both versions refuse it with a ValueError."""
+    """The shared-memory budget picks the kernel's layout and refuses
+    nothing: the headline-GI and large-GI shapes fit a block, n=64, m=1024
+    in float64 does not, and the plain version solves such QPs to their KKT
+    conditions: feasible, stationary and with duals of the right sign on
+    the active rows only, each to 1e-9 of its scale."""
     assert smem_bytes(5, 101, 5, 4, 8) <= HOPPER_SMEM_OPTIN
     assert smem_bytes(33, 577, 8, 4, 4) <= HOPPER_SMEM_OPTIN // 2
-    n, m, B = 64, 1024, 2
-    z = lambda *s: torch.zeros(s, dtype=torch.float64)
-    i = lambda *s: torch.zeros(s, dtype=torch.int32)
-    args = (z(1, n, n), z(1, m, n), i(B), z(B, n), z(B, m), z(B, m), i(B, 4),
-            i(B, 4), torch.zeros(B, 4, dtype=torch.bool), z(B, 4, 4), i(B, 4),
-            i(B, 4), i(B), False, i(B) + 5, 1e-9)
+    assert smem_bytes(64, 1024, 64, 8, 8) > HOPPER_SMEM_OPTIN
+    rng = np.random.default_rng(11)
+    P, q, A, l, u = _stack([random_qp(rng, 64, 1024) for _ in range(2)])
+    t = lambda a: torch.tensor(a)
     for fn in (gi_solve, gi_solve_reference):
-        with pytest.raises(ValueError, match="shared memory"):
-            fn(*args)
+        r = solve_qp_active(t(P), t(q), t(A), t(l), t(u), solve=fn)
+        x, y = r.x.numpy(), r.y.numpy()
+        Ax = np.einsum("bmn,bn->bm", A, x)
+        scale = 1.0 + np.abs(q).max() + np.abs(y).max()
+        assert bool(r.converged.all())
+        assert np.all(Ax >= l - 1e-9) and np.all(Ax <= u + 1e-9)
+        grad = np.einsum("bij,bj->bi", P, x) + q + np.einsum("bmn,bm->bn", A, y)
+        assert np.abs(grad).max() < 1e-9 * scale
+        assert np.all(np.where(y > 0, np.abs(Ax - u), 0.0) < 1e-9)
+        assert np.all(np.where(y < 0, np.abs(Ax - l), 0.0) < 1e-9)
+
+
+@pytest.mark.parametrize("n,m,ns,data,slot,reps,layout", [
+    (5, 101, 5, 4, 8, 16, "resident"),      # headline-GI
+    (33, 577, 8, 4, 4, 128, "resident"),    # large-GI
+    (33, 897, 33, 8, 8, 1, "global"),       # 8x8 LinMPC, Hp=25, float64
+    (33, 2017, 12, 4, 8, 128, "global"),    # the large fleet at Hp=60
+    (82, 202, 82, 8, 8, 1, "global"),       # MHE He=40, float64
+])
+def test_launch_geometry_picks_the_layout_by_size(n, m, ns, data, slot, reps, layout):
+    """The resident layout while one warp's block fits 232,448 bytes, the
+    global one above; a global launch asks for no shared memory and as
+    many warps as the table is wide, and its workspace is each block's row
+    norms and each lane's slice (a warp's part of ``smem_bytes``)."""
+    n_d = 4096 // reps if reps > 1 else 1
+    lc = torch.arange(n_d * reps, dtype=torch.int32) % n_d
+    table, block_ctrl, warps, smem, got = launch_geometry(
+        lc, n, m, ns, data, slot, HOPPER_SMEM_OPTIN, 132)
+    assert got == layout
+    assert warps == min(table.shape[1], 16)
+    assert (smem_bytes(n, m, ns, data, slot) <= HOPPER_SMEM_OPTIN) == (layout == "resident")
+    assert smem == (smem_bytes(n, m, ns, data, slot, warps) if layout == "resident" else 0)
+    lane = smem_bytes(n, m, ns, data, slot, 2) - smem_bytes(n, m, ns, data, slot, 1)
+    a16 = lambda b: (b + 15) // 16 * 16
+    assert lane == (a16(slot * (ns * ns + 5 * n + 6 * ns))
+                    + a16(data * (a16(data * n) // data + 2 * m + ns * n)) + a16(12 * ns))
+    B, blocks = lc.numel(), table.shape[0]
+    assert workspace_bytes(n, m, ns, data, slot, B, blocks) == blocks * a16(data * m) + B * lane
+    forced = launch_geometry(lc, n, m, ns, data, slot, HOPPER_SMEM_OPTIN, 132, "global")
+    assert forced[2:] == (min(table.shape[1], 16), 0, "global")
