@@ -14,8 +14,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    launch alone); 3b. both kernels on every lane
    layout, and the sweep on QPs wider than its block (n=300);
 4. QPs beyond a block's shared memory (n=64, m=1024): the sweep in float32
-   and float64 and the GI solve in float64 run in the kernels' global
-   layout and hold to their plain versions;
+   and float64 and the GI solve in float64 run in the layout the wrappers
+   pick for them (the sweep's staged, GI's split) and hold to their plain
+   versions;
 5. a small float64 fleet on the card against the same fleet on the CPU
    (the plain path, which the CPU tests hold to the JAX reference);
 6. THE MAIN PATH: the headline fleet — 256 randomized 2x2 CSTR-like LinMPC
@@ -140,8 +141,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    time, sweep launches and host syncs, the float32 spread of one period
    (kernel against plain sweep) beside it, and the same chunks in float64
    (B=256), every lane within 1e-9·(1 + max|u|);
-37. THE GLOBAL LAYOUT'S MAIN PATHS, QPs whose one-lane block exceeds the
-   shared memory of an SM: (a) one 8x8 LinMPC of bench.py's plants at
+37. THE STAGED AND SPLIT LAYOUTS' MAIN PATHS, QPs whose one-lane block
+   exceeds the shared memory of an SM (the sweep's staged layout, GI's
+   split one; each also timed in the global layout, the last resort, on the
+   same captured inputs, with the same bits): (a) one 8x8 LinMPC of bench.py's plants at
    Hp=25, Hc=4, float64 (n=33, m=897), ``sim`` for 30 periods with GI (33
    slots) and ADMM on the card against the CPU (u to 1e-6, GI's iteration
    counts equal), the median ``moveinput``, each kernel against its plain
@@ -155,10 +158,11 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    examples/mhe_estimation.py's MovingHorizonEstimator at He=40, float64
    (n=82, m=202, 82 slots), 50 periods card vs CPU (x̂ to 1e-9·(1 +
    max|x̂|)), the GI kernel against its plain version on one more window;
-   (d) the global layout forced on the captured inputs of headline-GI,
-   large-GI, headline-ADMM and 8x8/Hp=15 ADMM: the resident layout's bits
-   (max |Δ| = 0 on x, λ, the iterations and flags, and on x, z, y) and
-   each layout's device time.
+   (d) the global layout, and the split (GI) or staged (the sweep's lanes
+   in step) layout with a third of A's rows in shared memory, forced on
+   the captured inputs of headline-GI, large-GI, headline-ADMM and 8x8/
+   Hp=15 ADMM: the resident layout's bits (max |Δ| = 0 on x, λ, the
+   iterations and flags, and on x, z, y) and each layout's device time.
 
 The line before the last is the card's name and power limit, and before it
 a JSON object of the kernels; the last line is
@@ -224,7 +228,7 @@ def median_ms(torch, fn, setup, n=25):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-ADMM_KERNELS = ("admm_warp_kernel", "admm_group_kernel")
+ADMM_KERNELS = ("admm_warp_kernel", "admm_group_kernel", "admm_staged_kernel")
 GI_KERNELS = ("gi_solve_kernel",)
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s (data sheet)
 PEAK_FLOPS = {4: 67e12,    # float32 outside the tensor cores (data sheet)
@@ -411,7 +415,7 @@ def admm_residency(torch, ops, _build, a, layout=None):
     s = a["x"].element_size()
     table, _, warps, grouped, smem, layout = admm_geometry(torch, a, layout)
     blocks = _build.load_library().mpc_admm_blocks_per_sm(
-        int(s == 8), int(layout == "global"), int(grouped), table.shape[1], 32 * warps, smem)
+        int(s == 8), _build.LAYOUT_CODE[layout], int(grouped), table.shape[1], 32 * warps, smem)
     return blocks * table.shape[1], dict(blocks_per_sm=blocks, lanes_per_block=table.shape[1],
                                          threads=32 * warps, grouped=grouped,
                                          smem_bytes=smem, layout=layout)
@@ -421,7 +425,7 @@ def gi_residency(torch, _build, args, layout=None):
     Pinv, A = args[:2]
     table, _, warps, smem, layout = gi_geometry(torch, args, layout)
     variant = {(4, 8): 0, (4, 4): 1, (8, 8): 2}[(A.element_size(), Pinv.element_size())]
-    blocks = _build.load_library().mpc_gi_blocks_per_sm(variant, int(layout == "global"),
+    blocks = _build.load_library().mpc_gi_blocks_per_sm(variant, _build.LAYOUT_CODE[layout],
                                                         warps, smem)
     return blocks * warps, dict(blocks_per_sm=blocks, warps=warps,
                                 lanes_per_block=table.shape[1], smem_bytes=smem,
@@ -3199,7 +3203,8 @@ MHE_GI_TOL = 1e-9      # x̂ card vs CPU with GI: 1e-9·(1 + max|x̂|) (PERF.md 
 
 def beyond_smem_phase(torch, ops, dev):
     """Phase 4: QPs of n=64, m=1024, whose one-lane block fits no SM's
-    shared memory, solve on the card in the global layout and hold to the
+    shared memory, solve on the card in the layout the wrappers pick for
+    them (not the resident one: the staged sweep, the split GI) and hold to the
     plain versions: the sweep in float32 and float64 (B=2, one controller,
     10 sweeps: x, z, y to F32_TOL·(1 + max|plain|), 1e-10 in float64, the
     frozen lane bit-unchanged) and the GI solve in float64 (B=64, 4
@@ -3215,14 +3220,15 @@ def beyond_smem_phase(torch, ops, dev):
     worst = {}
     for dt in (torch.float32, torch.float64):
         a = dict(zip(SWEEP_ARGS, layout_sweep_inputs(torch, dev, zi(2), n, m, dt)))
-        check(admm_geometry(torch, a)[-1] == "global", "n=64, m=1024 sweep: not the global "
+        check(admm_geometry(torch, a)[-1] != "resident", "n=64, m=1024 sweep: the resident "
               "layout")
         worst["admm_sweep"] = max(worst.get("admm_sweep", 0.0), sweep_layout_check(
             torch, ops, dev, "beyond shared memory", zi(2), n, m, dt,
             admm_kernel.WARP_LANES_PER_SM))
     lc = (torch.arange(64, device=dev) % 4).to(torch.int32)
     args = gi_layout_inputs(torch, ops, dev, lc, n=n, m=m, cap=None, max_pivots=600)
-    check(gi_geometry(torch, args)[-1] == "global", "n=64, m=1024 GI: not the global layout")
+    layout = gi_geometry(torch, args)[-1]
+    check(layout != "resident", "n=64, m=1024 GI: the resident layout")
     out = {}
     for label, fn in (("kernel", ops.gi_solve), ("plain", ops.gi_solve_reference)):
         a = _clone(args)
@@ -3232,7 +3238,7 @@ def beyond_smem_phase(torch, ops, dev):
     (xk, itk, ck, ik), (xp, itp, cp, ip) = out["kernel"], out["plain"]
     err = (xk - xp).abs().max().item()
     tol = 1e-9 * (1.0 + xp.abs().max().item())
-    print(f"GI beyond shared memory: B=64 n_d=4 f64 n={n} m={m} slots={n} (global layout): "
+    print(f"GI beyond shared memory: B=64 n_d=4 f64 n={n} m={m} slots={n} ({layout} layout): "
           f"converged {int(ck.sum())}/64, equal flags {int((ck == cp).sum())}, iterations "
           f"{int((itk == itp).sum())} (max {int(itp.max())}), active sets "
           f"{int((ik == ip).all(1).sum())}; max |x kernel - x plain| {err:.3e} (tol {tol:.3e})",
@@ -3242,6 +3248,109 @@ def beyond_smem_phase(torch, ops, dev):
     check(np.isfinite(err) and err <= tol, f"GI beyond shared memory: x differs by {err:.3e}")
     worst["gi_solve"] = err
     return worst
+
+
+def layout_rows(torch, args, kernel, layout=None):
+    """A's rows a staged (sweep) or split (GI) launch on these inputs keeps
+    in shared memory (None in the other layouts)."""
+    from mpc_tpu_torch.ops import admm_kernel, gi_kernel
+    budget = card_geometry(torch)[0]
+    if kernel == "gi_solve":
+        table, _, warps, _, got = gi_geometry(torch, args, layout)
+        if got != "split":
+            return None
+        Pinv, A, _, q, l = args[:5]
+        return gi_kernel.split_plan(q.shape[1], l.shape[1], args[6].shape[1], A.element_size(),
+                                    Pinv.element_size(), warps, budget,
+                                    layout[1] if isinstance(layout, tuple) else None)[0]
+    table, *_, got = admm_geometry(torch, args, layout)
+    if got != "staged":
+        return None
+    n, m, s = args["x"].shape[1], args["z"].shape[1], args["x"].element_size()
+    return admm_kernel.staged_plan(n, m, s, table.shape[1], budget,
+                                   layout[1] if isinstance(layout, tuple) else None)[0]
+
+
+def kernel_runs(torch, ops, kernel, chk, layouts):
+    """The kernel on fresh copies of a check's captured inputs in each of
+    ``layouts``: its outputs (x, λ, the iterations, flags and operator state
+    for GI; x, z, y for the sweep)."""
+    args, runs = chk["args"], {}
+    for lay in layouts:
+        if kernel == "gi_solve":
+            a = _clone(args)
+            runs[str(lay)] = (*ops.gi_solve(*a, _layout=lay), *a[6:10])
+        else:
+            a = {k: v.clone() for k, v in args.items()}
+            ops.admm_sweep(*(a[k] for k in SWEEP_ARGS), *chk["tail"], _layout=lay)
+            runs[str(lay)] = [a[k] for k in ("x", "z", "y")]
+    torch.cuda.synchronize()
+    return runs
+
+
+def max_diff(r, g):
+    """Largest |Δ| between two runs' outputs (counts of unequal entries for
+    the integer and flag outputs)."""
+    return max((a.double() - b.double()).abs().max().item() if a.is_floating_point()
+               else float((a != b).sum()) for a, b in zip(r, g))
+
+
+def layout_ms(torch, ops, kernel, chk, layout):
+    """Device time of one launch on a check's captured inputs in ``layout``."""
+    args, holder = chk["args"], {}
+    if kernel == "gi_solve":
+        def setup():
+            holder["a"] = _clone(args)
+
+        def fn():
+            ops.gi_solve(*holder["a"], _layout=layout)
+        names = GI_KERNELS
+    else:
+        def setup():
+            holder["a"] = {k: v.clone() for k, v in args.items()}
+
+        def fn():
+            ops.admm_sweep(*(holder["a"][k] for k in SWEEP_ARGS), *chk["tail"], _layout=layout)
+        names = ADMM_KERNELS
+    return device_ms(torch, fn, setup, names, launches=lambda: ops.LAUNCHES[kernel])
+
+
+def versus_global(torch, ops, _build, name, kernel, chk):
+    """The layout the wrapper picks at a shape beyond the resident layout
+    (the staged sweep, the split GI) against the global layout, the last resort,
+    forced on the same captured inputs: the same bits (max |Δ| = 0), the
+    global layout's device time and lanes per SM, the picked layout's
+    resident rows of A, and the time of the copy of A the wrapper makes for
+    it each launch (the sweep's rows padded to 16 bytes, GI's rows past the
+    resident ones column-major)."""
+    import torch.nn.functional as F
+    from mpc_tpu_torch.ops import admm_kernel
+    gi = kernel == "gi_solve"
+    args = chk["args"]
+    runs = kernel_runs(torch, ops, kernel, chk, (None, "global"))
+    diff = max_diff(runs["None"], runs["global"])
+    ms = layout_ms(torch, ops, kernel, chk, "global")
+    layout = (gi_geometry(torch, args) if gi else admm_geometry(torch, args))[-1]
+    lanes_g = (gi_residency(torch, _build, args, "global") if gi
+               else admm_residency(torch, ops, _build, args, "global"))[0]
+    rows = layout_rows(torch, args, kernel)
+    A = args[1] if gi else args["A"]
+    m, n = A.shape[1:]
+    if gi and rows is not None and rows < m:
+        copy = lambda: A[:, rows:, :].transpose(1, 2).contiguous()
+    elif not gi and rows is not None:
+        pad = admm_kernel.row_stride(n, A.element_size()) - n
+        copy = lambda: F.pad(A, (0, pad))
+    else:
+        copy = None
+    copy_ms = median_ms(torch, copy, lambda: None) if copy else 0.0
+    print(f"{name}: {layout} layout {chk['ms']:.4f} ms (+ its copy of A {copy_ms:.4f} ms; "
+          f"{rows} of {m} rows resident) against the global layout {ms:.4f} ms "
+          f"({ms / chk['ms']:.2f}x, {lanes_g} lanes per SM); max |{layout} - global| {diff}",
+          flush=True)
+    check(diff == 0.0, f"{name}: the {layout} layout differs from the global one: {diff}")
+    return dict(global_ms=ms, global_max_diff=diff, global_lanes_per_sm=lanes_g, rows=rows,
+                copy_ms=copy_ms)
 
 
 class Counted(Timed):
@@ -3297,6 +3406,7 @@ def big_single_phase(torch, mt, ops, _build, dev, periods=30):
         args = single_kernel_inputs(ops, c, key, res.Y_data[-1], ry)
         chk = (gi_vs_plain(torch, ops, name, args, True) if key == "gi"
                else kernel_vs_plain(torch, ops, name, args))
+        chk.update(versus_global(torch, ops, _build, name, kernel, chk))
         chk.update(moveinput_ms=med * 1e3, launches=run[kernel],
                    per_period=run[kernel] / periods)
         out[qp_solver] = chk
@@ -3341,6 +3451,8 @@ def big_fleet_phase(torch, mt, ops, _build, dev, n_d=32, reps=128, check_reps=8)
             chk_small = kernel_vs_plain(torch, ops, f"{name} B={small.B}",
                                         steady_inputs(torch, small, cs, check_reps),
                                         at_floor=True)
+        chk_small.update(versus_global(torch, ops, _build, f"{name} B={small.B}", kernel,
+                                       chk_small))
         del small
         fleet = BatchedLinMPC(cs, reps=reps, device=dev, dtype=torch.float32)
         B = fleet.B
@@ -3348,21 +3460,23 @@ def big_fleet_phase(torch, mt, ops, _build, dev, n_d=32, reps=128, check_reps=8)
             args = gi_steady_inputs(torch, fleet, cs, reps)
             table, _, warps, _, layout = gi_geometry(torch, args)
             print(f"{name} B={B}: launch geometry {layout}, {table.shape[0]} blocks of "
-                  f"{table.shape[1]} lanes, {warps} warps a block", flush=True)
+                  f"{table.shape[1]} lanes, {warps} warps a block, "
+                  f"{layout_rows(torch, args, kernel)} rows of A resident", flush=True)
             chk = gi_vs_plain(torch, ops, f"{name} B={B}", args, False)
         else:
             args = steady_inputs(torch, fleet, cs, reps)
             a = dict(zip(SWEEP_ARGS, args[:12]))
             table, _, warps, grouped, _, layout = admm_geometry(torch, a)
             print(f"{name} B={B}: launch geometry {layout}, {table.shape[0]} blocks of "
-                  f"{table.shape[1]} lanes ({'in step' if grouped else 'a warp a lane'})",
-                  flush=True)
+                  f"{table.shape[1]} lanes ({'in step' if grouped else 'a warp a lane'}), "
+                  f"{layout_rows(torch, a, kernel)} rows of A resident", flush=True)
             chk = kernel_vs_plain(torch, ops, f"{name} B={B}", args, at_floor=True)
             n, m = a["x"].shape[1], a["z"].shape[1]
             chk["err_synthetic"] = max(
                 sweep_layout_check(torch, ops, dev, f"fleet Hp={FLEET_HP} lane map",
                                    a["lane_ctrl"], n, m, dt, admm_kernel.WARP_LANES_PER_SM)
                 for dt in (torch.float32, torch.float64))
+        chk.update(versus_global(torch, ops, _build, f"{name} B={B}", kernel, chk))
         chk["check_small"] = chk_small
         loop = ClosedLoop(torch, cs, reps, dev, torch.float32)
         run, med, n_conv = drive(torch, ops, name, fleet, loop, 4,
@@ -3372,10 +3486,10 @@ def big_fleet_phase(torch, mt, ops, _build, dev, n_d=32, reps=128, check_reps=8)
         check(run[kernel] > 0, f"{name}: the {kernel} kernel was never launched")
         share = n_conv / B
         print(f"{name}: B={B}, converged share of the last period {share:.4f} (limit 0.99), "
-              f"median {med:.0f} solves/s, {run[kernel] / 8:g} {kernel} launches a period",
-              flush=True)
+              f"median {med:.0f} solves/s (a period {B / med * 1e3:.2f} ms), "
+              f"{run[kernel] / 8:g} {kernel} launches a period", flush=True)
         chk.update(launches=run[kernel], per_period=run[kernel] / 8, conv_share=share,
-                   solves_per_s=med)
+                   solves_per_s=med, period_ms=B / med * 1e3)
         out[qp_solver] = chk
         del fleet
     return launches, out
@@ -3437,62 +3551,47 @@ def big_mhe_phase(torch, mt, ops, _build, dev, periods=50):
         mhe_fast.solve_qp_active = inner
     check("args" in rec, f"MHE He={MHE_HE}: no GI solve was captured")
     chk = gi_vs_plain(torch, ops, f"MHE He={MHE_HE} B=1", rec["args"], True)
+    chk.update(versus_global(torch, ops, _build, f"MHE He={MHE_HE} B=1", "gi_solve", chk))
     chk.update(launches=run["gi_solve"], per_period=run["gi_solve"] / periods,
                preparestate_ms=med * 1e3, err_x=worst)
     return run, chk
 
 
 def layout_equivalence_phase(torch, ops, cases):
-    """37d: the global layout forced on captured inputs of shapes the
-    resident layout takes (``cases``: name → (kernel, check)), against the
-    resident one: the same bits of x, λ, the iteration counts and flags
-    (GI) or of x, z and y (the sweep), and each layout's device time."""
+    """37d: the global layout and the split (GI) or staged (the sweep's
+    lanes in step; not a warp a lane) layout with a third of A's rows in
+    shared memory, the rest streamed or read column-major, forced on
+    captured inputs of shapes the resident layout takes (``cases``: name →
+    (kernel, check)), against the resident one: the same bits of x, λ, the
+    iteration counts and flags (GI) or of x, z and y (the sweep), and each
+    layout's device time."""
     out = {}
     for name, (kernel, chk) in cases.items():
         args, gi = chk["args"], kernel == "gi_solve"
+        m = (args[4] if gi else args["z"]).shape[1]
+        new = "split" if gi else "staged"
+        in_step = gi or admm_geometry(torch, args)[3]
+        layouts = ["resident", "global"] + ([(new, m // 3)] if in_step else [])
+        runs = kernel_runs(torch, ops, kernel, chk, layouts)
+        diff = {str(lay): max_diff(runs["resident"], runs[str(lay)]) for lay in layouts[1:]}
+        ms = {str(lay): layout_ms(torch, ops, kernel, chk, lay) for lay in layouts[1:]}
         if gi:
-            runs = {}
-            for layout in ("resident", "global"):
-                a = _clone(args)
-                runs[layout] = (*ops.gi_solve(*a, _layout=layout), *a[6:10])
-            diff = [((r.double() - g.double()).abs().max().item() if r.is_floating_point()
-                     else float((r != g).sum())) for r, g in zip(*runs.values())]
-            holder = {}
-
-            def setup():
-                holder["a"] = _clone(args)
-
-            def fn():
-                ops.gi_solve(*holder["a"], _layout="global")
-            names, count = GI_KERNELS, "gi_solve"
-            geo = gi_geometry(torch, args, "global")
-            geo = f"{geo[2]} warps a block"
+            geo = f"{gi_geometry(torch, args, 'global')[2]} warps a block"
         else:
-            runs = {}
-            for layout in ("resident", "global"):
-                a = {k: v.clone() for k, v in args.items()}
-                ops.admm_sweep(*(a[k] for k in SWEEP_ARGS), *chk["tail"], _layout=layout)
-                runs[layout] = [a[k] for k in ("x", "z", "y")]
-            diff = [(r - g).abs().max().item() for r, g in zip(*runs.values())]
-            holder = {}
-
-            def setup():
-                holder["a"] = {k: v.clone() for k, v in args.items()}
-
-            def fn():
-                ops.admm_sweep(*(holder["a"][k] for k in SWEEP_ARGS), *chk["tail"],
-                               _layout="global")
-            names, count = ADMM_KERNELS, "admm_sweep"
             geo = admm_geometry(torch, args, "global")
             geo = f"{geo[0].shape[1]} lanes a block{' in step' if geo[3] else ''}"
-        torch.cuda.synchronize()
-        ms = device_ms(torch, fn, setup, names, launches=lambda: ops.LAUNCHES[count])
-        what = "x, λ, it, conv, idx, side, vmask, Ginv" if gi else "x, z, y"
-        print(f"layouts {name} ({geo}): max |resident - global| on {what}: {diff}; device ms "
-              f"resident {chk['ms']:.4f}, global {ms:.4f} ({ms / chk['ms']:.2f}x)", flush=True)
-        check(all(d == 0.0 for d in diff), f"layouts {name}: the global layout differs from "
+        new_key = str((new, m // 3))
+        print(f"layouts {name} ({geo}): max |resident - other| {diff}; device ms resident "
+              f"{chk['ms']:.4f}, global {ms['global']:.4f} ({ms['global'] / chk['ms']:.2f}x)"
+              + (f", {new} with {m // 3} of {m} rows resident {ms[new_key]:.4f} "
+                 f"({ms[new_key] / chk['ms']:.2f}x)" if in_step else f", no {new} layout"),
+              flush=True)
+        check(all(d == 0.0 for d in diff.values()), f"layouts {name}: a layout differs from "
               f"the resident one: {diff}")
-        out[name] = dict(resident_ms=chk["ms"], global_ms=ms, max_diff=max(diff), geometry=geo)
+        out[name] = dict(resident_ms=chk["ms"], global_ms=ms["global"],
+                         max_diff=max(diff.values()), geometry=geo,
+                         **({f"{new}_ms": ms[new_key], f"{new}_rows": m // 3} if in_step
+                            else {}))
     return out
 
 
@@ -3751,7 +3850,9 @@ def main():
           f"{big['active_set']['moveinput_ms']:.3f} ms, ADMM {big['admm']['moveinput_ms']:.3f} "
           f"ms (f64); 8x8 fleet Hp={FLEET_HP} converged GI "
           f"{big_fleet['active_set']['conv_share']:.4f}, ADMM "
-          f"{big_fleet['admm']['conv_share']:.4f} (limit 0.99); MHE He={MHE_HE} preparestate "
+          f"{big_fleet['admm']['conv_share']:.4f} (limit 0.99), period median GI "
+          f"{big_fleet['active_set']['period_ms']:.2f} ms, ADMM "
+          f"{big_fleet['admm']['period_ms']:.2f} ms; MHE He={MHE_HE} preparestate "
           f"median {mhe_big['preparestate_ms']:.3f} ms; layouts {json.dumps(equiv)}",
           flush=True)
 
@@ -3819,7 +3920,9 @@ def main():
                 "bound_by": c["bound_by"], "library_ms": None,
                 "roofline_share": c["bound_ms"] / c["ms"], "launches_per_period": lpp,
                 "resident_lanes_per_sm": lanes, "event_ms": c["event_ms"],
-                **{k: c[k] for k in ("copied_A_bytes", "copied_A_ms") if k in c}}
+                **{k: c[k] for k in ("copied_A_bytes", "copied_A_ms", "rows", "copy_ms",
+                                     "global_ms", "global_max_diff", "global_lanes_per_sm",
+                                     "conv_share", "period_ms") if k in c}}
 
     admm_shapes = [
         shape("headline-ADMM B=4096 n=5 m=101 f32", head, path_launches["headline-ADMM"],

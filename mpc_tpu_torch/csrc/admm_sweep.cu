@@ -42,13 +42,39 @@
 //   mma.sync m8n8k4) is left for later work.
 //
 // A second layout, "global", takes QPs whose block would not fit the SM's
-// shared memory (ops/admm_kernel.py::launch_geometry picks it when one
-// lane's block of the variant exceeds the opt-in budget).  It is the same
-// two kernels (the template parameter GLOBAL): A is read where it lies in
-// device memory, and what a block keeps after A in shared memory (its lanes'
-// l, u, ρ, z, y, Minv or x, q, rhs, x̃, and the Aᵀv partial sums) lies in
-// the block's own slice of a workspace the wrapper allocates, in the same
-// order.  Every sum keeps its order, so the two layouts return the same bits.
+// shared memory at all (the last resort of ops/admm_kernel.py::
+// launch_geometry).  It is the same two kernels (LAYOUT == kGlobal): A, l, u
+// and ρ are read where they lie in device memory, and what a block keeps
+// after A in shared memory (its lanes' z, y, Minv or z, y, ρz − y, x, q,
+// rhs, x̃, and the Aᵀv partial sums) lies in the block's own slice of a
+// workspace the wrapper allocates, in the same order.
+//
+// A third layout, "staged" (admm_staged_kernel, the lanes in step only),
+// takes QPs whose A does not fit beside the lanes but whose lanes do: the
+// 8x8 fleet at Hp=60 (n=33, m=2017, f32: A is 266 KB, a lane's z and y
+// 16 KB).  What bounds it is the bytes of A a block reads from L2 a pass,
+// and the latency of each thread's chain of shared-memory reads.  It keeps
+// up to four lanes' z, y, x, q, rhs and their ρz − y and x̃ (interleaved
+// across the lanes, one vector load a row or a column) in shared memory,
+// holds A's leading `rows` rows there for the whole launch, and streams the
+// other rows through a ring of `stages` chunks of `tile` rows, each A's
+// rows (from the wrapper's copy with rows padded to 16 bytes, so 16-byte
+// cp.async and vector loads) with the lanes' l, u and ρ of those rows, so
+// the next chunk loads while the block works on the current one.  It
+// passes over A once a sweep, not twice: on each chunk it first runs A·x̃,
+// the projection and the z, y and ρz − y updates of the chunk's rows, a
+// thread a row, then (after a barrier) adds the chunk's rows to the NEXT
+// sweep's Aᵀv partial sums, which each thread keeps in registers over the
+// pass; one extra pass ahead of the first sweep forms its Aᵀv, so a launch
+// reads A iters + 1 times, each A element serving every lane of the block.
+// At the Hp=60 fleet (B=4096) on an H100 it is 1.4x faster than the global
+// layout and still at 5 % of its bound: the chains of a row's updates and
+// the per-chunk barriers, with 8 warps an SM, are not hidden
+// (profile_layouts.py times the parts).
+//
+// Every per-lane sum keeps its order in every layout (the (pp, pj) split of
+// Aᵀv over ascending rows, the parts in ascending p, A·x̃ and Minv·rhs over
+// ascending columns), so the three layouts return the same bits.
 //
 // What bounds it on this card (NVIDIA H100 SXM: 3.35 TB/s, 67 TFLOP/s f32):
 // per lane and sweep ~4mn + 2n² flops (2,070 at the 2x2 Hp=10 headline, n=5,
@@ -71,8 +97,11 @@ namespace {
 constexpr int kMaxWarps = 16;   // ops/_build.py::MAX_WARPS
 constexpr int kWarpMinBlocks = 2;   // blocks of kMaxWarps warps an SM holds (64 registers)
 constexpr int kGroup = 2;       // lanes in step in a block, at most (ops/admm_kernel.py::GROUP)
+constexpr int kStagedGroup = 4; // the same in the staged layout (STAGED_LANES)
 constexpr int kGroupThreads = 256;
 constexpr int kMaxParts = 16;  // row classes of the grouped Aᵀv split, at most
+// layouts, as ops/_build.py::LAYOUT_CODE numbers them
+constexpr int kResident = 0, kGlobal = 1, kStaged = 2;
 
 template <typename T>
 __device__ __forceinline__ T clip(T v, T lo, T hi) {
@@ -100,14 +129,15 @@ __device__ __forceinline__ void copy_in(T* dst, const T* src, int count, int t, 
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
 
 // shared memory, in the order of ops/admm_kernel.py::smem_bytes; the global
-// layout's workspace holds each block's part after A (workspace_bytes)
+// layout's workspace holds each block's part after A without l, u and ρ
+// (workspace_bytes)
 template <typename T>
-__host__ __device__ size_t warp_slice(int n, int m) {
-  return align16(sizeof(T) * (5 * (size_t)m + n * n + 2 * n + (32 / n) * n));
+__host__ __device__ size_t warp_slice(int n, int m, bool global) {
+  return align16(sizeof(T) * ((global ? 2 : 5) * (size_t)m + n * n + 2 * n + (32 / n) * n));
 }
 template <typename T>
-__host__ __device__ size_t group_lane(int n, int m) {
-  return align16(sizeof(T) * (6 * (size_t)m + 4 * n));
+__host__ __device__ size_t group_lane(int n, int m, bool global) {
+  return align16(sizeof(T) * ((global ? 3 : 6) * (size_t)m + 4 * n));
 }
 // row classes of the grouped Aᵀv split: as many as the threads allow, up to
 // kMaxParts, so that small n does not end in a long serial sum of partials;
@@ -120,9 +150,47 @@ template <typename T>
 __host__ __device__ size_t group_part(int n, int width) {
   return align16(sizeof(T) * (size_t)group_parts(n) * width * n);
 }
+// the staged layout (ops/admm_kernel.py::staged_bytes): A's rows padded to
+// 16 bytes; a lane's slice (z, y, x, q, rhs); a chunk of `rows` rows (A's
+// rows, then the W lanes' l, u and ρ of them); the whole block: W slices,
+// ρz − y and x̃ of the W lanes, the partial sums, the resident chunk and
+// the ring of `stages` chunks of `tile` rows
+template <typename T>
+__host__ __device__ constexpr int row_stride(int n) {
+  return (n + int(16 / sizeof(T)) - 1) / int(16 / sizeof(T)) * int(16 / sizeof(T));
+}
+template <typename T>
+__host__ __device__ size_t staged_lane(int n, int m) {
+  return align16(sizeof(T) * (2 * (size_t)m + 3 * n));
+}
+template <typename T>
+__host__ __device__ size_t staged_chunk(int n, int width, int rows) {
+  return align16(sizeof(T) * (size_t)rows * row_stride<T>(n)) +
+         align16(sizeof(T) * 3 * (size_t)width * rows);
+}
+template <typename T>
+__host__ __device__ size_t staged_bytes(int n, int m, int width, int rows, int tile, int stages) {
+  return width * staged_lane<T>(n, m) + align16(sizeof(T) * (size_t)m * width) +
+         align16(sizeof(T) * (size_t)n * width) + group_part<T>(n, width) +
+         staged_chunk<T>(n, width, rows) + stages * staged_chunk<T>(n, width, tile);
+}
+
+// one row of one lane after A·x̃: the relaxation, the projection and the
+// dual step; returns ρz − y for the next Aᵀv
+template <typename T>
+__device__ __forceinline__ T row_step(T ax, T alpha, T one_m_alpha, T lo, T hi, T rho, T* zi,
+                                      T* yi) {
+  const T yo = *yi;
+  const T zp = alpha * ax + one_m_alpha * *zi;
+  const T zn = clip(zp + yo / rho, lo, hi);
+  const T yn = yo + rho * (zp - zn);
+  *yi = yn;
+  *zi = zn;
+  return rho * zn - yn;
+}
 
 // ---- one warp per lane (n ≤ 32) ------------------------------------------------
-template <typename T, bool GLOBAL>
+template <typename T, int LAYOUT>
 __global__ void __launch_bounds__(32 * kMaxWarps, kWarpMinBlocks)
 admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                  const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
@@ -131,12 +199,13 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                  T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
                  const uint8_t* __restrict__ active, unsigned char* ws, int n, int m, int n_lad,
                  int iters, T sigma, T alpha) {
+  constexpr bool GLOBAL = LAYOUT == kGlobal;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int c = block_ctrl[blockIdx.x];
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const size_t slice = warp_slice<T>(n, m);
+  const size_t slice = warp_slice<T>(n, m, GLOBAL);
   const T* sA;                                                  // m*n
   unsigned char* wsm;
   if constexpr (GLOBAL) {
@@ -151,23 +220,27 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
     sA = A_s;
     wsm = smem_raw + align16(sizeof(T) * (size_t)m * n) + warp * slice;
   }
-  T* sl = reinterpret_cast<T*>(wsm);   // m
-  T* su = sl + m;                      // m
-  T* srho = su + m;                    // m
-  T* sz = srho + m;                    // m
-  T* sy = sz + m;                      // m
-  T* sM = sy + m;                      // n*n  the lane's Minv
-  T* srhs = sM + n * n;                // n
-  T* sxt = srhs + n;                   // n    x̃
-  T* spart = sxt + n;                  // (32/n)*n partial sums of Aᵀv
-
   const int b = warp < width ? table[(size_t)blockIdx.x * width + warp] : -1;
   if (b < 0 || !active[b]) return;
   const size_t bn = (size_t)b * n, bm = (size_t)b * m;
   const size_t rg = (size_t)c * n_lad + rung[b];
-  copy_in<GLOBAL>(sl, l + bm, m, lane, 32);
-  copy_in<GLOBAL>(su, u + bm, m, lane, 32);
-  copy_in<GLOBAL>(srho, rhovs + rg * m, m, lane, 32);
+  // the slice: (l, u, ρ: resident only) z, y (m each), Minv (n*n), rhs, x̃
+  // (n each), the (32/n)*n partial sums of Aᵀv
+  T* w0 = reinterpret_cast<T*>(wsm);
+  const T* sl = GLOBAL ? l + bm : w0;
+  const T* su = GLOBAL ? u + bm : w0 + m;
+  const T* srho = GLOBAL ? rhovs + rg * m : w0 + 2 * m;
+  T* sz = GLOBAL ? w0 : w0 + 3 * m;
+  T* sy = sz + m;
+  T* sM = sy + m;
+  T* srhs = sM + n * n;
+  T* sxt = srhs + n;
+  T* spart = sxt + n;
+  if constexpr (!GLOBAL) {
+    copy_async(w0, l + bm, m, lane, 32);
+    copy_async(w0 + m, u + bm, m, lane, 32);
+    copy_async(w0 + 2 * m, rhovs + rg * m, m, lane, 32);
+  }
   copy_in<GLOBAL>(sz, z + bm, m, lane, 32);
   copy_in<GLOBAL>(sy, y + bm, m, lane, 32);
   copy_in<GLOBAL>(sM, Minvs + rg * n * n, n * n, lane, 32);
@@ -225,12 +298,27 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
   }
 }
 
+// The block's active lanes, from the table: s_lane[0..nact) (shared), by
+// thread 0; the caller passes a barrier before reading them.
+__device__ __forceinline__ void active_lanes(const int32_t* __restrict__ table,
+                                             const uint8_t* __restrict__ active, int width,
+                                             int* s_lane, int* s_nact) {
+  if (threadIdx.x == 0) {
+    int k = 0;
+    for (int s = 0; s < width; ++s) {
+      const int b = table[(size_t)blockIdx.x * width + s];
+      if (b >= 0 && active[b]) s_lane[k++] = b;
+    }
+    *s_nact = k;
+  }
+}
+
 // ---- the block's active lanes in step (n > 32, or a small batch) -------------
 // W lane slices (the table's width): the block's active lanes fill the
 // first nact, and the products run over all W with no per-lane test in the
 // inner loops; a slice past nact computes on whatever it holds and is never
-// read back.
-template <typename T, int W, bool GLOBAL>
+// read back (in the global layout it reads the first lane's l, u and ρ).
+template <typename T, int W, int LAYOUT>
 __global__ void __launch_bounds__(kGroupThreads)
 admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                   const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
@@ -239,54 +327,67 @@ admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                   T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
                   const uint8_t* __restrict__ active, unsigned char* ws, int n, int m,
                   int n_lad, int iters, T sigma, T alpha) {
+  constexpr bool GLOBAL = LAYOUT == kGlobal;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int c = block_ctrl[blockIdx.x];
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_lane[W];
   __shared__ int s_nact;
-  const size_t lane_bytes = group_lane<T>(n, m);
+  const size_t lane_bytes = group_lane<T>(n, m, GLOBAL);
   T* const A_s = reinterpret_cast<T*>(smem_raw);
   const T* sA = GLOBAL ? A + (size_t)c * m * n : A_s;          // m*n
   unsigned char* lanes0 =
       GLOBAL ? ws + (size_t)blockIdx.x * (W * lane_bytes + group_part<T>(n, W))
              : smem_raw + align16(sizeof(T) * (size_t)m * n);
   T* spart = reinterpret_cast<T*>(lanes0 + W * lane_bytes);     // parts*W*n
-  // lane w's slice: l, u, ρ, z, y, v = ρ∘z − y (m each), then x, q, rhs, x̃ (n each)
+  // lane w's slice: (resident only) l, u, ρ, then z, y, v = ρ∘z − y (m
+  // each), then x, q, rhs, x̃ (n each), z at offset `oz`; the global layout
+  // reads l, u and ρ in place (LO, HI, RH)
+  const int oz = GLOBAL ? 0 : 3 * m;
   T* S[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) S[w] = reinterpret_cast<T*>(lanes0 + w * lane_bytes);
 
-  if (tid == 0) {
-    int k = 0;
-    for (int s = 0; s < width; ++s) {
-      const int b = table[(size_t)blockIdx.x * width + s];
-      if (b >= 0 && active[b]) s_lane[k++] = b;
-    }
-    s_nact = k;
-  }
+  active_lanes(table, active, width, s_lane, &s_nact);
   __syncthreads();
   const int nact = s_nact;
   if (nact == 0) return;
-  if constexpr (!GLOBAL) copy_async(A_s, A + (size_t)c * m * n, m * n, tid, nt);
+  const T* LO[W];
+  const T* HI[W];
+  const T* RH[W];
+  if constexpr (GLOBAL) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const size_t b = s_lane[w < nact ? w : 0];
+      LO[w] = l + b * m;
+      HI[w] = u + b * m;
+      RH[w] = rhovs + ((size_t)c * n_lad + rung[b]) * m;
+    }
+  } else {
+    copy_async(A_s, A + (size_t)c * m * n, m * n, tid, nt);
+  }
   for (int w = 0; w < nact; ++w) {
     const size_t b = s_lane[w];
     const size_t rg = (size_t)c * n_lad + rung[b];
-    copy_in<GLOBAL>(S[w], l + b * m, m, tid, nt);
-    copy_in<GLOBAL>(S[w] + m, u + b * m, m, tid, nt);
-    copy_in<GLOBAL>(S[w] + 2 * m, rhovs + rg * m, m, tid, nt);
-    copy_in<GLOBAL>(S[w] + 3 * m, z + b * m, m, tid, nt);
-    copy_in<GLOBAL>(S[w] + 4 * m, y + b * m, m, tid, nt);
-    copy_in<GLOBAL>(S[w] + 6 * m, x + b * n, n, tid, nt);
-    copy_in<GLOBAL>(S[w] + 6 * m + n, q + b * n, n, tid, nt);
+    if constexpr (!GLOBAL) {
+      copy_async(S[w], l + b * m, m, tid, nt);
+      copy_async(S[w] + m, u + b * m, m, tid, nt);
+      copy_async(S[w] + 2 * m, rhovs + rg * m, m, tid, nt);
+    }
+    copy_in<GLOBAL>(S[w] + oz, z + b * m, m, tid, nt);
+    copy_in<GLOBAL>(S[w] + oz + m, y + b * m, m, tid, nt);
+    copy_in<GLOBAL>(S[w] + oz + 3 * m, x + b * n, n, tid, nt);
+    copy_in<GLOBAL>(S[w] + oz + 3 * m + n, q + b * n, n, tid, nt);
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
   for (int e = tid; e < nact * m; e += nt) {
-    T* L = S[e / m];
-    const int i = e % m;
-    L[5 * m + i] = L[2 * m + i] * L[3 * m + i] - L[4 * m + i];
+    const int w = e / m, i = e % m;
+    T* L = S[w];
+    const T rho = GLOBAL ? RH[w][i] : L[2 * m + i];
+    L[oz + 2 * m + i] = rho * L[oz + i] - L[oz + m + i];
   }
   __syncthreads();
 
@@ -305,7 +406,7 @@ admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
       for (int i = pp; i < m; i += parts) {
         const T a = sA[(size_t)i * n + pj];
 #pragma unroll
-        for (int w = 0; w < W; ++w) acc[w] += a * S[w][5 * m + i];
+        for (int w = 0; w < W; ++w) acc[w] += a * S[w][oz + 2 * m + i];
       }
 #pragma unroll
       for (int w = 0; w < W; ++w) spart[((size_t)pp * W + w) * n + pj] = acc[w];
@@ -316,7 +417,7 @@ admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
       T* L = S[w];
       T s = T(0);
       for (int p = 0; p < parts; ++p) s += spart[((size_t)p * W + w) * n + j];
-      L[6 * m + 2 * n + j] = sigma * L[6 * m + j] - L[6 * m + n + j] + s;
+      L[oz + 3 * m + 2 * n + j] = sigma * L[oz + 3 * m + j] - L[oz + 3 * m + n + j] + s;
     }
     __syncthreads();
     // x̃ = Minv rhs, each lane with its rung's Minv (read through L1)
@@ -326,9 +427,9 @@ admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
       const T* M = Minvs + ((size_t)c * n_lad + rung[s_lane[w]]) * n * n + (size_t)j * n;
       T s = T(0);
 #pragma unroll 4
-      for (int k = 0; k < n; ++k) s += __ldg(M + k) * L[6 * m + 2 * n + k];
-      L[6 * m + 3 * n + j] = s;
-      L[6 * m + j] = alpha * s + one_m_alpha * L[6 * m + j];
+      for (int k = 0; k < n; ++k) s += __ldg(M + k) * L[oz + 3 * m + 2 * n + k];
+      L[oz + 3 * m + 3 * n + j] = s;
+      L[oz + 3 * m + j] = alpha * s + one_m_alpha * L[oz + 3 * m + j];
     }
     __syncthreads();
     // A·x̃ and the projection: a thread per row, one A read for all lanes
@@ -340,41 +441,280 @@ admm_group_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
       for (int j = 0; j < n; ++j) {
         const T a = sA[(size_t)i * n + j];
 #pragma unroll
-        for (int w = 0; w < W; ++w) acc[w] += a * S[w][6 * m + 3 * n + j];
+        for (int w = 0; w < W; ++w) acc[w] += a * S[w][oz + 3 * m + 3 * n + j];
       }
 #pragma unroll
       for (int w = 0; w < W; ++w) {
         T* L = S[w];
-        const T rho = L[2 * m + i], yo = L[4 * m + i];
-        const T zp = alpha * acc[w] + one_m_alpha * L[3 * m + i];
-        const T zn = clip(zp + yo / rho, L[i], L[m + i]);
+        const T rho = GLOBAL ? RH[w][i] : L[2 * m + i], yo = L[oz + m + i];
+        const T zp = alpha * acc[w] + one_m_alpha * L[oz + i];
+        const T zn = clip(zp + yo / rho, GLOBAL ? LO[w][i] : L[i], GLOBAL ? HI[w][i] : L[m + i]);
         const T yn = yo + rho * (zp - zn);
-        L[4 * m + i] = yn;
-        L[3 * m + i] = zn;
-        L[5 * m + i] = rho * zn - yn;
+        L[oz + m + i] = yn;
+        L[oz + i] = zn;
+        L[oz + 2 * m + i] = rho * zn - yn;
       }
     }
     __syncthreads();
   }
   for (int w = 0; w < nact; ++w) {
     const size_t b = s_lane[w];
-    for (int j = tid; j < n; j += nt) x[b * n + j] = S[w][6 * m + j];
+    for (int j = tid; j < n; j += nt) x[b * n + j] = S[w][oz + 3 * m + j];
     for (int i = tid; i < m; i += nt) {
-      z[b * m + i] = S[w][3 * m + i];
-      y[b * m + i] = S[w][4 * m + i];
+      z[b * m + i] = S[w][oz + i];
+      y[b * m + i] = S[w][oz + m + i];
+    }
+  }
+}
+
+// ---- the lanes in step, A staged through shared memory (n ≤ kGroupThreads) ---
+// Shared memory (staged_bytes): per lane z, y (m each) and x, q, rhs (n
+// each); the lanes' ρz − y interleaved by row (vq[i·W + w]) and their x̃
+// interleaved by column (xq[j·W + w]), so that one vector load gives a row's
+// or a column's values of all W lanes; the parts·W·n partial sums; then
+// chunks of rows, each A's rows (padded to 16 bytes, lda apart: the
+// wrapper's padded copy `Ap`) followed by the W lanes' l, u and ρ of those
+// rows ([k·W + w][row]): the resident chunk (rows [0, rows), loaded once)
+// and a ring of `stages` chunks of `tile` rows for the rows [rows, m),
+// which stream once a pass.  A pass over a chunk is phase A, a thread a row
+// holding W sums (the projection and the updates of z, y, ρz − y; in pass
+// 0 only ρz − y), a barrier, then phase B: thread (pp, pj) < parts·n adds
+// the chunk's rows i ≡ pp (mod parts) of column pj to the next sweep's Aᵀv
+// sums of the W lanes, held in registers over the pass.
+template <typename T, int W>
+struct alignas(sizeof(T) * W < 16 ? sizeof(T) * W : 16) Pack {
+  T v[W];
+};
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kGroupThreads)
+admm_staged_kernel(const T* __restrict__ Minvs, const T* __restrict__ Ap,
+                   const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
+                   int width, const int32_t* __restrict__ rung, const T* __restrict__ q,
+                   const T* __restrict__ l, const T* __restrict__ u,
+                   const T* __restrict__ rhovs, T* __restrict__ x, T* __restrict__ z,
+                   T* __restrict__ y, const uint8_t* __restrict__ active, int n, int m,
+                   int n_lad, int iters, T sigma, T alpha, int rows, int tile, int stages) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int c = block_ctrl[blockIdx.x];
+  const int lda = row_stride<T>(n);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_lane[W];
+  __shared__ size_t s_rg[W];
+  __shared__ int s_nact;
+  unsigned char* p = smem_raw;
+  const size_t lane_bytes = staged_lane<T>(n, m);
+  T* S[W];                                   // lane w: z, y, x, q, rhs
+#pragma unroll
+  for (int w = 0; w < W; ++w) S[w] = reinterpret_cast<T*>(p + w * lane_bytes);
+  p += W * lane_bytes;
+  T* vq = reinterpret_cast<T*>(p);           // m*W  ρz − y, by row
+  p += align16(sizeof(T) * (size_t)m * W);
+  T* xq = reinterpret_cast<T*>(p);           // n*W  x̃, by column
+  p += align16(sizeof(T) * (size_t)n * W);
+  T* spart = reinterpret_cast<T*>(p);        // parts*W*n
+  p += group_part<T>(n, W);
+  T* res = reinterpret_cast<T*>(p);          // the resident chunk
+  p += staged_chunk<T>(n, W, rows);
+  T* ring = reinterpret_cast<T*>(p);         // `stages` chunks of `tile` rows
+  const size_t stage = staged_chunk<T>(n, W, tile) / sizeof(T);
+  const T* Ac = Ap + (size_t)c * m * lda;
+
+  if (tid == 0) {
+    int k = 0;
+    for (int s = 0; s < width; ++s) {
+      const int b = table[(size_t)blockIdx.x * width + s];
+      if (b >= 0 && active[b]) {
+        s_lane[k] = b;
+        s_rg[k] = (size_t)c * n_lad + rung[b];
+        ++k;
+      }
+    }
+    s_nact = k;
+  }
+  __syncthreads();
+  const int nact = s_nact;
+  if (nact == 0) return;
+  // rows [r0, r0 + nr) of A and of the lanes' l, u, ρ into a chunk of `cap`
+  // rows (asynchronous copies, 16 bytes at a time for A)
+  auto load = [&](T* buf, int cap, int r0, int nr) {
+    const int4* src = reinterpret_cast<const int4*>(Ac + (size_t)r0 * lda);
+    int4* dst = reinterpret_cast<int4*>(buf);
+    const int n16 = (int)(sizeof(T) * (size_t)nr * lda / 16);
+    for (int e = tid; e < n16; e += nt) __pipeline_memcpy_async(dst + e, src + e, 16);
+    T* lur = buf + align16(sizeof(T) * (size_t)cap * lda) / sizeof(T);
+    for (int w = 0; w < nact; ++w) {
+      const size_t bm = (size_t)s_lane[w] * m + r0;
+      copy_async(lur + (size_t)w * cap, l + bm, nr, tid, nt);
+      copy_async(lur + (size_t)(W + w) * cap, u + bm, nr, tid, nt);
+      copy_async(lur + (size_t)(2 * W + w) * cap, rhovs + s_rg[w] * m + r0, nr, tid, nt);
+    }
+  };
+  for (int w = 0; w < nact; ++w) {
+    const size_t b = s_lane[w];
+    copy_async(S[w], z + b * m, m, tid, nt);
+    copy_async(S[w] + m, y + b * m, m, tid, nt);
+    copy_async(S[w] + 2 * m, x + b * n, n, tid, nt);
+    copy_async(S[w] + 2 * m + n, q + b * n, n, tid, nt);
+  }
+  if (rows > 0) load(res, rows, 0, rows);
+  __pipeline_commit();
+  // the streamed chunks: the g-th of the launch is tile g % n_tiles of pass
+  // g / n_tiles, in stage g % stages; one commit a chunk, empty past the end
+  const int streamed = m - rows;
+  const int n_tiles = tile > 0 ? (streamed + tile - 1) / tile : 0;
+  const int total = n_tiles * (iters + 1);
+  auto issue = [&](int g) {
+    if (g < total) {
+      const int r0 = rows + (g % n_tiles) * tile;
+      load(ring + (size_t)(g % stages) * stage, tile, r0, min(tile, m - r0));
+    }
+    __pipeline_commit();
+  };
+  for (int g = 0; g < stages - 1; ++g) issue(g);
+
+  const int parts = group_parts(n);
+  const bool splits = tid < parts * n;
+  const int pp = tid / n, pj = tid - pp * n;
+  const T one_m_alpha = T(1) - alpha;
+  constexpr int V = 16 / sizeof(T);          // A's elements in 16 bytes
+  T acc[W];
+  // phase A on a chunk `buf` of `cap` rows holding rows [r0, r0 + nr)
+  auto phase_a = [&](const T* buf, int cap, int r0, int nr, bool sweep) {
+    const T* lur = buf + align16(sizeof(T) * (size_t)cap * lda) / sizeof(T);
+    for (int i = tid; i < nr; i += nt) {
+      const int r = r0 + i;
+      T ax[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) ax[w] = T(0);
+      if (sweep) {
+        const T* ar = buf + (size_t)i * lda;
+        int j = 0;
+        for (; j + V <= n; j += V) {
+          const Pack<T, V> a = *reinterpret_cast<const Pack<T, V>*>(ar + j);
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const Pack<T, W> xv = *reinterpret_cast<const Pack<T, W>*>(xq + (size_t)(j + k) * W);
+#pragma unroll
+            for (int w = 0; w < W; ++w) ax[w] += a.v[k] * xv.v[w];
+          }
+        }
+        for (; j < n; ++j) {
+          const T a = ar[j];
+          const Pack<T, W> xv = *reinterpret_cast<const Pack<T, W>*>(xq + (size_t)j * W);
+#pragma unroll
+          for (int w = 0; w < W; ++w) ax[w] += a * xv.v[w];
+        }
+      }
+      Pack<T, W> vv;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        vv.v[w] = T(0);
+        if (w < nact) {
+          T* L = S[w];
+          const T lo = lur[(size_t)w * cap + i], hi = lur[(size_t)(W + w) * cap + i];
+          const T rho = lur[(size_t)(2 * W + w) * cap + i];
+          vv.v[w] = sweep ? row_step(ax[w], alpha, one_m_alpha, lo, hi, rho, L + r, L + m + r)
+                          : rho * L[r] - L[m + r];
+        }
+      }
+      *reinterpret_cast<Pack<T, W>*>(vq + (size_t)r * W) = vv;
+    }
+  };
+  // phase B on the chunk's A rows
+  auto phase_b = [&](const T* buf, int r0, int nr) {
+    if (!splits) return;
+    int i = r0 + (pp - r0 % parts + parts) % parts;   // the first i ≥ r0, i ≡ pp
+#pragma unroll 4
+    for (; i < r0 + nr; i += parts) {
+      const T a = buf[(size_t)(i - r0) * lda + pj];
+      const Pack<T, W> vv = *reinterpret_cast<const Pack<T, W>*>(vq + (size_t)i * W);
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[w] += a * vv.v[w];
+    }
+  };
+
+  __pipeline_wait_prior(stages - 1);   // the lanes and the resident chunk
+  __syncthreads();
+  int g = 0;
+  for (int pass = 0; pass <= iters; ++pass) {
+    const bool sweep = pass > 0, atv = pass < iters;
+    if (sweep) {
+      // rhs and x̃ of this sweep from the partial sums of the last pass
+      for (int e = tid; e < nact * n; e += nt) {
+        const int w = e / n, j = e % n;
+        T* L = S[w];
+        T s = T(0);
+        for (int p2 = 0; p2 < parts; ++p2) s += spart[((size_t)p2 * W + w) * n + j];
+        L[2 * m + 2 * n + j] = sigma * L[2 * m + j] - L[2 * m + n + j] + s;
+      }
+      __syncthreads();
+      for (int e = tid; e < nact * n; e += nt) {
+        const int w = e / n, j = e % n;
+        T* L = S[w];
+        const T* M = Minvs + s_rg[w] * n * n + (size_t)j * n;
+        T s = T(0);
+#pragma unroll 4
+        for (int k = 0; k < n; ++k) s += __ldg(M + k) * L[2 * m + 2 * n + k];
+        xq[(size_t)j * W + w] = s;
+        L[2 * m + j] = alpha * s + one_m_alpha * L[2 * m + j];
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[w] = T(0);
+    if (rows > 0) {
+      phase_a(res, rows, 0, rows, sweep);
+      if (atv) {
+        __syncthreads();
+        phase_b(res, 0, rows);
+      }
+    }
+    for (int k = 0; k < n_tiles; ++k, ++g) {
+      __pipeline_wait_prior(stages - 2);
+      __syncthreads();          // chunk g landed; every thread is done with chunk g − 1
+      issue(g + stages - 1);    // into chunk g − 1's stage
+      const int r0 = rows + k * tile;
+      const T* buf = ring + (size_t)(g % stages) * stage;
+      phase_a(buf, tile, r0, min(tile, m - r0), sweep);
+      if (atv) {
+        __syncthreads();
+        phase_b(buf, r0, min(tile, m - r0));
+      }
+    }
+    if (atv && splits) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) spart[((size_t)pp * W + w) * n + pj] = acc[w];
+    }
+    __syncthreads();
+  }
+  for (int w = 0; w < nact; ++w) {
+    const size_t b = s_lane[w];
+    for (int j = tid; j < n; j += nt) x[b * n + j] = S[w][2 * m + j];
+    for (int i = tid; i < m; i += nt) {
+      z[b * m + i] = S[w][i];
+      y[b * m + i] = S[w][m + i];
     }
   }
 }
 
 // the instantiation a launch of this variant, table width and layout takes
 template <typename T>
-const void* kernel_for(int grouped, int width, int global) {
-  if (!grouped) return global ? (const void*)admm_warp_kernel<T, true>
-                              : (const void*)admm_warp_kernel<T, false>;
-  if (width <= 1) return global ? (const void*)admm_group_kernel<T, 1, true>
-                                : (const void*)admm_group_kernel<T, 1, false>;
-  return global ? (const void*)admm_group_kernel<T, 2, true>
-                : (const void*)admm_group_kernel<T, 2, false>;
+const void* kernel_for(int grouped, int width, int layout) {
+  if (layout == kStaged) {
+    if (!grouped) return nullptr;
+    if (width <= 1) return (const void*)admm_staged_kernel<T, 1>;
+    if (width <= 2) return (const void*)admm_staged_kernel<T, 2>;
+    return (const void*)admm_staged_kernel<T, kStagedGroup>;
+  }
+  const bool global = layout == kGlobal;
+  if (!grouped) return global ? (const void*)admm_warp_kernel<T, kGlobal>
+                              : (const void*)admm_warp_kernel<T, kResident>;
+  if (width <= 1) return global ? (const void*)admm_group_kernel<T, 1, kGlobal>
+                                : (const void*)admm_group_kernel<T, 1, kResident>;
+  return global ? (const void*)admm_group_kernel<T, 2, kGlobal>
+                : (const void*)admm_group_kernel<T, 2, kResident>;
 }
 
 template <typename T>
@@ -382,42 +722,73 @@ int launch(const void* Minvs, const void* A, const void* table, const void* bloc
            const void* rung, const void* q, const void* l, const void* u, const void* rhovs,
            void* x, void* z, void* y, const void* active, void* ws, int n_blocks, int width,
            int warps, int grouped, int n, int m, int n_lad, int iters, int smem_bytes,
-           int global, double sigma, double alpha, void* stream) {
+           int layout, int rows, int tile, int stages, double sigma, double alpha,
+           void* stream) {
   if (n_blocks <= 0 || iters <= 0) return 0;
   if (n < 1 || m < 1 || n_lad < 1 || width < 1) return (int)cudaErrorInvalidValue;
   if (!grouped && n > 32) return (int)cudaErrorInvalidValue;
+  if (layout < kResident || layout > kStaged) return (int)cudaErrorInvalidValue;
   const bool by_warp = !grouped;
   size_t need;
   int threads;
-  if (by_warp) {
+  if (layout == kStaged) {
+    // the lanes in step, one split a thread; rows and the ring cover A
+    if (by_warp || width > kStagedGroup || n > kGroupThreads || rows < 0 || rows > m ||
+        stages < 2 || tile < 0 || (rows < m && tile < 1))
+      return (int)cudaErrorInvalidValue;
+    // the instantiation's lane slices: the table's width rounded up to 1, 2, 4
+    need = staged_bytes<T>(n, m, width <= 1 ? 1 : (width <= 2 ? 2 : kStagedGroup), rows, tile,
+                           stages);
+    threads = kGroupThreads;
+  } else if (by_warp) {
     if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
-    need = align16(sizeof(T) * (size_t)m * n) + warps * warp_slice<T>(n, m);
+    need = align16(sizeof(T) * (size_t)m * n) + warps * warp_slice<T>(n, m, false);
     threads = 32 * warps;
   } else {
     if (width > kGroup) return (int)cudaErrorInvalidValue;
-    need = align16(sizeof(T) * (size_t)m * n) + width * group_lane<T>(n, m) +
+    need = align16(sizeof(T) * (size_t)m * n) + width * group_lane<T>(n, m, false) +
            group_part<T>(n, width);
     threads = kGroupThreads;
   }
-  if (global) need = 0;
-  if ((size_t)smem_bytes != need || (global && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for<T>(grouped, width, global);
+  if (layout == kGlobal) need = 0;
+  if ((size_t)smem_bytes != need || (layout == kGlobal && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_for<T>(grouped, width, layout);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  using Kern = void (*)(const T*, const T*, const int32_t*, const int32_t*, int, const int32_t*,
-                        const T*, const T*, const T*, const T*, T*, T*, T*, const uint8_t*,
-                        unsigned char*, int, int, int, int, T, T);
-  auto kern = reinterpret_cast<Kern>(const_cast<void*>(fn));
-  kern<<<n_blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(Minvs), static_cast<const T*>(A),
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(block_ctrl), width,
-      static_cast<const int32_t*>(rung), static_cast<const T*>(q), static_cast<const T*>(l),
-      static_cast<const T*>(u), static_cast<const T*>(rhovs), static_cast<T*>(x),
-      static_cast<T*>(z), static_cast<T*>(y), static_cast<const uint8_t*>(active),
-      static_cast<unsigned char*>(ws), n, m, n_lad, iters, static_cast<T>(sigma),
-      static_cast<T>(alpha));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto Mv = static_cast<const T*>(Minvs);
+  const auto Av = static_cast<const T*>(A);
+  const auto tb = static_cast<const int32_t*>(table);
+  const auto bc = static_cast<const int32_t*>(block_ctrl);
+  const auto rgv = static_cast<const int32_t*>(rung);
+  const auto qv = static_cast<const T*>(q);
+  const auto lv = static_cast<const T*>(l);
+  const auto uv = static_cast<const T*>(u);
+  const auto rv = static_cast<const T*>(rhovs);
+  const auto act = static_cast<const uint8_t*>(active);
+  if (layout == kStaged) {
+    using Kern = void (*)(const T*, const T*, const int32_t*, const int32_t*, int,
+                          const int32_t*, const T*, const T*, const T*, const T*, T*, T*, T*,
+                          const uint8_t*, int, int, int, int, T, T, int, int, int);
+    auto kern = reinterpret_cast<Kern>(const_cast<void*>(fn));
+    kern<<<n_blocks, threads, smem_bytes, s>>>(
+        Mv, Av, tb, bc, width, rgv, qv, lv, uv, rv, static_cast<T*>(x), static_cast<T*>(z),
+        static_cast<T*>(y), act, n, m, n_lad, iters, static_cast<T>(sigma),
+        static_cast<T>(alpha), rows, tile, stages);
+  } else {
+    using Kern = void (*)(const T*, const T*, const int32_t*, const int32_t*, int,
+                          const int32_t*, const T*, const T*, const T*, const T*, T*, T*, T*,
+                          const uint8_t*, unsigned char*, int, int, int, int, T, T);
+    auto kern = reinterpret_cast<Kern>(const_cast<void*>(fn));
+    kern<<<n_blocks, threads, smem_bytes, s>>>(
+        Mv, Av, tb, bc, width, rgv, qv, lv, uv, rv, static_cast<T*>(x), static_cast<T*>(z),
+        static_cast<T*>(y), act, static_cast<unsigned char*>(ws), n, m, n_lad, iters,
+        static_cast<T>(sigma), static_cast<T>(alpha));
+  }
   return (int)cudaGetLastError();
 }
 
@@ -429,10 +800,11 @@ int launch(const void* Minvs, const void* A, const void* table, const void* bloc
                       const void* u, const void* rhovs, void* x, void* z, void* y,            \
                       const void* active, void* ws, int n_blocks, int width, int warps,       \
                       int grouped, int n, int m, int n_lad, int iters, int smem_bytes,        \
-                      int global, double sigma, double alpha, void* stream) {                 \
+                      int layout, int rows, int tile, int stages, double sigma, double alpha, \
+                      void* stream) {                                                         \
     return launch<T>(Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y, active, ws,  \
-                     n_blocks, width, warps, grouped, n, m, n_lad, iters, smem_bytes, global, \
-                     sigma, alpha, stream);                                                   \
+                     n_blocks, width, warps, grouped, n, m, n_lad, iters, smem_bytes, layout, \
+                     rows, tile, stages, sigma, alpha, stream);                               \
   }
 
 MPC_ADMM_ENTRY(mpc_admm_sweep_f32, float)
@@ -440,12 +812,13 @@ MPC_ADMM_ENTRY(mpc_admm_sweep_f64, double)
 
 // Blocks of `threads` threads and `smem_bytes` of shared memory resident on
 // one SM (the runtime's occupancy calculator) for a variant, a table `width`
-// and a layout (`global` 0: resident, 1: global): one warp a lane, or
+// and a layout (0: resident, 1: global, 2: staged): one warp a lane, or
 // (`grouped`) the lanes in step.  Returns −1 on an error.
-extern "C" int mpc_admm_blocks_per_sm(int f64, int global, int grouped, int width, int threads,
+extern "C" int mpc_admm_blocks_per_sm(int f64, int layout, int grouped, int width, int threads,
                                       int smem_bytes) {
-  const void* fn = f64 ? kernel_for<double>(grouped, width, global)
-                       : kernel_for<float>(grouped, width, global);
+  const void* fn = f64 ? kernel_for<double>(grouped, width, layout)
+                       : kernel_for<float>(grouped, width, layout);
+  if (fn == nullptr) return -1;
   // as a launch does: raise the kernel's shared-memory limit above the default
   // 48 KB only (a lower setting would refuse a later, larger launch)
   if (smem_bytes > 48 * 1024 &&

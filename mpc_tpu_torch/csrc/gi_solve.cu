@@ -23,16 +23,33 @@
 // lane).  A lane's l, u, Ginv, x, λ, the slot table Aact and its slot-space
 // vectors live in the warp's own slice of shared memory.
 //
-// A second layout, "global", takes QPs whose block would not fit the SM's
-// shared memory (ops/gi_kernel.py::launch_geometry picks it when one warp's
-// block exceeds the opt-in budget).  It is the same kernel (the template
-// parameter GLOBAL): A and P⁻¹ are read where they lie in device memory (A's
+// A second layout, "global", is the last resort for QPs whose one warp's
+// block would not fit the SM's shared memory even without A
+// (ops/gi_kernel.py::launch_geometry).  It is the same kernel (LAYOUT ==
+// kGlobal): A, P⁻¹, l and u are read where they lie in device memory (A's
 // rows unpadded, lda = n, so loaded one element at a time), each block
 // computes the row norms into its own slice of a workspace the wrapper
-// allocates, and each lane's slice (the same carve-up as a warp's slice of
-// shared memory) lies in that workspace at the lane's index, so no two lanes
-// of a block share one.  Shared memory holds only the block's lane counter.
-// Every sum keeps its order, so the two layouts return the same bits.
+// allocates, and each lane's slice (a warp's slice of shared memory without
+// l and u) lies in that workspace at the lane's index, so no two lanes of a
+// block share one.  Shared memory holds only the block's lane counter.
+//
+// A third layout, "split", takes QPs whose A does not fit beside the warps
+// but whose small state does: the 8x8 fleet at Hp=60 (n=33, m=2017, f32:
+// A is 266 KB, a warp's state without l and u 4.9 KB).  The warps pivot on
+// their own, so A cannot stream through one ring for the block; the scan,
+// bounded by the latency of its loads a pivot, reads A's rows as fast as
+// each part allows instead.  P⁻¹, the row norms and every warp's state stay
+// in shared memory; A's leading `rows` rows (as many as the rest leaves
+// room for) sit there padded to 16 bytes, so the scan reads them 16 bytes
+// at a time; the scan reads the other rows from a column-major copy of
+// them (n × (m − rows), made by the wrapper), where the 32 threads of a
+// warp load 128 contiguous bytes at each column; pivot rows come from A
+// where it lies.  l and u are read in place.
+//
+// Each row's aᵢ·x is one thread's sum in j order in every layout, and the
+// scan's argmax order (NaN first, then larger, ties to the lower row) is
+// total, so any split of the rows between threads and storage picks the
+// same winner with the same aᵢ·x: the three layouts return the same bits.
 //
 // Warp-synchronous solve: the lane's scalar carry (it, done, p, the step
 // lengths, every pivot decision) is held by all 32 threads of the warp in
@@ -74,6 +91,8 @@
 namespace {
 
 constexpr int kMaxWarps = 16;     // ops/_build.py::MAX_WARPS
+// layouts, as ops/_build.py::LAYOUT_CODE numbers them
+constexpr int kResident = 0, kGlobal = 1, kSplit = 2;
 constexpr int kSmemPerSM = 228 * 1024;   // shared memory of one SM
 constexpr int kSmemPerBlock = 1024;      // reserved by the runtime per block
 constexpr unsigned kFull = 0xffffffffu;
@@ -129,21 +148,41 @@ __host__ __device__ constexpr int row_stride(int n) {
   return (n + int(16 / sizeof(TD)) - 1) / int(16 / sizeof(TD)) * int(16 / sizeof(TD));
 }
 
-// Shared memory of the block, in the order of ops/gi_kernel.py::smem_bytes:
-// the controller's part (P⁻¹, A, row norms), then one slice per warp.  The
-// global layout's workspace (ops/gi_kernel.py::workspace_bytes): the row
-// norms of each block, then one such slice per lane.
+// Shared memory of the block, in the order of ops/gi_kernel.py::smem_bytes
+// and split_bytes: the controller's part (P⁻¹, A's first `rows` rows, the m
+// row norms; rows = m in the resident layout), then one slice per warp,
+// which holds l and u in the resident layout only.  The global layout's
+// workspace (ops/gi_kernel.py::workspace_bytes): the row norms of each
+// block, then one slice without l and u per lane.
 template <typename TD, typename TS>
-__host__ __device__ size_t ctrl_bytes(int n, int m) {
-  return align16(sizeof(TS) * n * n) + sizeof(TD) * (size_t)m * row_stride<TD>(n) +
+__host__ __device__ size_t ctrl_bytes(int n, int rows, int m) {
+  return align16(sizeof(TS) * n * n) + sizeof(TD) * (size_t)rows * row_stride<TD>(n) +
          align16(sizeof(TD) * m);
 }
 template <typename TD, typename TS>
-__host__ __device__ size_t warp_bytes(int n, int m, int ns) {
+__host__ __device__ size_t warp_bytes(int n, int m, int ns, bool lu) {
   return align16(sizeof(TS) * (ns * ns + 5 * n + 6 * ns)) +
-         align16(sizeof(TD) * (row_stride<TD>(n) + 2 * m + ns * n)) +
+         align16(sizeof(TD) * (row_stride<TD>(n) + (lu ? 2 * (size_t)m : 0) + ns * n)) +
          align16(sizeof(int) * 3 * ns);
 }
+
+// A's rows as a lane reads them: rows [0, nres) at `res`, lda apart, the
+// others row-major where A lies (`glob`, n apart) for the single-row reads;
+// the scan reads rows [nres, m) from `cm`, a column-major copy of them
+// (mr = m − nres apart).  Resident: A in shared memory, nres = m; global:
+// res = glob, lda = n, nres = m.
+template <typename TD>
+struct RowsOf {
+  const TD* res;
+  int lda, nres;
+  const TD* glob;
+  int n;
+  const TD* cm;
+  int mr;
+  __device__ __forceinline__ const TD* row(int r) const {
+    return r < nres ? res + (size_t)r * lda : glob + (size_t)r * n;
+  }
+};
 
 // aᵢ·x of R rows at once in the data type: each row one thread's sum in j
 // order (the same multiply-adds, in the same order, as one row and one
@@ -190,25 +229,46 @@ __device__ __forceinline__ void rows_dot(const TD* __restrict__ A, int lda, cons
   }
 }
 
-// The violation scan (the work of kmv) over the rows lane, lane + 32, …, R
-// at a time: each thread's best (scaled violation, row, aᵢ·x), NaN first,
-// ties to the lower row.  Past m a row index is clamped to m − 1, whose
-// repeat cannot change the argmax.  The lane's vectors are not __restrict__:
-// in the global layout they lie in device memory that the kernel writes, and
-// must not be read through the non-coherent cache.
-template <int R, bool VEC, typename TD>
-__device__ __forceinline__ void scan_rows(const TD* __restrict__ sA, int lda, const TD* sxd,
-                                          const TD* sl, const TD* su, const TD* srn, TD xnorm,
-                                          int n, int m, int lane, TD& best, int& best_i,
-                                          TD& best_ax) {
+// aᵢ·x of R rows of a column-major table (`cm`, ld apart; row r[k] − lo):
+// each row one thread's sum in j order, as rows_dot; at each j the 32
+// threads of a warp read neighbouring rows
+template <int R, typename TD>
+__device__ __forceinline__ void cols_dot(const TD* __restrict__ cm, int ld, int lo, const int* r,
+                                         const TD* x, int n, TD* ax) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) ax[k] = TD(0);
+  for (int j = 0; j < n; ++j) {
+    const TD xj = x[j];
+    const TD* c = cm + (size_t)j * ld - lo;
+#pragma unroll
+    for (int k = 0; k < R; ++k) ax[k] += c[r[k]] * xj;
+  }
+}
+
+// The violation scan (the work of kmv) over the rows lo + lane, lo + lane +
+// 32, … < hi, R at a time (from `A`, lda apart, or with CM from the
+// column-major `A`, lda = its leading dimension, row i at i − lo): each
+// thread's best (scaled violation, row, aᵢ·x), NaN first, ties to the lower
+// row.  Past hi a row index is clamped to hi − 1, whose repeat cannot change
+// the argmax.  The lane's vectors are not __restrict__: in the global layout
+// they lie in device memory that the kernel writes, and must not be read
+// through the non-coherent cache.
+template <int R, bool VEC, bool CM, typename TD>
+__device__ __forceinline__ void scan_rows(const TD* __restrict__ A, int lda, int lo, int hi,
+                                          const TD* sxd, const TD* sl, const TD* su,
+                                          const TD* srn, TD xnorm, int n, int lane, TD& best,
+                                          int& best_i, TD& best_ax) {
   const TD inf_d = static_cast<TD>(INFINITY);
   const TD big = static_cast<TD>(kBig);
-  for (int i0 = lane; i0 < m; i0 += 32 * R) {
+  for (int i0 = lo + lane; i0 < hi; i0 += 32 * R) {
     int r[R];
     TD ax[R];
 #pragma unroll
-    for (int k = 0; k < R; ++k) r[k] = min(i0 + 32 * k, m - 1);
-    rows_dot<R, VEC>(sA, lda, r, sxd, n, ax);
+    for (int k = 0; k < R; ++k) r[k] = min(i0 + 32 * k, hi - 1);
+    if constexpr (CM)
+      cols_dot<R>(A, lda, lo, r, sxd, n, ax);
+    else
+      rows_dot<R, VEC>(A, lda, r, sxd, n, ax);
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const int i = r[k];
@@ -219,6 +279,24 @@ __device__ __forceinline__ void scan_rows(const TD* __restrict__ sA, int lda, co
       if (before_max(v, i, best, best_i)) { best = v; best_i = i; best_ax = ax[k]; }
     }
   }
+}
+
+// the scan over rows [lo, hi), four rows a thread at once above 64 rows
+template <bool VEC, bool CM, typename TD>
+__device__ __forceinline__ void scan_range(const TD* __restrict__ A, int lda, int lo, int hi,
+                                           const TD* sxd, const TD* sl, const TD* su,
+                                           const TD* srn, TD xnorm, int n, int lane, TD& best,
+                                           int& best_i, TD& best_ax) {
+  const int rows = hi - lo;
+  if (rows > 64)
+    scan_rows<4, VEC, CM>(A, lda, lo, hi, sxd, sl, su, srn, xnorm, n, lane, best, best_i,
+                          best_ax);
+  else if (rows > 32)
+    scan_rows<2, VEC, CM>(A, lda, lo, hi, sxd, sl, su, srn, xnorm, n, lane, best, best_i,
+                          best_ax);
+  else if (rows > 0)
+    scan_rows<1, VEC, CM>(A, lda, lo, hi, sxd, sl, su, srn, xnorm, n, lane, best, best_i,
+                          best_ax);
 }
 
 // out(k, Σ_{j<len} f(k, j)) for every k < rows: a thread per k, each sum in
@@ -249,11 +327,11 @@ __device__ __forceinline__ void per_row(int lane, int rows, int len, F f, O out)
 }
 
 // One lane's whole solve, run by one warp, in the slice ``wsm`` (shared
-// memory, or the lane's slice of the workspace in the GLOBAL layout) with
-// A's rows ``lda`` apart.  Every thread of the warp returns with the same
-// (it, done && feas) and the lane's state written back.
-template <typename TD, typename TS, bool GLOBAL>
-__device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA, int lda,
+// memory, or the lane's slice of the workspace in the global layout) with
+// A's rows read through ``A``.  Every thread of the warp returns with the
+// same (it, done && feas) and the lane's state written back.
+template <typename TD, typename TS, int LAYOUT>
+__device__ void solve_lane(int b, unsigned char* wsm, const RowsOf<TD> A,
                            const TD* srn, const TS* __restrict__ sP,
                            const TD* __restrict__ q, const TD* __restrict__ l,
                            const TD* __restrict__ u, int32_t* __restrict__ idx_g,
@@ -264,7 +342,13 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
                            TS* __restrict__ lam_out, int32_t* __restrict__ it_out,
                            uint8_t* __restrict__ conv_out, int n, int m, int ns, int warm,
                            double tol) {
+  constexpr bool WS = LAYOUT == kGlobal;   // the slice lies in the workspace
+  constexpr bool LU = LAYOUT == kResident; // l and u copied into the slice
   const int lane = threadIdx.x & 31;
+  // row r of A: one place in the resident and global layouts, two in the split one
+  auto row = [&](int r) -> const TD* {
+    return LAYOUT == kSplit ? A.row(r) : A.res + (size_t)r * A.lda;
+  };
   // ---- the warp's slice -------------------------------------------------------
   TS* sG = reinterpret_cast<TS*>(wsm);       // ns*ns Ginv
   TS* sx = sG + ns * ns;                     // n    x
@@ -280,11 +364,12 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
   TS* slw = sdv + ns;                        // ns   KKT multipliers (warm)
   const int ldx = row_stride<TD>(n);
   TD* sxd = reinterpret_cast<TD*>(wsm + align16(sizeof(TS) * (ns * ns + 5 * n + 6 * ns)));
-  TD* sl = sxd + ldx;                        // m    (sxd: x in the data type)
-  TD* su = sl + m;                           // m
-  TD* sAact = su + m;                        // ns*n slot table, data type
+  TD* sl_ = sxd + ldx;                       // m    (sxd: x in the data type), LU only
+  TD* sAact = sl_ + (LU ? 2 * m : 0);        // ns*n slot table, data type
+  const TD* sl = LU ? sl_ : l + (size_t)b * m;       // l and u of the lane
+  const TD* su = LU ? sl_ + m : u + (size_t)b * m;
   int* sidx = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(sxd) +
-                                     align16(sizeof(TD) * (ldx + 2 * m + ns * n)));
+                                     align16(sizeof(TD) * (ldx + (LU ? 2 * m : 0) + ns * n)));
   int* sside = sidx + ns;                    // ns
   int* svm = sside + ns;                     // ns
 
@@ -296,7 +381,7 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
   const TD big = static_cast<TD>(kBig);
   // P⁻¹ a_r into scol and a_r into sarow, in the slot type
   auto pivot_col = [&](int r) {
-    const TD* ar = sA + (size_t)r * lda;
+    const TD* ar = row(r);
     per_row<TS>(lane, n, n, [&](int k, int j) { return sP[k * n + j] * static_cast<TS>(ar[j]); },
                 [&](int k, TS s) {
                   scol[k] = s;
@@ -305,9 +390,11 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
   };
 
   // ---- load the lane ---------------------------------------------------------
-  copy_in<GLOBAL>(sl, l + (size_t)b * m, m, lane, 32);
-  copy_in<GLOBAL>(su, u + (size_t)b * m, m, lane, 32);
-  copy_in<GLOBAL>(sG, Ginv_g + (size_t)b * ns * ns, ns * ns, lane, 32);
+  if constexpr (LU) {
+    copy_async(sl_, l + (size_t)b * m, m, lane, 32);
+    copy_async(sl_ + m, u + (size_t)b * m, m, lane, 32);
+  }
+  copy_in<WS>(sG, Ginv_g + (size_t)b * ns * ns, ns * ns, lane, 32);
   __pipeline_commit();
   for (int s = lane; s < ns; s += 32) {
     sidx[s] = idx_g[(size_t)b * ns + s];
@@ -325,7 +412,7 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
   __syncwarp();
   for (int e = lane; e < ns * n; e += 32) {
     const int s = e / n, j = e - s * n;
-    sAact[e] = svm[s] ? sA[sidx[s] * lda + j] : TD(0);
+    sAact[e] = svm[s] ? row(sidx[s])[j] : TD(0);
   }
   __syncwarp();
 
@@ -414,7 +501,7 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
         const TS wj = sr[j] - (j == app ? TS(1) : TS(0));
         sG[e] = sG[e] + wi * wj / c1 - ((i == app && j == app) ? TS(1) : TS(0));
       }
-      for (int j = lane; j < n; j += 32) sAact[app * n + j] = sA[cand * lda + j];
+      for (int j = lane; j < n; j += 32) sAact[app * n + j] = row(cand)[j];
       if (lane == 0) {
         sidx[app] = cand;
         sside[app] = cside;
@@ -449,15 +536,11 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
     const TD xnorm = sqrt(xs2);
     TD best = -inf_d, best_ax = TD(0);
     int best_i = 0x7fffffff;
-    if (m > 64)
-      scan_rows<4, !GLOBAL>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i,
-                             best_ax);
-    else if (m > 32)
-      scan_rows<2, !GLOBAL>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i,
-                             best_ax);
-    else
-      scan_rows<1, !GLOBAL>(sA, lda, sxd, sl, su, srn, xnorm, n, m, lane, best, best_i,
-                             best_ax);
+    scan_range<!WS, false>(A.res, A.lda, 0, A.nres, sxd, sl, su, srn, xnorm, n, lane, best,
+                           best_i, best_ax);
+    if constexpr (LAYOUT == kSplit)
+      scan_range<false, true>(A.cm, A.mr, A.nres, m, sxd, sl, su, srn, xnorm, n, lane, best,
+                              best_i, best_ax);
     for (int off = 16; off > 0; off >>= 1) {
       const TD ov = __shfl_xor_sync(kFull, best, off);
       const int oi = __shfl_xor_sync(kFull, best_i, off);
@@ -590,7 +673,7 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
         sG[e] = sG[e] + c1 * (ai * aj) + c2 * (bi * bj);
       }
       if (do_add)
-        for (int jj = lane; jj < n; jj += 32) sAact[app * n + jj] = sA[pe * lda + jj];
+        for (int jj = lane; jj < n; jj += 32) sAact[app * n + jj] = row(pe)[jj];
       // multipliers and slot bits, one thread per slot (reads before writes)
       for (int s = lane; s < ns; s += 32) {
         const TS lo = slam[s] - t * sr[s];
@@ -631,11 +714,13 @@ __device__ void solve_lane(int b, unsigned char* wsm, const TD* __restrict__ sA,
 
 // MINB blocks of kMaxWarps warps fit an SM's registers: 2 (64 registers a
 // thread) where two blocks' shared memory fits an SM, else 1 (128; always in
-// the GLOBAL layout, whose blocks no shared memory limits).  ``ws`` is the
-// GLOBAL layout's workspace (unused in the resident one).
-template <typename TD, typename TS, int MINB, bool GLOBAL>
+// the global and split layouts).  ``ws`` is the global layout's workspace;
+// ``At`` the split layout's column-major copy of A's rows [rows, m) of each
+// controller (n × (m − rows)).
+template <typename TD, typename TS, int MINB, int LAYOUT>
 __global__ void __launch_bounds__(32 * kMaxWarps, MINB)
 gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
+                const TD* __restrict__ At, int rows,
                 const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
                 int width, const TD* __restrict__ q, const TD* __restrict__ l,
                 const TD* __restrict__ u, int32_t* __restrict__ idx_g,
@@ -652,30 +737,30 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
   const int lane = tid & 31;
   const int c = block_ctrl[blockIdx.x];
   const int32_t* lanes = table + (size_t)blockIdx.x * width;
-  const size_t slice = warp_bytes<TD, TS>(n, m, ns);
+  constexpr bool GLOBAL = LAYOUT == kGlobal;
+  const size_t slice = warp_bytes<TD, TS>(n, m, ns, LAYOUT == kResident);
+  const TD* Ac = A + (size_t)c * m * n;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int next_slot;
   const TS* sP;            // n*n P⁻¹
-  const TD* sA;            // m rows of A, lda apart
+  RowsOf<TD> rows_of;      // A's rows
   TD* srn;                 // m row norms
-  int lda;
-  unsigned char* wsm;      // the warp's slice (resident), the lanes' slices (global)
+  unsigned char* wsm;      // the warp's slice (on chip), the lanes' slices (global)
   if constexpr (GLOBAL) {
     // ---- the controller's tables where they lie; the block's row norms ------
     sP = Pinv + (size_t)c * n * n;
-    sA = A + (size_t)c * m * n;
-    lda = n;
+    rows_of = {Ac, n, m, Ac, n, nullptr, 0};
     srn = reinterpret_cast<TD*>(ws + (size_t)blockIdx.x * align16(sizeof(TD) * m));
     wsm = ws + (size_t)gridDim.x * align16(sizeof(TD) * m);
     if (tid == 0) next_slot = nt >> 5;
   } else {
-    // ---- the controller's part, once per block ---------------------------------
-    lda = row_stride<TD>(n);
+    // ---- the controller's part, once per block: A's first `nres` rows ----------
+    const int nres = LAYOUT == kSplit ? rows : m;
+    const int lda = row_stride<TD>(n);
     TS* P_s = reinterpret_cast<TS*>(smem_raw);
     TD* A_s = reinterpret_cast<TD*>(smem_raw + align16(sizeof(TS) * n * n));
-    const TD* Ac = A + (size_t)c * m * n;
-    for (int e = tid; e < m * n; e += nt) {
+    for (int e = tid; e < nres * n; e += nt) {
       const int i = e / n, j = e - i * n;
       __pipeline_memcpy_async(A_s + (size_t)i * lda + j, Ac + e, sizeof(TD));
     }
@@ -685,13 +770,19 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
     __pipeline_wait_prior(0);
     __syncthreads();
     sP = P_s;
-    sA = A_s;
-    srn = A_s + (size_t)m * lda;
-    wsm = smem_raw + ctrl_bytes<TD, TS>(n, m) + warp * slice;
+    rows_of = {A_s, lda, nres, Ac, n, At + (size_t)c * n * (m - nres), m - nres};
+    srn = A_s + (size_t)nres * lda;
+    wsm = smem_raw + ctrl_bytes<TD, TS>(n, nres, m) + warp * slice;
   }
   for (int i = tid; i < m; i += nt) {
     TD s2 = TD(0);
-    for (int j = 0; j < n; ++j) s2 += sA[i * lda + j] * sA[i * lda + j];
+    if (LAYOUT != kSplit || i < rows_of.nres) {
+      const TD* a = rows_of.res + (size_t)i * rows_of.lda;
+      for (int j = 0; j < n; ++j) s2 += a[j] * a[j];
+    } else {
+      const TD* a = rows_of.cm + (i - rows_of.nres);
+      for (int j = 0; j < n; ++j) s2 += a[(size_t)j * rows_of.mr] * a[(size_t)j * rows_of.mr];
+    }
     srn[i] = sqrt(s2);
   }
   __syncthreads();
@@ -701,7 +792,7 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
   while (slot < width) {
     const int b = lanes[slot];
     if (b < 0) break;        // −1 pads the end of the list
-    solve_lane<TD, TS, GLOBAL>(b, GLOBAL ? wsm + (size_t)b * slice : wsm, sA, lda, srn, sP, q,
+    solve_lane<TD, TS, LAYOUT>(b, GLOBAL ? wsm + (size_t)b * slice : wsm, rows_of, srn, sP, q,
                                l, u, idx_g, side_g, vmask_g, Ginv_g, widx_g, wside_g, wcnt_g,
                                max_it_g, x_out, lam_out, it_out, conv_out, n, m, ns, warm,
                                tol);
@@ -715,34 +806,42 @@ inline bool two_blocks(int smem_bytes) { return 2 * (smem_bytes + kSmemPerBlock)
 
 // the instantiation a launch of this layout and shared memory takes
 template <typename TD, typename TS>
-auto kernel_for(int global, int smem_bytes) {
-  return global ? gi_solve_kernel<TD, TS, 1, true>
-                : (two_blocks(smem_bytes) ? gi_solve_kernel<TD, TS, 2, false>
-                                          : gi_solve_kernel<TD, TS, 1, false>);
+auto kernel_for(int layout, int smem_bytes) {
+  return layout == kGlobal  ? gi_solve_kernel<TD, TS, 1, kGlobal>
+         : layout == kSplit ? gi_solve_kernel<TD, TS, 1, kSplit>
+                            : (two_blocks(smem_bytes) ? gi_solve_kernel<TD, TS, 2, kResident>
+                                                      : gi_solve_kernel<TD, TS, 1, kResident>);
 }
 
 template <typename TD, typename TS>
-int launch(const void* Pinv, const void* A, const void* table, const void* block_ctrl,
+int launch(const void* Pinv, const void* A, const void* At, int rows, const void* table,
+           const void* block_ctrl,
            const void* q, const void* l, const void* u, void* idx, void* side, void* vmask,
            void* Ginv, const void* widx, const void* wside, const void* wcnt,
            const void* max_it, void* x, void* lam, void* it, void* conv, void* ws, int n_blocks,
-           int width, int warps, int n, int m, int ns, int warm, int smem_bytes, int global,
+           int width, int warps, int n, int m, int ns, int warm, int smem_bytes, int layout,
            double tol, void* stream) {
   if (n_blocks <= 0) return 0;
   if (warps <= 0 || warps > kMaxWarps || width < 1) return (int)cudaErrorInvalidValue;
   if (ns < 1 || ns > n) return (int)cudaErrorInvalidValue;
+  if (layout < kResident || layout > kSplit) return (int)cudaErrorInvalidValue;
+  if (layout == kSplit && (rows < 0 || rows > m || (rows < m && At == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const size_t need =
-      global ? 0 : ctrl_bytes<TD, TS>(n, m) + warps * warp_bytes<TD, TS>(n, m, ns);
-  if ((size_t)smem_bytes != need || (global && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  auto kern = kernel_for<TD, TS>(global, smem_bytes);
+      layout == kGlobal  ? 0
+      : layout == kSplit ? ctrl_bytes<TD, TS>(n, rows, m) + warps * warp_bytes<TD, TS>(n, m, ns, false)
+                         : ctrl_bytes<TD, TS>(n, m, m) + warps * warp_bytes<TD, TS>(n, m, ns, true);
+  if ((size_t)smem_bytes != need || (layout == kGlobal && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kern = kernel_for<TD, TS>(layout, smem_bytes);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<n_blocks, 32 * warps, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const TS*>(Pinv), static_cast<const TD*>(A),
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(block_ctrl), width,
+      static_cast<const TS*>(Pinv), static_cast<const TD*>(A), static_cast<const TD*>(At),
+      rows, static_cast<const int32_t*>(table), static_cast<const int32_t*>(block_ctrl), width,
       static_cast<const TD*>(q), static_cast<const TD*>(l), static_cast<const TD*>(u),
       static_cast<int32_t*>(idx), static_cast<int32_t*>(side), static_cast<uint8_t*>(vmask),
       static_cast<TS*>(Ginv), static_cast<const int32_t*>(widx),
@@ -756,16 +855,17 @@ int launch(const void* Pinv, const void* A, const void* table, const void* block
 }  // namespace
 
 #define MPC_GI_ENTRY(NAME, TD, TS)                                                            \
-  extern "C" int NAME(const void* Pinv, const void* A, const void* table,                     \
-                      const void* block_ctrl, const void* q, const void* l, const void* u,    \
+  extern "C" int NAME(const void* Pinv, const void* A, const void* At, int rows,              \
+                      const void* table, const void* block_ctrl, const void* q,               \
+                      const void* l, const void* u,                                           \
                       void* idx, void* side, void* vmask, void* Ginv, const void* widx,       \
                       const void* wside, const void* wcnt, const void* max_it, void* x,       \
                       void* lam, void* it, void* conv, void* ws, int n_blocks, int width,     \
-                      int warps, int n, int m, int ns, int warm, int smem_bytes, int global,  \
+                      int warps, int n, int m, int ns, int warm, int smem_bytes, int layout,  \
                       double tol, void* stream) {                                             \
-    return launch<TD, TS>(Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv, widx,  \
-                          wside, wcnt, max_it, x, lam, it, conv, ws, n_blocks, width, warps,  \
-                          n, m, ns, warm, smem_bytes, global, tol, stream);                   \
+    return launch<TD, TS>(Pinv, A, At, rows, table, block_ctrl, q, l, u, idx, side, vmask,    \
+                          Ginv, widx, wside, wcnt, max_it, x, lam, it, conv, ws, n_blocks,    \
+                          width, warps, n, m, ns, warm, smem_bytes, layout, tol, stream);     \
   }
 
 MPC_GI_ENTRY(mpc_gi_solve_f32_f64, float, double)
@@ -773,13 +873,13 @@ MPC_GI_ENTRY(mpc_gi_solve_f32_f32, float, float)
 MPC_GI_ENTRY(mpc_gi_solve_f64_f64, double, double)
 
 // Blocks of `warps` warps and `smem_bytes` of shared memory resident on one
-// SM (the runtime's occupancy calculator) in a layout (`global` 0: resident,
-// 1: global); variant 0 = (f32 data, f64 slots), 1 = (f32, f32), 2 = (f64,
-// f64).  Returns −1 on an error.
-extern "C" int mpc_gi_blocks_per_sm(int variant, int global, int warps, int smem_bytes) {
-  const void* fn = variant == 0   ? (const void*)kernel_for<float, double>(global, smem_bytes)
-                   : variant == 1 ? (const void*)kernel_for<float, float>(global, smem_bytes)
-                                  : (const void*)kernel_for<double, double>(global, smem_bytes);
+// SM (the runtime's occupancy calculator) in a layout (0: resident, 1:
+// global, 2: split); variant 0 = (f32 data, f64 slots), 1 = (f32, f32), 2 =
+// (f64, f64).  Returns −1 on an error.
+extern "C" int mpc_gi_blocks_per_sm(int variant, int layout, int warps, int smem_bytes) {
+  const void* fn = variant == 0   ? (const void*)kernel_for<float, double>(layout, smem_bytes)
+                   : variant == 1 ? (const void*)kernel_for<float, float>(layout, smem_bytes)
+                                  : (const void*)kernel_for<double, double>(layout, smem_bytes);
   // as a launch does: raise the kernel's shared-memory limit above the default
   // 48 KB only (a lower setting would refuse a later, larger launch)
   if (smem_bytes > 48 * 1024 &&

@@ -43,14 +43,23 @@ def reset_launch_counts():
 
 # Launch geometry both kernels share.  Shared memory one block may use on an
 # H100 (232,448 bytes, or the card's own opt-in if less): the launch budget.
-# A QP whose one-lane block fits it runs in the resident layout (the
-# controller's tables and the lanes' state in shared memory), any other in
-# the global layout (all of it in device memory, in a workspace); the plain
-# versions have no budget.  A block runs lanes of one controller, at most
-# MAX_WARPS warps (kMaxWarps in both sources), one warp a lane at the fleet
-# shapes; a GI block pulls up to LANES_PER_BLOCK lanes through its warps.
+# Each kernel has three layouts, tried in order: "resident" when its one-lane
+# block fits the budget (the controller's tables and the lanes' state in
+# shared memory); then the sweep's "staged" (the lanes' state in shared
+# memory, A's leading rows there too and the rest streamed through a ring)
+# or GI's "split" (P⁻¹, the row norms and the warps' small state in shared
+# memory, A's leading rows there too, the rest read from a column-major
+# copy); "global" as the last resort (all of it in device memory, in a
+# workspace).  The plain versions have no budget.  A block runs lanes of one
+# controller, at most MAX_WARPS warps (kMaxWarps in both sources), one warp a
+# lane at the fleet shapes; a GI block pulls up to LANES_PER_BLOCK lanes
+# through its warps.  STATIC_RESERVE is kept out of a staged or split
+# block's budget for the kernels' static shared variables.
 HOPPER_SMEM_OPTIN = 232448
-LAYOUTS = ("resident", "global")
+STATIC_RESERVE = 256
+LAYOUTS = {"admm_sweep": ("resident", "staged", "global"),
+           "gi_solve": ("resident", "split", "global")}
+LAYOUT_CODE = {"resident": 0, "global": 1, "staged": 2, "split": 2}
 MAX_WARPS = 16
 LANES_PER_BLOCK = 32
 
@@ -60,9 +69,17 @@ def launch_budget(props) -> int:
     return min(HOPPER_SMEM_OPTIN, props.shared_memory_per_block_optin)
 
 
-def check_layout(layout):
-    if layout is not None and layout not in LAYOUTS:
-        raise ValueError(f"_layout must be None or one of {LAYOUTS}, got {layout!r}")
+def check_layout(kernel, layout):
+    """``(name, rows)`` of a forced layout: None, one of the kernel's
+    ``LAYOUTS``, or (for the card checks) ``(name, rows)`` with the staged
+    or split layout's count of A's rows kept in shared memory."""
+    names = LAYOUTS[kernel]
+    name, rows = layout if isinstance(layout, tuple) else (layout, None)
+    if name is not None and name not in names or (
+            rows is not None and (name != names[1] or int(rows) < 0)):
+        raise ValueError(f"_layout must be None, one of {names} or ({names[1]!r}, rows), "
+                         f"got {layout!r}")
+    return name, None if rows is None else int(rows)
 
 
 def align16(b: int) -> int:
@@ -147,18 +164,20 @@ def load_library():
             fn = getattr(lib, name)
             # Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y,
             # active, ws, n_blocks, width, warps, grouped, n, m, n_lad,
-            # iters, smem_bytes, global, sigma, alpha, stream
-            fn.argtypes = [ptr] * 14 + [i32] * 10 + [f64, f64, ptr]
+            # iters, smem_bytes, layout, rows, tile, stages, sigma, alpha,
+            # stream
+            fn.argtypes = [ptr] * 14 + [i32] * 13 + [f64, f64, ptr]
             fn.restype = i32
         for name in ("mpc_gi_solve_f32_f64", "mpc_gi_solve_f32_f32",
                      "mpc_gi_solve_f64_f64"):
             fn = getattr(lib, name)
-            # Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv,
-            # widx, wside, wcnt, max_it, x, lam, it, conv, ws, n_blocks,
-            # width, warps, n, m, ns, warm, smem_bytes, global, tol, stream
-            fn.argtypes = [ptr] * 20 + [i32] * 9 + [f64, ptr]
+            # Pinv, A, At, rows, table, block_ctrl, q, l, u, idx, side,
+            # vmask, Ginv, widx, wside, wcnt, max_it, x, lam, it, conv, ws,
+            # n_blocks, width, warps, n, m, ns, warm, smem_bytes, layout,
+            # tol, stream
+            fn.argtypes = [ptr] * 3 + [i32] + [ptr] * 18 + [i32] * 9 + [f64, ptr]
             fn.restype = i32
-        # residency: (variant, global, warps, smem) and (f64, global,
+        # residency: (variant, layout, warps, smem) and (f64, layout,
         # grouped, width, threads, smem) → blocks per SM
         lib.mpc_gi_blocks_per_sm.argtypes = [i32] * 4
         lib.mpc_admm_blocks_per_sm.argtypes = [i32] * 6

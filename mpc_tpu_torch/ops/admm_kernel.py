@@ -10,8 +10,9 @@ On a CUDA tensor it launches the hand-written kernel
 ``mpc_tpu_torch/csrc/admm_sweep.cu`` (lanes grouped by controller, one
 block per group: one warp per lane for n ≤ 32 in a large batch, else the
 group's lanes in step; see the note at the top of that file), in its
-resident layout when one lane's block fits the card's shared memory and in
-its global layout, with a workspace in device memory, otherwise.  On a CPU
+resident layout when one lane's block fits the card's shared memory, else
+in its staged layout when the lanes do (A streamed through shared memory),
+else in its global layout, with a workspace in device memory.  On a CPU
 tensor it runs ``admm_sweep_reference``, the plain torch version beside it,
 which sweeps any shape.  There is no fallback from one to the other: a
 failed build or launch raises.
@@ -30,8 +31,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.lanes import lane_blocks, mtv, mv, take
-from ._build import (LAUNCHES, MAX_WARPS, align16, check_layout,
-                     launch_budget, pow2)
+from ._build import (LAUNCHES, LAYOUT_CODE, MAX_WARPS, STATIC_RESERVE,
+                     align16, check_layout, launch_budget, pow2)
 
 # The lanes in step (admm_group_kernel): at most GROUP a block (kGroup), on
 # GROUP_THREADS threads (kGroupThreads).  One warp a lane (admm_warp_kernel)
@@ -41,6 +42,19 @@ GROUP = 2
 GROUP_THREADS = 256
 GROUP_PARTS = 16        # row classes of the in-step Aᵀv split, at most (kMaxParts)
 WARP_LANES_PER_SM = 8
+# The staged layout (admm_staged_kernel, the lanes in step, n ≤ GROUP_THREADS):
+# up to STAGED_LANES lanes a block (kStagedGroup), A's rows past the resident
+# ones streamed in tiles of STAGED_TILE_ROWS rows through a ring of
+# STAGED_STAGES buffers; A's leading rows fill what the lanes and the ring
+# leave of a block's shared memory (one block an SM).
+STAGED_LANES = 4
+STAGED_TILE_ROWS = 256
+STAGED_STAGES = 2
+
+
+def _parts(n: int) -> int:
+    """Row classes of the in-step Aᵀv split: ⌊256/n⌋ clamped to [1, 16]."""
+    return min(max(1, GROUP_THREADS // n), GROUP_PARTS)
 
 
 def smem_bytes(n: int, m: int, itemsize: int, lanes: int = 1, grouped=None) -> int:
@@ -54,18 +68,72 @@ def smem_bytes(n: int, m: int, itemsize: int, lanes: int = 1, grouped=None) -> i
     a = align16(itemsize * m * n)
     if not (n > 32 if grouped is None else grouped):
         return a + lanes * align16(itemsize * (5 * m + n * n + 2 * n + (32 // n) * n))
-    parts = min(max(1, GROUP_THREADS // n), GROUP_PARTS)
     return (a + lanes * align16(itemsize * (6 * m + 4 * n))
-            + align16(itemsize * parts * lanes * n))
+            + align16(itemsize * _parts(n) * lanes * n))
 
 
 def workspace_bytes(n: int, m: int, itemsize: int, lanes: int = 1, grouped=None,
                     blocks: int = 1) -> int:
     """Device memory of a global-layout launch of ``blocks`` blocks of
     ``lanes`` lanes, exactly as the kernel lays it out: each block's part
-    of ``smem_bytes`` after A, in the same order (A stays where it lies)."""
-    return blocks * (smem_bytes(n, m, itemsize, lanes, grouped)
-                     - align16(itemsize * m * n))
+    of ``smem_bytes`` after A, in the same order, without each lane's l, u
+    and ρ (A, l, u and ρ are read where they lie)."""
+    if not (n > 32 if grouped is None else grouped):
+        return blocks * lanes * align16(itemsize * (2 * m + n * n + 2 * n + (32 // n) * n))
+    return blocks * (lanes * align16(itemsize * (3 * m + 4 * n))
+                     + align16(itemsize * _parts(n) * lanes * n))
+
+
+def row_stride(n: int, itemsize: int) -> int:
+    """n rounded up to 16 bytes: the row stride of the staged layout's
+    padded copy of A."""
+    per = 16 // itemsize
+    return -(-n // per) * per
+
+
+def staged_bytes(n: int, m: int, itemsize: int, lanes: int = 1, rows: int = 0,
+                 tile: int = None, stages: int = None) -> int:
+    """Shared memory of a staged block of ``lanes`` lanes, exactly as
+    ``admm_staged_kernel`` lays it out (each part rounded up to 16 bytes):
+    per lane z, y (m each) and x, q, rhs (n each); ρz − y (m) and x̃ (n) of
+    every lane, interleaved; the parts·lanes·n partial sums; then chunks of
+    rows, each A's rows padded to 16 bytes and the lanes' l, u and ρ of
+    them: the resident chunk of ``rows`` rows and ``stages`` ring chunks of
+    min(``tile``, m − rows) rows."""
+    tile = min(STAGED_TILE_ROWS if tile is None else tile, m - rows)
+    stages = STAGED_STAGES if stages is None else stages
+    s, lda = itemsize, row_stride(n, itemsize)
+    chunk = lambda r: align16(s * r * lda) + align16(s * 3 * lanes * r)
+    return (lanes * align16(s * (2 * m + 3 * n)) + align16(s * m * lanes)
+            + align16(s * n * lanes) + align16(s * _parts(n) * lanes * n)
+            + chunk(rows) + stages * chunk(tile))
+
+
+def staged_plan(n: int, m: int, itemsize: int, lanes: int, budget: int, rows=None):
+    """``(rows, tile, stages, smem)`` of a staged block of ``lanes`` lanes
+    (rounded up to a power of two, as the kernel's instantiations), or None
+    where it does not fit in the ``budget`` less STATIC_RESERVE.  The ring's
+    tiles are STAGED_TILE_ROWS rows, halved (down to 64) until the block
+    fits; ``rows`` None keeps as many of A's leading rows as the rest
+    leaves room for."""
+    if n > GROUP_THREADS:
+        return None
+    lanes = pow2(lanes)
+    cap = budget - STATIC_RESERVE
+    size = lambda r, t: staged_bytes(n, m, itemsize, lanes, r, t)
+    tile = STAGED_TILE_ROWS
+    while tile > 64 and size(rows or 0, tile) > cap:
+        tile //= 2
+    if rows is None:
+        if size(0, tile) > cap:
+            return None
+        rows = min(m, (cap - size(0, tile))
+                   // (itemsize * (row_stride(n, itemsize) + 3 * lanes)))
+        while rows > 0 and size(rows, tile) > cap:
+            rows -= 1
+    elif not 0 <= rows <= m or size(rows, tile) > cap:
+        return None
+    return rows, min(tile, m - rows), STAGED_STAGES, size(rows, tile)
 
 
 def launch_geometry(lane_ctrl, n, m, itemsize, budget, sms, layout=None):
@@ -80,30 +148,40 @@ def launch_geometry(lane_ctrl, n, m, itemsize, budget, sms, layout=None):
     busy before it shares A reads (8x8/Hp=15 on an H100: B=256 runs fastest
     a lane a block, B=4096 two lanes a block; four and eight were slower
     there).  ``layout`` None takes "resident" when one lane's block of that
-    variant fits the budget (lanes are then added while they fit) and
-    "global" otherwise; the variant does not depend on the layout, so at a
-    shape both take they sum in the same order."""
+    variant fits the budget (lanes are then added while they fit), else
+    "staged" for the lanes in step when one lane's staged block fits
+    (``staged_plan``; up to STAGED_LANES lanes a block), else "global"; the
+    variant does not depend on the layout, so where several take a shape
+    they sum in the same order.  ``layout`` may also be ("staged", rows),
+    the count of A's rows kept in shared memory (for the card checks)."""
+    layout, rows = check_layout("admm_sweep", layout)
     B = lane_ctrl.shape[0]
+    staged = lambda lanes, r=None: staged_plan(n, m, itemsize, lanes, budget, r)
     grouped = (n > 32 or B < WARP_LANES_PER_SM * sms
-               and smem_bytes(n, m, itemsize, 1, True) <= budget)
+               and (smem_bytes(n, m, itemsize, 1, True) <= budget or staged(1) is not None))
     if layout is None:
-        fits = smem_bytes(n, m, itemsize, 1, grouped) <= budget
-        layout = "resident" if fits else "global"
-    fits = lambda lanes: (layout == "global"
-                          or smem_bytes(n, m, itemsize, lanes, grouped) <= budget)
+        layout = ("resident" if smem_bytes(n, m, itemsize, 1, grouped) <= budget
+                  else "staged" if grouped and staged(1) is not None else "global")
+    if layout == "staged" and (not grouped or staged(1, rows) is None):
+        raise ValueError(f"the staged layout does not take n={n}, m={m} "
+                         f"({'a warp a lane' if not grouped else f'{rows} rows'})")
+    fits = {"resident": lambda lanes: smem_bytes(n, m, itemsize, lanes, grouped) <= budget,
+            "staged": lambda lanes: staged(lanes, rows) is not None,
+            "global": lambda lanes: True}[layout]
     if not grouped:
         cap = min(MAX_WARPS, pow2(-(-B // sms)))
         while cap > 1 and not fits(cap):
             cap -= 1
     else:
         per = max(1, B // (2 * sms))
-        cap = GROUP
+        cap = STAGED_LANES if layout == "staged" else GROUP
         while cap > 1 and (cap > per or not fits(cap)):
             cap //= 2
     table, block_ctrl = lane_blocks(lane_ctrl, cap)
     width = table.shape[1]
     warps = GROUP_THREADS // 32 if grouped else width
-    smem = 0 if layout == "global" else smem_bytes(n, m, itemsize, width, grouped)
+    smem = {"resident": lambda: smem_bytes(n, m, itemsize, width, grouped),
+            "staged": lambda: staged(width, rows)[3], "global": lambda: 0}[layout]()
     return table, block_ctrl, warps, grouped, smem, layout
 
 
@@ -164,10 +242,11 @@ def admm_sweep(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active,
     """``iters`` ADMM sweeps in place on the active lanes' (x, z, y).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
-    ``_layout`` ("resident" or "global") forces the kernel's layout, for
-    the checks that hold one against the other; None picks it by size.
+    ``_layout`` ("resident", "staged", ("staged", rows) or "global") forces
+    the kernel's layout, for the checks that hold one against the other;
+    None picks it by size.
     """
-    check_layout(_layout)
+    _, rows = check_layout("admm_sweep", _layout)
     dev = x.device
     if dev.type == "cpu":
         return admm_sweep_reference(Minvs, A, lane_ctrl, rung, q, l, u, rhovs,
@@ -199,12 +278,18 @@ def admm_sweep(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active,
     if layout == "global":
         ws = torch.empty(workspace_bytes(n, m, s, table.shape[1], grouped, table.shape[0]),
                          dtype=torch.uint8, device=dev)
+    # the staged layout's resident rows, tile rows and stages, and its copy
+    # of A with rows padded to 16 bytes (one copy a launch)
+    plan = (staged_plan(n, m, s, table.shape[1], launch_budget(props), rows)
+            if layout == "staged" else (0, 0, 0))
+    if layout == "staged":
+        ptrs = (Minvs, torch.nn.functional.pad(A, (0, row_stride(n, s) - n)), *ptrs[2:])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in ptrs), None if ws is None else ws.data_ptr(),
                 table.shape[0], table.shape[1], warps, int(grouped), n, m, n_lad,
-                int(iters), smem, int(layout == "global"), float(sigma), float(alpha),
-                stream)
+                int(iters), smem, LAYOUT_CODE[layout], *plan[:3], float(sigma),
+                float(alpha), stream)
     if rc != 0:
         raise RuntimeError(f"admm_sweep kernel launch failed: CUDA error {rc}")
     LAUNCHES["admm_sweep"] += 1

@@ -15,8 +15,10 @@ one-shot cold restart and the infeasibility certificate.
 On a CUDA tensor it launches the hand-written kernel
 ``mpc_tpu_torch/csrc/gi_solve.cu`` (lanes grouped by controller, one block
 per group and one warp per lane; see the note at the top of that file), in
-its resident layout when one warp's block fits the card's shared memory and
-in its global layout, with a workspace in device memory, otherwise.  On a
+its resident layout when one warp's block fits the card's shared memory,
+else in its split layout when the warps' small state does (A's leading rows
+in shared memory, the rest read from a column-major copy), else in its
+global layout, with a workspace in device memory.  On a
 CPU tensor it runs ``gi_solve_reference``, the plain torch version beside
 it, which solves any shape.  There is no fallback from one to the other: a
 failed build or launch raises.
@@ -42,11 +44,15 @@ from __future__ import annotations
 import torch
 
 from ..utils.lanes import lane_blocks, take
-from ._build import (LANES_PER_BLOCK, LAUNCHES, MAX_WARPS, align16,
-                     check_layout, launch_budget, pow2)
+from ._build import (LANES_PER_BLOCK, LAUNCHES, LAYOUT_CODE, MAX_WARPS,
+                     STATIC_RESERVE, align16, check_layout, launch_budget,
+                     pow2)
 
 _BIG = 1e18        # ops.qp._BIG: bounds beyond this are infinite
 _TINY = 1e-30
+# warps a block in the split layout, at most: the rest of the shared memory
+# holds A's leading rows
+SPLIT_WARPS = 16
 
 
 def smem_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
@@ -70,10 +76,12 @@ def _row_stride(n, data_size):
     return -(-n // per) * per
 
 
-def _slice_bytes(n, m, ns, data_size, slot_size):
-    """One lane's slice: a warp's part of ``smem_bytes``."""
+def _slice_bytes(n, m, ns, data_size, slot_size, lu=True):
+    """One lane's slice: a warp's part of ``smem_bytes``; without l and u
+    (``lu`` False) in the split and global layouts, which read them in
+    place."""
     return (align16(slot_size * (ns * ns + 5 * n + 6 * ns))
-            + align16(data_size * (_row_stride(n, data_size) + 2 * m + ns * n))
+            + align16(data_size * (_row_stride(n, data_size) + (2 * m if lu else 0) + ns * n))
             + align16(4 * 3 * ns))
 
 
@@ -82,10 +90,38 @@ def workspace_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
     """Device memory of a global-layout launch of ``blocks`` blocks over
     ``lanes`` lanes, exactly as the kernel lays it out: each block's row
     norms (data dtype, rounded up to 16 bytes), then each lane's slice, the
-    same parts as a warp's slice in ``smem_bytes``, at the lane's index.  A
-    and P⁻¹ stay where they lie."""
+    parts of a warp's slice in ``smem_bytes`` but l and u, at the lane's
+    index.  A, P⁻¹, l and u stay where they lie."""
     return (blocks * align16(data_size * m)
-            + lanes * _slice_bytes(n, m, ns, data_size, slot_size))
+            + lanes * _slice_bytes(n, m, ns, data_size, slot_size, lu=False))
+
+
+def split_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
+                warps: int = 1, rows: int = 0) -> int:
+    """Shared memory of a split-layout block of ``warps`` warps, exactly as
+    the kernel lays it out: P⁻¹, A's first ``rows`` rows padded to 16 bytes
+    and the m row norms, then per warp the slice of ``smem_bytes`` without
+    l and u."""
+    lda = _row_stride(n, data_size)
+    return (align16(slot_size * n * n) + data_size * rows * lda + align16(data_size * m)
+            + warps * _slice_bytes(n, m, ns, data_size, slot_size, lu=False))
+
+
+def split_plan(n, m, ns, data_size, slot_size, warps, budget, rows=None):
+    """``(rows, smem)`` of a split block of ``warps`` warps in the
+    shared-memory ``budget`` less STATIC_RESERVE, or None where it does not
+    fit; ``rows`` None keeps as many of A's leading rows as the budget
+    leaves room for."""
+    cap = budget - STATIC_RESERVE
+    sizes = (n, m, ns, data_size, slot_size, warps)
+    if rows is None:
+        base = split_bytes(*sizes)
+        if base > cap:
+            return None
+        rows = min(m, (cap - base) // (data_size * _row_stride(n, data_size)))
+    elif not 0 <= rows <= m or split_bytes(*sizes, rows) > cap:
+        return None
+    return rows, split_bytes(*sizes, rows)
 
 
 def launch_geometry(lane_ctrl, n, m, ns, data_size, slot_size, budget, sms,
@@ -97,20 +133,34 @@ def launch_geometry(lane_ctrl, n, m, ns, data_size, slot_size, budget, sms,
     card's ``sms`` multiprocessors; as many warps a block as the table is
     wide, up to ``MAX_WARPS``.  ``layout`` None takes "resident" when one
     warp's block fits the shared-memory ``budget`` (the warps then also fit
-    it) and "global" (no shared memory but the lane counter) otherwise."""
+    it), else "split" when one warp's split block fits it (up to
+    SPLIT_WARPS warps, A's leading rows in the rest: ``split_plan``), else
+    "global" (no shared memory but the lane counter).  ``layout`` may also
+    be ("split", rows), the count of A's rows kept in shared memory (for
+    the card checks)."""
+    layout, rows = check_layout("gi_solve", layout)
+    sizes = (n, m, ns, data_size, slot_size)
+    split = lambda warps: split_plan(*sizes, warps, budget, rows)
     if layout is None:
-        fits = smem_bytes(n, m, ns, data_size, slot_size) <= budget
-        layout = "resident" if fits else "global"
+        layout = ("resident" if smem_bytes(*sizes) <= budget
+                  else "split" if split_plan(*sizes, 1, budget) is not None else "global")
+    if layout == "split" and split(1) is None:
+        raise ValueError(f"the split layout does not take n={n}, m={m}, {ns} slots, "
+                         f"{rows} rows")
     B = lane_ctrl.shape[0]
     width = min(LANES_PER_BLOCK, pow2(-(-B // sms)))
     table, block_ctrl = lane_blocks(lane_ctrl, width)
     warps = min(table.shape[1], MAX_WARPS)
     if layout == "global":
         return table, block_ctrl, warps, 0, layout
-    while warps > 1 and smem_bytes(n, m, ns, data_size, slot_size, warps) > budget:
+    if layout == "split":
+        warps = min(warps, SPLIT_WARPS)
+        while warps > 1 and split(warps) is None:
+            warps -= 1
+        return table, block_ctrl, warps, split(warps)[1], layout
+    while warps > 1 and smem_bytes(*sizes, warps) > budget:
         warps -= 1
-    return (table, block_ctrl, warps,
-            smem_bytes(n, m, ns, data_size, slot_size, warps), layout)
+    return table, block_ctrl, warps, smem_bytes(*sizes, warps), layout
 
 
 def slot_dtype_for(dt, slot_dtype=None):
@@ -426,10 +476,11 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
     """The per-lane GI solve (see the module docstring).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
-    ``_layout`` ("resident" or "global") forces the kernel's layout, for
-    the checks that hold one against the other; None picks it by size.
+    ``_layout`` ("resident", "split", ("split", rows) or "global") forces
+    the kernel's layout, for the checks that hold one against the other;
+    None picks it by size.
     """
-    check_layout(_layout)
+    _, rows = check_layout("gi_solve", _layout)
     dev = q.device
     if dev.type == "cpu":
         return gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side,
@@ -463,8 +514,8 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
     table, block_ctrl, warps, smem, layout = launch_geometry(
         lane_ctrl, n, m, ns, *sizes, launch_budget(props),
         props.multi_processor_count, _layout)
-    ptrs = (Pinv, A, table, block_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
-            wside, wcnt, max_it, x, lam, it, conv)
+    ptrs = (table, block_ctrl, q, l, u, idx, side, vmask, Ginv, widx, wside,
+            wcnt, max_it, x, lam, it, conv)
     # the global layout's workspace: a block of the caching allocator, which
     # hands the same block back to the next launch of this shape on this
     # stream
@@ -472,11 +523,19 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
     if layout == "global":
         ws = torch.empty(workspace_bytes(n, m, ns, *sizes, B, table.shape[0]),
                          dtype=torch.uint8, device=dev)
+    # the split layout: A's leading rows in shared memory, the column-major
+    # copy of the others (n_d, n, m − rows), one copy a launch
+    n_res, At = 0, None
+    if layout == "split":
+        n_res = split_plan(n, m, ns, *sizes, warps, launch_budget(props), rows)[0]
+        if n_res < m:
+            At = A[:, n_res:, :].transpose(1, 2).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), None if ws is None else ws.data_ptr(),
+        rc = fn(Pinv.data_ptr(), A.data_ptr(), None if At is None else At.data_ptr(), n_res,
+                *(t.data_ptr() for t in ptrs), None if ws is None else ws.data_ptr(),
                 table.shape[0], table.shape[1], warps, n, m, ns, int(bool(warm)), smem,
-                int(layout == "global"), float(tol), stream)
+                LAYOUT_CODE[layout], float(tol), stream)
     if rc != 0:
         raise RuntimeError(f"gi_solve kernel launch failed: CUDA error {rc}")
     LAUNCHES["gi_solve"] += 1

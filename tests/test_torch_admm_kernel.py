@@ -20,6 +20,7 @@ from mpc_tpu_torch.ops._build import HOPPER_SMEM_OPTIN
 from mpc_tpu_torch.ops.admm_kernel import (admm_batch, admm_sweep,
                                            admm_sweep_reference,
                                            launch_geometry, smem_bytes,
+                                           staged_bytes, staged_plan,
                                            workspace_bytes)
 
 torch.set_num_threads(1)
@@ -197,34 +198,115 @@ def test_size_guard_uses_the_hopper_budget():
         assert np.abs(a[k].numpy() - want).max() < 1e-12 * (1 + np.abs(want).max()), k
 
 
-@pytest.mark.parametrize("n,m,itemsize,B,grouped,layout", [
-    (5, 101, 4, 4096, False, "resident"),     # headline-ADMM
-    (33, 577, 4, 256, True, "resident"),      # 8x8/Hp=15
-    (33, 897, 8, 1, True, "global"),          # 8x8 LinMPC, Hp=25, float64
-    (33, 2017, 4, 4096, True, "global"),      # the large fleet at Hp=60
-    (64, 1024, 4, 2, True, "global"),
-    (5, 12000, 4, 32, False, "global"),       # neither variant fits
+a16 = lambda b: (b + 15) // 16 * 16
+
+
+@pytest.mark.parametrize("n,m,itemsize,n_d,reps,grouped,layout,resident_geometry", [
+    (5, 101, 4, 256, 16, False, "resident", (256, 16, 16, 38640)),   # headline-ADMM
+    (33, 577, 4, 32, 8, True, "resident", (256, 1, 8, 91488)),       # 8x8/Hp=15
+    (33, 897, 8, 1, 1, True, "staged", None),     # 37a: 8x8 LinMPC, Hp=25, float64
+    (33, 2017, 4, 32, 128, True, "staged", None),  # 37b: the 8x8 fleet at Hp=60
+    (33, 2017, 4, 32, 8, True, "staged", None),    # the same at B=256
+    (64, 1024, 4, 1, 2, True, "staged", None),
+    (5, 12000, 4, 1, 32, True, "staged", None),    # a small batch: the lanes in step
+    (5, 40000, 4, 1, 32, False, "global", None),   # neither variant's lane fits
+    (300, 600, 8, 1, 2, True, "global", None),     # n > 256: no staged layout
 ])
-def test_launch_geometry_picks_the_layout_by_size(n, m, itemsize, B, grouped, layout):
+def test_launch_geometry_picks_the_layout_by_size(n, m, itemsize, n_d, reps, grouped, layout,
+                                                  resident_geometry):
     """The resident layout while one lane's block of the variant fits the
-    budget, the global one above; the variant and the lanes a block do not
-    depend on the layout (so the two sum in one order), a global launch
-    asks for no shared memory, and its workspace is each block's part of
-    ``smem_bytes`` after A."""
-    lc = torch.arange(B, dtype=torch.int32) % max(1, B // 16)
+    budget, else the staged one for the lanes in step while one lane's
+    staged block fits, else the global one; the variant does not depend on
+    the layout (so they sum in one order); a staged launch asks for its
+    plan's shared memory, a global one for none, and the resident geometry
+    is what it was before the staged layout came (blocks, lanes a block,
+    warps, shared memory)."""
+    B = n_d * reps
+    lc = torch.arange(B, dtype=torch.int32) % n_d
     table, _, warps, g, smem, got = launch_geometry(lc, n, m, itemsize, HOPPER_SMEM_OPTIN, 132)
     assert (g, got) == (grouped, layout)
-    assert (smem_bytes(n, m, itemsize, 1, g) <= HOPPER_SMEM_OPTIN) == (layout == "resident")
-    width = table.shape[1]
-    assert smem == (smem_bytes(n, m, itemsize, width, g) if layout == "resident" else 0)
-    a16 = lambda b: (b + 15) // 16 * 16
-    blocks = table.shape[0]
-    assert workspace_bytes(n, m, itemsize, width, g, blocks) == blocks * (
-        smem_bytes(n, m, itemsize, width, g) - a16(itemsize * m * n))
+    fits = smem_bytes(n, m, itemsize, 1, g) <= HOPPER_SMEM_OPTIN
+    staged = staged_plan(n, m, itemsize, 1, HOPPER_SMEM_OPTIN) is not None
+    assert fits == (layout == "resident")
+    assert (not fits and g and staged) == (layout == "staged")
+    blocks, width = table.shape
+    if layout == "resident":
+        assert (blocks, width, warps, smem) == resident_geometry
+    elif layout == "staged":
+        rows, tile, stages, want = staged_plan(n, m, itemsize, width, HOPPER_SMEM_OPTIN)
+        assert smem == want == staged_bytes(n, m, itemsize, width, rows, tile)
+        assert want <= HOPPER_SMEM_OPTIN - 256
+        assert 0 <= rows < m and 64 <= tile <= min(256, m - rows) and stages == 2
+        assert width <= min(4, max(1, B // 264)) or width == 1
+    else:
+        assert smem == 0
     forced = launch_geometry(lc, n, m, itemsize, HOPPER_SMEM_OPTIN, 132, "global")
     assert forced[2:4] == (warps, g) and forced[4:] == (0, "global")
+    assert not g or forced[0].shape[1] <= 2
     if layout == "resident":
         assert forced[0].shape == table.shape
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_new_layout_bytes_are_the_kernels_carve_up(itemsize):
+    """``staged_bytes`` and ``workspace_bytes`` count what admm_sweep.cu
+    lays out, part by part (each rounded up to 16 bytes): a staged block is
+    per lane z, y (m each) and x, q, rhs (n each), the lanes' ρz − y (m)
+    and x̃ (n), the parts·lanes·n Aᵀv partial sums, then the resident chunk
+    and the ring's chunks, each A's rows padded to 16 bytes and the lanes'
+    l, u, ρ of those rows; the
+    global layout's workspace is per block and lane z, y (and ρz − y, x, q,
+    rhs, x̃ in step; Minv, rhs, x̃, the partial sums a warp a lane), l, u and
+    ρ being read in place.  Every staged block the wrapper plans stays
+    within 232,448 bytes."""
+    s = itemsize
+    for n, m, lanes in ((33, 2017, 4), (33, 2017, 1), (33, 897, 1), (64, 1024, 2),
+                        (5, 150, 2)):
+        parts = min(max(1, 256 // n), 16)
+        lda = a16(s * n) // s
+        chunk = lambda r: a16(s * r * lda) + a16(s * 3 * lanes * r)
+        for rows in (0, 7, m // 2):
+            tile = min(256, m - rows)
+            want = (lanes * a16(s * (2 * m + 3 * n)) + a16(s * m * lanes) + a16(s * n * lanes)
+                    + a16(s * parts * lanes * n) + chunk(rows) + 2 * chunk(tile))
+            assert staged_bytes(n, m, s, lanes, rows) == want
+        plan = staged_plan(n, m, s, lanes, HOPPER_SMEM_OPTIN)
+        if plan is not None:
+            rows, tile = plan[:2]
+            assert plan[3] == staged_bytes(n, m, s, lanes, rows, tile) <= HOPPER_SMEM_OPTIN - 256
+            assert tile == min(256, m - rows) or tile >= 64
+            assert rows == m or (
+                staged_bytes(n, m, s, lanes, rows + 1, tile) > HOPPER_SMEM_OPTIN - 256)
+        assert workspace_bytes(n, m, s, lanes, True, 3) == 3 * (
+            lanes * a16(s * (3 * m + 4 * n)) + a16(s * parts * lanes * n))
+    assert workspace_bytes(5, 101, s, 16, False, 2) == 2 * 16 * a16(
+        s * (2 * 101 + 25 + 10 + 6 * 5))
+    # the Hp=60 fleet in float32: four lanes of 16,544 bytes, their ρz − y
+    # and x̃, two chunks of 256 rows of 192 bytes, and the leading rows the
+    # rest leaves room for
+    rows, tile, stages, smem = staged_plan(33, 2017, 4, 4, HOPPER_SMEM_OPTIN)
+    assert (tile, stages) == (256, 2)
+    assert smem == (4 * 16544 + 32272 + 528 + 3696 + a16(rows * 144) + a16(rows * 48)
+                    + 2 * 49152)
+    assert 150 < rows < 170
+
+
+def test_plain_sweep_ignores_the_layout():
+    """The plain version has no budget: every ``_layout`` the kernel takes,
+    with or without a resident-row count, runs the same sweep on CPU
+    tensors; a name the sweep has no layout of is refused."""
+    a = _sweep_inputs(12)
+    on = torch.ones(a["x"].shape[0], dtype=torch.bool)
+    ref = {k: v.clone() for k, v in a.items()}
+    admm_sweep_reference(*(ref[k] for k in ORDER), on, 7, 1e-6, 1.6)
+    for layout in ("resident", "staged", ("staged", 0), ("staged", 5), "global"):
+        b = {k: v.clone() for k, v in a.items()}
+        admm_sweep(*(b[k] for k in ORDER), on, 7, 1e-6, 1.6, _layout=layout)
+        for k in ("x", "z", "y"):
+            assert torch.equal(b[k], ref[k]), (layout, k)
+    for bad in ("split", ("global", 3), ("staged", -1)):
+        with pytest.raises(ValueError, match="_layout"):
+            admm_sweep(*(a[k] for k in ORDER), on, 1, 1e-6, 1.6, _layout=bad)
 
 
 def test_sweep_rejects_bad_arguments():

@@ -709,8 +709,9 @@ def test_sweep_beyond_shared_memory_matches_plain_on_card(n, m):
     """One lane's block of n=64, m=1024 (the lanes in step) or n=5, m=12000
     (a warp a lane: the batch is too small for it, but the lanes in step do
     not fit either) exceeds the shared memory of a block in float32 and
-    float64: the sweep runs in the global layout and holds to the plain
-    version as at the resident shapes."""
+    float64: the sweep runs in the staged layout (in step, where the lanes
+    fit: all but n=5, m=12000 in float64) or the global one and holds to
+    the plain version as at the resident shapes."""
     dev = _card()
     lc = LAYOUTS["tiled"]()
     props = torch.cuda.get_device_properties(dev)
@@ -718,7 +719,7 @@ def test_sweep_beyond_shared_memory_matches_plain_on_card(n, m):
         *_, layout = admm_kernel.launch_geometry(
             lc.to(dev), n, m, s, props.shared_memory_per_block_optin,
             props.multi_processor_count)
-        assert layout == "global"
+        assert layout == ("global" if (m, s) == (12000, 8) else "staged")
     _sweep_check(dev, torch.float32, 1e-4, n=n, m=m, lane_ctrl=lc)
     _sweep_check(dev, torch.float64, 1e-10, rel=False, n=n, m=m, lane_ctrl=lc)
 
@@ -741,7 +742,7 @@ def test_sweep_two_lanes_a_block_global_matches_plain_on_card():
 @pytest.mark.cuda
 def test_gi_beyond_shared_memory_matches_plain_on_card():
     """n=64, m=1024 in float64 (one warp's block needs 654,080 bytes of
-    shared memory): the GI kernel runs in the global layout and holds to the
+    shared memory): the GI kernel runs in the split layout and holds to the
     plain solve: equal flags, iterations and active sets, x to
     1e-9·(1 + max|x|), the float64 bar of test_gi_kernel_matches_plain_on_card
     (the junk in the warm duals costs up to ~250 rank-one updates of Ginv
@@ -761,3 +762,126 @@ def test_gi_beyond_shared_memory_matches_plain_on_card():
     assert torch.equal(k.iters, p.iters)
     assert torch.equal(k.gi_state["gis_idx"], p.gi_state["gis_idx"])
     assert (k.x - p.x).abs().max().item() < 1e-9 * (1.0 + p.x.abs().max().item())
+
+
+# --- the staged sweep and the split GI: the resident and global bits -------
+# A cut resident-row count (``_layout=(name, rows)``) makes the streamed (or
+# column-major) rows run at shapes the resident layout takes: 0 rows, a cut
+# that leaves a partial last tile, and all of A.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 50, 150])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,warp_lanes,lanes,stages", [(5, 10**9, "ragged", 2),
+                                                        (33, 0, "ragged", 2),
+                                                        (33, 0, "wide", 2),
+                                                        (33, 0, "wide", 3)])
+def test_sweep_staged_layout_returns_the_resident_bits(dtype, n, warp_lanes, lanes, stages,
+                                                       rows, monkeypatch):
+    """The lanes in step (n=5 or 33, m=150; ragged groups or 1,056 lanes of
+    8 controllers; a ring of two or three stages) in the staged layout with
+    0, 50 or all 150 of A's rows in shared memory: the resident layout's x,
+    z and y to the last bit, and the global layout's."""
+    dev = _card()
+    monkeypatch.setattr(admm_kernel, "WARP_LANES_PER_SM", warp_lanes)
+    monkeypatch.setattr(admm_kernel, "STAGED_STAGES", stages)
+    lc = LAYOUTS["ragged"]() if lanes == "ragged" else WIDE()
+    a = _problem(dev, dtype, n=n, m=150, lane_ctrl=lc)
+    out = {}
+    for layout in ("resident", ("staged", rows), "global"):
+        b = {k: v.clone() for k, v in a.items()}
+        admm_sweep(*(b[k] for k in SWEEP), 40, 1e-6, 1.6, _layout=layout)
+        out[str(layout)] = b
+    torch.cuda.synchronize()
+    for k in ("x", "z", "y"):
+        for layout in out:
+            assert torch.equal(out["resident"][k], out[layout][k]), (k, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 57, 150])
+@pytest.mark.parametrize("lanes", ["ragged", "wide"])
+@pytest.mark.parametrize("dtype,slots,cap", [(torch.float64, None, None),
+                                             (torch.float32, None, 12),
+                                             (torch.float32, torch.float32, 8)])
+def test_gi_split_layout_returns_the_resident_bits(dtype, slots, cap, lanes, rows):
+    """The GI kernel (n=33, m=150, warm duals; ragged groups or 1,056 lanes
+    of 8 controllers) in the split layout with 0, 57 or all 150 of A's rows
+    in shared memory, the others read from the column-major copy: the
+    resident layout's x, λ, iteration counts, flags and operator state to
+    the last bit, and the global layout's."""
+    dev = _card()
+    lc = (LAYOUTS["ragged"]() if lanes == "ragged" else WIDE()).to(dev)
+    a = _gi_problem(dev, dtype, n=33, m=150, B=lc.numel(), seed=3, lane_ctrl=lc)
+    args = _gi_args(a, lc, cap, slots)
+    out = {}
+    for layout in ("resident", ("split", rows), "global"):
+        c = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        out[str(layout)] = (*gi_solve(*c, _layout=layout), *c[6:10])
+    torch.cuda.synchronize()
+    for layout in out:
+        for r, g in zip(out["resident"], out[layout]):
+            assert torch.equal(r, g), layout
+
+
+# the 8x8 fleet's QP at Hp=60 (n=33, m=2017), 32 controllers
+FLEET60 = lambda B: torch.arange(B, dtype=torch.int32) % 32
+
+
+@pytest.mark.cuda
+def test_sweep_staged_at_the_hp60_shape_gives_the_global_bits():
+    """At n=33, m=2017 (A beyond a block's shared memory; in float32 four
+    lanes a staged block at B=4096) the wrapper takes the staged layout, which
+    returns the global layout's x, z and y to the last bit in float32 and
+    float64, and holds to the plain sweep: float64 to 1e-10."""
+    dev = _card()
+    props = torch.cuda.get_device_properties(dev)
+    for dt, s in ((torch.float32, 4), (torch.float64, 8)):
+        a = _problem(dev, dt, n=33, m=2017, lane_ctrl=FLEET60(4096), seed=4)
+        table, *_, layout = admm_kernel.launch_geometry(
+            a["lane_ctrl"], 33, 2017, s, props.shared_memory_per_block_optin,
+            props.multi_processor_count)
+        assert layout == "staged" and (s == 8 or table.shape[1] == 4)
+        out = {}
+        for lay in (None, "global"):
+            b = {k: v.clone() for k, v in a.items()}
+            admm_sweep(*(b[k] for k in SWEEP), 10, 1e-6, 1.6, _layout=lay)
+            out[lay] = b
+        torch.cuda.synchronize()
+        for k in ("x", "z", "y"):
+            assert torch.equal(out[None][k], out["global"][k]), (dt, k)
+    _sweep_check(dev, torch.float64, 1e-10, rel=False, n=33, m=2017, lane_ctrl=FLEET60(256))
+
+
+@pytest.mark.cuda
+def test_gi_split_at_the_hp60_shape_gives_the_global_bits():
+    """At n=33, m=2017 (f32 data, f64 slots, 12 slots, 512 lanes of 32
+    controllers) the wrapper takes the split layout, which returns the
+    global layout's bits, and holds to the plain solve with the bars of
+    chip_smoke.py's fleet shapes: the converged flag equal on all but 4
+    lanes (a near-tie in the float32 scan, summed in another order, can
+    change the pivot order), x to 1e-4·(1 + max|x|) where both converged."""
+    dev = _card()
+    lc = FLEET60(512).to(dev)
+    a = _gi_problem(dev, torch.float32, n=33, m=2017, B=512, seed=6, lane_ctrl=lc)
+    a["l"] -= 2.0      # wider bounds: a few active rows, within the 12 slots
+    a["u"] += 2.0
+    args = _gi_args(a, lc, 12, None)
+    props = torch.cuda.get_device_properties(dev)
+    from mpc_tpu_torch.ops import gi_kernel
+    *_, layout = gi_kernel.launch_geometry(lc, 33, 2017, 12, 4, 8,
+                                           props.shared_memory_per_block_optin,
+                                           props.multi_processor_count)
+    assert layout == "split"
+    out = {}
+    for lay in (None, "global"):
+        c = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        out[lay] = (*gi_solve(*c, _layout=lay), *c[6:10])
+    c = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+    x, _, it, conv = gi_solve_reference(*c)
+    torch.cuda.synchronize()
+    for r, g in zip(out[None], out["global"]):
+        assert torch.equal(r, g)
+    assert int((out[None][3] != conv).sum()) <= 4
+    both = conv & out[None][3]
+    assert int(both.sum()) >= 256
+    assert (out[None][0] - x)[both].abs().max().item() < 1e-4 * (1.0 + x.abs().max().item())

@@ -25,6 +25,7 @@ from mpc_tpu.ops.qp_active import solve_qp_active as jax_solve_qp_active
 from mpc_tpu_torch.ops._build import HOPPER_SMEM_OPTIN
 from mpc_tpu_torch.ops.gi_kernel import (gi_solve, gi_solve_reference,
                                          launch_geometry, smem_bytes,
+                                         split_bytes, split_plan,
                                          violation_scan_reference,
                                          workspace_bytes)
 from mpc_tpu_torch.ops.qp_active import (build_gi_cache, gi_state_init,
@@ -425,31 +426,102 @@ def test_size_guard_uses_the_hopper_budget():
         assert np.all(np.where(y < 0, np.abs(Ax - l), 0.0) < 1e-9)
 
 
-@pytest.mark.parametrize("n,m,ns,data,slot,reps,layout", [
-    (5, 101, 5, 4, 8, 16, "resident"),      # headline-GI
-    (33, 577, 8, 4, 4, 128, "resident"),    # large-GI
-    (33, 897, 33, 8, 8, 1, "global"),       # 8x8 LinMPC, Hp=25, float64
-    (33, 2017, 12, 4, 8, 128, "global"),    # the large fleet at Hp=60
-    (82, 202, 82, 8, 8, 1, "global"),       # MHE He=40, float64
+a16 = lambda b: (b + 15) // 16 * 16
+
+
+def _hand_slice(n, m, ns, data, slot, lu):
+    """One lane's slice of gi_solve.cu, part by part: Ginv, five n-vectors
+    and six ns-vectors in the slot dtype; x padded to 16 bytes, (l and u),
+    the slot table in the data dtype; idx, side, vmask as 4-byte ints."""
+    return (a16(slot * (ns * ns + 5 * n + 6 * ns))
+            + a16(data * (a16(data * n) // data + (2 * m if lu else 0) + ns * n)) + a16(12 * ns))
+
+
+@pytest.mark.parametrize("n,m,ns,data,slot,reps,layout,resident_geometry", [
+    (5, 101, 5, 4, 8, 16, "resident", (256, 16, 16, 30224)),       # headline-GI
+    (33, 577, 8, 4, 4, 128, "resident", (128, 32, 16, 202416)),    # large-GI
+    (33, 897, 33, 8, 8, 1, "split", None),        # 37a: 8x8 LinMPC, Hp=25, float64
+    (33, 2017, 12, 4, 8, 128, "split", None),     # 37b: the 8x8 fleet at Hp=60
+    (82, 202, 82, 8, 8, 1, "split", None),        # 37c: MHE He=40, float64
+    (128, 256, 128, 8, 8, 1, "global", None),     # P⁻¹ and one warp's Ginv: global only
 ])
-def test_launch_geometry_picks_the_layout_by_size(n, m, ns, data, slot, reps, layout):
-    """The resident layout while one warp's block fits 232,448 bytes, the
-    global one above; a global launch asks for no shared memory and as
-    many warps as the table is wide, and its workspace is each block's row
-    norms and each lane's slice (a warp's part of ``smem_bytes``)."""
+def test_launch_geometry_picks_the_layout_by_size(n, m, ns, data, slot, reps, layout,
+                                                  resident_geometry):
+    """The resident layout while one warp's block fits 232,448 bytes, else
+    the split one while one warp's split block does (P⁻¹, the row norms and
+    the warp's state but l and u), else the global one; a split launch asks
+    for its plan's shared memory (A's leading rows filling the rest), a
+    global one for none and as many warps as the table is wide; the
+    resident geometry is what it was before the split layout came (blocks,
+    lanes a block, warps, shared memory)."""
     n_d = 4096 // reps if reps > 1 else 1
     lc = torch.arange(n_d * reps, dtype=torch.int32) % n_d
     table, block_ctrl, warps, smem, got = launch_geometry(
         lc, n, m, ns, data, slot, HOPPER_SMEM_OPTIN, 132)
     assert got == layout
-    assert warps == min(table.shape[1], 16)
-    assert (smem_bytes(n, m, ns, data, slot) <= HOPPER_SMEM_OPTIN) == (layout == "resident")
-    assert smem == (smem_bytes(n, m, ns, data, slot, warps) if layout == "resident" else 0)
-    lane = smem_bytes(n, m, ns, data, slot, 2) - smem_bytes(n, m, ns, data, slot, 1)
-    a16 = lambda b: (b + 15) // 16 * 16
-    assert lane == (a16(slot * (ns * ns + 5 * n + 6 * ns))
-                    + a16(data * (a16(data * n) // data + 2 * m + ns * n)) + a16(12 * ns))
-    B, blocks = lc.numel(), table.shape[0]
-    assert workspace_bytes(n, m, ns, data, slot, B, blocks) == blocks * a16(data * m) + B * lane
+    fits = smem_bytes(n, m, ns, data, slot) <= HOPPER_SMEM_OPTIN
+    split = split_plan(n, m, ns, data, slot, 1, HOPPER_SMEM_OPTIN) is not None
+    assert fits == (layout == "resident")
+    assert (not fits and split) == (layout == "split")
+    if layout == "resident":
+        assert (*table.shape, warps, smem) == resident_geometry
+    elif layout == "split":
+        assert warps == min(table.shape[1], 16)
+        rows, want = split_plan(n, m, ns, data, slot, warps, HOPPER_SMEM_OPTIN)
+        assert smem == want == split_bytes(n, m, ns, data, slot, warps, rows)
+        assert 0 < rows < m and smem <= HOPPER_SMEM_OPTIN - 256
+    else:
+        assert (warps, smem) == (min(table.shape[1], 16), 0)
     forced = launch_geometry(lc, n, m, ns, data, slot, HOPPER_SMEM_OPTIN, 132, "global")
     assert forced[2:] == (min(table.shape[1], 16), 0, "global")
+
+
+@pytest.mark.parametrize("n,m,ns,data,slot", [(33, 2017, 12, 4, 8), (33, 897, 33, 8, 8),
+                                              (82, 202, 82, 8, 8), (5, 101, 5, 4, 4)])
+def test_new_layout_bytes_are_the_kernels_carve_up(n, m, ns, data, slot):
+    """``smem_bytes``, ``split_bytes`` and ``workspace_bytes`` count what
+    gi_solve.cu lays out: P⁻¹, A's rows padded to 16 bytes (all of them, or
+    the split layout's leading ones) and the row norms, then a slice a warp,
+    which holds l and u in the resident layout only; the global workspace is
+    each block's row norms and a slice without l and u a lane.  At the
+    Hp=60 fleet's shape 16 warps leave room for 948 of 2,017 rows, and every
+    split block the wrapper plans stays within 232,448 bytes."""
+    lda = a16(data * n) // data
+    ctrl = lambda rows: a16(slot * n * n) + data * rows * lda + a16(data * m)
+    for warps in (1, 2, 16):
+        assert smem_bytes(n, m, ns, data, slot, warps) == ctrl(m) + warps * _hand_slice(
+            n, m, ns, data, slot, True)
+        for rows in (0, 5, m // 3):
+            assert split_bytes(n, m, ns, data, slot, warps, rows) == ctrl(rows) + warps * \
+                _hand_slice(n, m, ns, data, slot, False)
+        plan = split_plan(n, m, ns, data, slot, warps, HOPPER_SMEM_OPTIN)
+        if plan is not None:
+            assert plan[1] == split_bytes(n, m, ns, data, slot, warps, plan[0])
+            assert plan[1] <= HOPPER_SMEM_OPTIN - 256
+            assert plan[0] == m or split_bytes(n, m, ns, data, slot, warps,
+                                               plan[0] + 1) > HOPPER_SMEM_OPTIN - 256
+    assert workspace_bytes(n, m, ns, data, slot, 100, 7) == 7 * a16(data * m) + 100 * \
+        _hand_slice(n, m, ns, data, slot, False)
+    if (n, m) == (33, 2017):
+        assert _hand_slice(n, m, ns, data, slot, False) == 4928
+        assert split_plan(n, m, ns, data, slot, 16, HOPPER_SMEM_OPTIN)[0] == 948
+
+
+def test_plain_solve_ignores_the_layout():
+    """The plain version has no budget: every ``_layout`` the kernel takes,
+    with or without a resident-row count, gives the same solve on CPU
+    tensors; a name GI has no layout of is refused."""
+    rng = np.random.default_rng(53)
+    P, q, A, l, u = _stack([random_qp(rng, 5, 12) for _ in range(3)])
+    t = lambda a: torch.tensor(a)
+    c = dict(gic_Pinv=t(_caches(P)))
+    ref = solve_qp_active(t(P), t(q), t(A), t(l), t(u), cache=c, solve=gi_solve_reference)
+    for layout in ("resident", "split", ("split", 0), ("split", 4), "global"):
+        fn = partial(gi_solve, _layout=layout)
+        got = solve_qp_active(t(P), t(q), t(A), t(l), t(u), cache=c, solve=fn)
+        for a, b in zip(ref[:5], got[:5]):
+            assert torch.equal(a, b), layout
+    for bad in ("staged", ("resident", 2), ("split", -3)):
+        with pytest.raises(ValueError, match="_layout"):
+            solve_qp_active(t(P), t(q), t(A), t(l), t(u), cache=c,
+                            solve=partial(gi_solve, _layout=bad))

@@ -2,7 +2,8 @@
 
 Each QP here is one that neither Hopper kernel can hold in the shared
 memory of one block (232,448 bytes on an H100), so on the card both take
-their global layout; the reference, whose solvers are XLA loops, has no
+their staged (sweep) or split (GI) layout; the reference, whose solvers are
+XLA loops, has no
 such limit.  The same controllers and inputs, made from a seed with numpy,
 go through ``mpc_tpu`` in float64 (the suite's x64) and through
 ``mpc_tpu_torch`` on ``device="cpu"`` (the kernels' plain versions):
