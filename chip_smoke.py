@@ -84,7 +84,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    counted period; one period with the plain GI (x̂ to F32_TOL); then the
    1 %-NaN traffic (1 warm and 3 timed dispatches); the GI kernel against
    its plain version at shape (a) (n=44, m=104, 8 slots, one shared P⁻¹ and
-   A) and (b) (the NaN variant: per-lane P⁻¹ and A);
+   A) and (b) (the NaN variant: per-lane P⁻¹, the shared A through GI's A
+   map);
 28. bench.py's ``mhe_nonlin`` lane: the pendulum BatchedMHE (window GN-SQP,
    GI, EKF arrival covariance per lane), B=1024, float32, K=4: 11 fill
    steps, 1 warm and 3 timed windows of 2 dispatches, ≥ 0.99 converged, GN
@@ -162,7 +163,15 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases:
    in step) layout with a third of A's rows in shared memory, forced on
    the captured inputs of headline-GI, large-GI, headline-ADMM and 8x8/
    Hp=15 ADMM: the resident layout's bits (max |Δ| = 0 on x, λ, the
-   iterations and flags, and on x, z, y) and each layout's device time.
+   iterations and flags, and on x, z, y) and each layout's device time;
+38. THE PER-LANE LAUNCHES (every lane its own QP matrices, n_d = B: the
+   kernels' per-lane geometry, and GI's A map at the MHE NaN variant (b)),
+   on the inputs the phases above captured (SLMPC and NonLinMPC GI and
+   ADMM, the NonLinMPC A/B, (b), (c), the compiled-loop fleet, the README
+   controller): each against the same launch with the global layout
+   forced, which groups the lanes a lane a block as before and sums in the
+   same order (max |Δ| = 0), with its device time and lanes per SM; (b)
+   also against the call with A copied to every lane (the same bits).
 
 The line before the last is the card's name and power limit, and before it
 a JSON object of the kernels; the last line is
@@ -356,12 +365,15 @@ def admm_bound(torch, a, iters):
 
 
 def gi_distinct(torch, args):
-    """The distinct controllers the lanes read (P⁻¹ and A come through one
-    lane map) and the distinct A among them: the MHE fleet's NaN variant
-    gives every lane its own P⁻¹ and a copy of one shared A."""
+    """The distinct P⁻¹ the lanes read (through ``lane_ctrl``), the distinct
+    rows of A they read (through the A map where the call has one, else
+    through ``lane_ctrl``) and the distinct A among those rows: a lane map
+    that gives every lane a copy of one shared A reads that A many times."""
     Pinv, A, lc = args[:3]
-    n_c = int(torch.unique(lc).numel())
-    return n_c, (1 if A.shape[0] == 1 or bool((A == A[:1]).all()) else n_c)
+    amap = args[16] if len(args) > 16 else lc
+    n_p = int(torch.unique(lc).numel())
+    n_r = int(torch.unique(amap).numel())
+    return n_p, n_r, (1 if A.shape[0] == 1 or bool((A == A[:1]).all()) else n_r)
 
 
 def gi_bound(torch, args, it):
@@ -375,9 +387,9 @@ def gi_bound(torch, args, it):
     B, n = q.shape
     m, ns = l.shape[1], args[6].shape[1]
     sd, ss = A.element_size(), Pinv.element_size()
-    n_c, n_a = gi_distinct(torch, args)
+    n_p, _, n_a = gi_distinct(torch, args)
     state = 2 * ns * 4 + ns + ns * ns * ss
-    nbytes = (n_a * m * n * sd + n_c * n * n * ss
+    nbytes = (n_a * m * n * sd + n_p * n * n * ss
               + B * (n * sd + 2 * m * sd + state + 2 * ns * 4 + 8)
               + B * (state + (n + ns) * ss + 5))
     flops = int(it.sum()) * (2 * m * n + 8 * m + 4 * n * n + 4 * ns * n + 5 * ns * ns)
@@ -406,30 +418,36 @@ def gi_geometry(torch, args, layout=None):
     Pinv, A, lc, q, l = args[:5]
     return gi_kernel.launch_geometry(lc, q.shape[1], l.shape[1], args[6].shape[1],
                                      A.element_size(), Pinv.element_size(),
-                                     *card_geometry(torch), layout)
+                                     *card_geometry(torch), layout,
+                                     args[16] if len(args) > 16 else None)
 
 
 def admm_residency(torch, ops, _build, a, layout=None):
     """Lanes resident per SM for a sweep launch on these inputs (the
     runtime's occupancy calculator at the launch's geometry and layout)."""
     s = a["x"].element_size()
-    table, _, warps, grouped, smem, layout = admm_geometry(torch, a, layout)
+    table, block_ctrl, warps, grouped, smem, layout = admm_geometry(torch, a, layout)
+    own = block_ctrl is None
     blocks = _build.load_library().mpc_admm_blocks_per_sm(
-        int(s == 8), _build.LAYOUT_CODE[layout], int(grouped), table.shape[1], 32 * warps, smem)
+        int(s == 8), _build.LAYOUT_CODE[layout], int(grouped), table.shape[1], 32 * warps, smem,
+        int(own), a["x"].shape[1])
     return blocks * table.shape[1], dict(blocks_per_sm=blocks, lanes_per_block=table.shape[1],
                                          threads=32 * warps, grouped=grouped,
-                                         smem_bytes=smem, layout=layout)
+                                         smem_bytes=smem, layout=layout, per_lane=own)
 
 
 def gi_residency(torch, _build, args, layout=None):
     Pinv, A = args[:2]
-    table, _, warps, smem, layout = gi_geometry(torch, args, layout)
+    table, block_ctrl, warps, smem, layout = gi_geometry(torch, args, layout)
+    own = block_ctrl is None
     variant = {(4, 8): 0, (4, 4): 1, (8, 8): 2}[(A.element_size(), Pinv.element_size())]
+    mode = 2 if own else int(len(args) > 16 and layout == "resident")
     blocks = _build.load_library().mpc_gi_blocks_per_sm(variant, _build.LAYOUT_CODE[layout],
-                                                        warps, smem)
+                                                        warps, smem, mode)
     return blocks * warps, dict(blocks_per_sm=blocks, warps=warps,
                                 lanes_per_block=table.shape[1], smem_bytes=smem,
-                                layout=layout)
+                                layout=layout, per_lane=own,
+                                a_map=len(args) > 16)
 
 
 class _Captured(Exception):
@@ -947,13 +965,13 @@ def gi_vs_plain(torch, ops, name, args, f64):
           f"roofline share {b_ms / ms_d:.4f}", flush=True)
     out = dict(err=err, ms=ms_d, event_ms=ms_e, call_ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                bound_by=b_by, entering=entering, B=B, args=args)
-    n_c, n_a = gi_distinct(torch, args)
-    if n_a < n_c:
+    _, n_r, n_a = gi_distinct(torch, args)
+    if n_a < n_r:
         # the copies of one A that the lane map makes the kernel read: not
         # work the function needs, so not in the bound
-        dup = (n_c - n_a) * m * n * args[1].element_size()
+        dup = (n_r - n_a) * m * n * args[1].element_size()
         out.update(copied_A_bytes=dup, copied_A_ms=dup / HBM_BPS * 1e3)
-        print(f"GI {name}: {n_c} lanes read {n_c - n_a} copies of one A, {dup / 1e6:.2f} MB, "
+        print(f"GI {name}: {n_r} lanes read {n_r - n_a} copies of one A, {dup / 1e6:.2f} MB, "
               f"{out['copied_A_ms']:.4f} ms at the memory rate (outside the bound)", flush=True)
     return out
 
@@ -2164,7 +2182,8 @@ def mhe_phase(torch, mt, ops, _build, dev, B=4096, He=10, K=MHE_K):
     (one dropout period a dispatch on 1 % of the lanes): 1 warm and 3 timed
     dispatches.  The GI kernel against its plain version on a solve of the
     warm dispatch (shape (a): n = 44, m = 104, 8 slots, one shared P⁻¹ and
-    A) and of the NaN warm dispatch (shape (b): per-lane P⁻¹ and A), and at
+    A) and of the NaN warm dispatch (shape (b): per-lane P⁻¹, the shared A
+    through the A map), and at
     shape (a) on a solve with warm rows on half the lanes (the same fleet
     with x̂ within ±0.5, where bounds bind).  Fails
     below 0.99 of the lanes converged or without a GI launch a period."""
@@ -2347,6 +2366,98 @@ def mhe_nonlin_phase(torch, mt, ops, _build, dev, B=1024, He=10, K=MHE_NL_K):
                period_ms=med * 1e3, solves_per_s=B / med, prof=prof, converged=n_ok / B,
                gn_iters=[it_max, it_mean])
     return launches["gi_solve"], chk
+
+
+def per_lane_inputs(torch, mt, ops, dev, B=4096):
+    """The inputs of the per-lane launches (every lane its own QP
+    matrices), captured as the phases above capture them, for
+    ``profile_per_lane.py`` and ``profile_kernels.py``: ``{name: (kernel,
+    args)}``.  The nonlin lane's sweep (B=4096, n=2, m=72, f32; the first
+    of 4 ADMM periods from rest with warm duals and the mask mixed) and GI
+    solve (n=2, m=72; the first with warm rows on half the lanes), the
+    mhe_nonlin lane's GI solve (shape (c), B=1024, n=33, m=146), the mhe
+    lane's NaN variant (shape (b), B=4096, n=44, m=104, per-lane P⁻¹ and
+    the shared A), the SLMPC fleet's GI solve and sweep (n=3, m=65, as
+    ``slmpc_phase`` takes them) and the GI solve of a
+    ``CompiledClosedLoopFleet`` of 128 controllers (n_d = B, float64, the
+    first call with carried slots); ``B`` cuts the batches (a quarter of it
+    at (c), 128 lanes for the compiled fleet)."""
+    out = {}
+    for qp_solver, kernel, want in (("admm", ops.admm_sweep, sweep_warm_mixed),
+                                    ("active_set", ops.gi_solve, gi_warm_half)):
+        ctrl = nonlin_ctrl(torch, mt, dev, qp_solver=qp_solver)
+        fleet = NonLinFleet(torch, ctrl, B, torch.float32)
+        loop = PendulumLoop(torch, ctrl.estim.model, B, dev, torch.float32)
+        rec = Recorder(kernel, want)
+        setattr(fleet, "sweep" if qp_solver == "admm" else "gi", rec)
+        for k in range(4 if qp_solver == "admm" else 2 * SL_K):
+            u, _ = fleet.step(*loop.measure(k))
+            loop.advance(u)
+            if rec.args is not None:
+                break
+        check(rec.args is not None, f"per-lane inputs: no NonLinMPC {qp_solver} call taken")
+        name = "sweep NonLinMPC n=2 m=72" if qp_solver == "admm" else "gi nonlin n=2 m=72"
+        out[name] = ("sweep" if qp_solver == "admm" else "gi", rec.args)
+        del fleet
+    kw = dict(sigmaQ=[0.1, 1.0], sigmaR=[5.0], nint_ym=[1], sigmaQint_ym=[0.1], device=dev)
+    pend = pendulum(torch, mt, dev)
+    t = mt.MovingHorizonEstimator(pend, He=10, covestim=mt.ExtendedKalmanFilter(pend, **kw),
+                                  qp_solver="active_set", **kw)
+    t.setconstraint(xhatmin=[-2 * np.pi, -50.0, -50.0], xhatmax=[2 * np.pi, 50.0, 50.0])
+    from mpc_tpu_torch.parallel import BatchedMHE
+    fleet = BatchedMHE(t, B // 4, dtype=torch.float32)
+    ys, us = pendulum_trajectories(B // 4, 11 + MHE_NL_K)
+    for k in range(11):
+        fleet.step(ys[k], u_prev=(us[k - 1] if k else None))
+    rec = Recorder(ops.gi_solve, gi_warm_half)
+    fleet.gi = rec
+    fleet.multistep(np.stack(ys[11:11 + MHE_NL_K]), np.stack(us[10:10 + MHE_NL_K]))
+    out["gi (c) mhe_nonlin n=33 m=146"] = ("gi", rec.args or rec.first)
+    del fleet
+    fleet, m = mhe_fleet(torch, mt, dev, B, 10, dtype=torch.float32, gi_max_active=8)
+    ys, us, rng = mhe_trajectories(m, B, 11 + MHE_K)
+    for k in range(11):
+        fleet.step(ys[k], u_prev=(us[k - 1] if k else None))
+    rec = Recorder(ops.gi_solve, lambda a: a[0].shape[0] > 1)
+    fleet.gi = rec
+    Y = np.stack(ys[11:11 + MHE_K]).copy()
+    Y[0, rng.choice(B, max(1, B // 100), replace=False), 0] = np.nan
+    fleet.multistep(Y, np.stack(us[10:10 + MHE_K]))
+    check(rec.args is not None, "per-lane inputs: no NaN-variant GI solve taken")
+    out["gi (b) mhe NaN n=44 m=104"] = ("gi", rec.args)
+    del fleet
+    ctrl = slmpc(torch, mt, dev, dtype=torch.float32)
+    fleet = SLMPCFleet(torch, ctrl, B)
+    loop = PendulumLoop(torch, ctrl.model, B, dev, torch.float32)
+    for k in range(2 * SL_K):
+        args = capture_gi(fleet, *loop.measure(k)) if k >= SL_K else None
+        if args is not None and int((args[12] > 0).sum()) >= B // 2:
+            out["gi SLMPC n=3 m=65"] = ("gi", args)
+            break
+        u, _ = fleet.step(*loop.measure(k))
+        loop.advance(u)
+    check("gi SLMPC n=3 m=65" in out, "per-lane inputs: no SLMPC GI solve with warm rows")
+    actrl = slmpc(torch, mt, dev, qp_solver="admm", dtype=torch.float32)
+    fleet = SLMPCFleet(torch, actrl, B)
+    loop = PendulumLoop(torch, actrl.model, B, dev, torch.float32)
+    for k in range(4):
+        aargs = capture_sweep(fleet, *loop.measure(k))
+        if aargs is not None:
+            out["sweep SLMPC n=3 m=65"] = ("sweep", aargs)
+            break
+        u, _ = fleet.step(*loop.measure(k))
+        loop.advance(u)
+    check("sweep SLMPC n=3 m=65" in out, "per-lane inputs: no SLMPC sweep taken")
+    del fleet
+    from mpc_tpu_torch import sim_compiled as sc
+    from mpc_tpu_torch.parallel import random_cstr_controllers
+    cfleet = sc.CompiledClosedLoopFleet(random_cstr_controllers(
+        min(B, 128), Hp=10, Hc=2, seed=0, qp_solver="active_set", device=dev))
+    rec = Recorder(cfleet.gi, gi_warm_slots)
+    cfleet.gi = rec
+    cfleet.run(12, ry=[5.0, 1.0], y_noise=[0.1, 0.1], seed=0)
+    out["gi CompiledClosedLoopFleet n_d=B=128 f64"] = ("gi", rec.args or rec.first)
+    return out
 
 
 def small_mhe_checks(torch, mt, ops, _build, dev, B=8, He=4, periods=10):
@@ -3353,6 +3464,51 @@ def versus_global(torch, ops, _build, name, kernel, chk):
                 copy_ms=copy_ms)
 
 
+def per_lane_phase(torch, ops, _build, cases):
+    """The per-lane launches (every lane its own QP matrices: the kernels'
+    per-lane geometry, and GI's A map at the MHE NaN variant (b)) on the
+    inputs the phases above captured, each against the same launch with the
+    global layout forced, which groups the lanes as before (a lane a block)
+    and sums in the same order: max |Δ| = 0 over every output, with the
+    global layout's device time and lanes per SM.  With an A map, also
+    against the call without it, A copied to every lane (the fleet's call
+    before the map): the same bits, and that call's device time."""
+    out = {}
+    for name, (kernel, chk) in cases.items():
+        gi = kernel == "gi_solve"
+        args = chk["args"]
+        geo = gi_geometry(torch, args) if gi else admm_geometry(torch, args)
+        a_map = gi and len(args) > 16
+        if geo[1] is not None and not a_map:
+            continue
+        runs = kernel_runs(torch, ops, kernel, chk, (None, "global"))
+        rec = dict(global_max_diff=max_diff(runs["None"], runs["global"]),
+                   global_ms=layout_ms(torch, ops, kernel, chk, "global"),
+                   global_lanes_per_sm=(gi_residency(torch, _build, args, "global") if gi else
+                                        admm_residency(torch, ops, _build, args, "global"))[0])
+        if a_map:
+            a = list(args)
+            a[1] = a[1].index_select(0, a.pop(16)).contiguous()
+            copied = {"args": a}
+            rec["copied_A_max_diff"] = max_diff(
+                runs["None"], kernel_runs(torch, ops, kernel, copied, (None,))["None"])
+            rec["copied_A_call_ms"] = layout_ms(torch, ops, kernel, copied, None)
+        print(f"per-lane {name}: {chk['ms']:.4f} ms ({'per-lane geometry' if geo[1] is None else 'A map'}"
+              f", {chk.get('lanes_per_sm')} lanes per SM) against the global layout "
+              f"{rec['global_ms']:.4f} ms ({rec['global_lanes_per_sm']} lanes per SM), max |Δ| "
+              f"{rec['global_max_diff']}" + (f"; against A copied to every lane "
+                                             f"{rec['copied_A_call_ms']:.4f} ms, max |Δ| "
+                                             f"{rec['copied_A_max_diff']}" if a_map else ""),
+              flush=True)
+        check(rec["global_max_diff"] == 0.0,
+              f"per-lane {name}: the per-lane launch differs from the global layout")
+        check(rec.get("copied_A_max_diff", 0.0) == 0.0,
+              f"per-lane {name}: the A map differs from A copied to every lane")
+        chk.update(rec)
+        out[name] = rec
+    return out
+
+
 class Counted(Timed):
     """``Timed`` that also records the QP iterations of every period."""
 
@@ -3856,6 +4012,17 @@ def main():
           f"median {mhe_big['preparestate_ms']:.3f} ms; layouts {json.dumps(equiv)}",
           flush=True)
 
+    # --- the per-lane launches against the geometry they replace -----------
+    t_p = time.perf_counter()
+    per_lane = per_lane_phase(torch, ops, _build, {
+        "SLMPC GI": ("gi_solve", sl_gi), "SLMPC ADMM": ("admm_sweep", sl_admm),
+        "NonLinMPC GI": ("gi_solve", nl_gi), "NonLinMPC ADMM": ("admm_sweep", nl_admm),
+        "NonLinMPC A/B GI": ("gi_solve", nl_ab), "MHE GI NaN (b)": ("gi_solve", mhe_gi["b"]),
+        "MHE nonlin GI (c)": ("gi_solve", mhe_nl), "fleet GI": ("gi_solve", hetero["active_set"]),
+        "README GI": ("gi_solve", readme["active_set"])})
+    print(f"per-lane launches: {time.perf_counter() - t_p:.1f} s; {json.dumps(per_lane)}",
+          flush=True)
+
     # --- the kernels line: times, bounds and residency at every shape ------
     head, hgi, lgi = checks["headline"], gi_checks["headline-GI"], gi_checks["large-GI"]
     res = {"admm headline": admm_residency(torch, ops, _build, head["args"]),
@@ -3922,6 +4089,7 @@ def main():
                 "resident_lanes_per_sm": lanes, "event_ms": c["event_ms"],
                 **{k: c[k] for k in ("copied_A_bytes", "copied_A_ms", "rows", "copy_ms",
                                      "global_ms", "global_max_diff", "global_lanes_per_sm",
+                                     "copied_A_call_ms", "copied_A_max_diff",
                                      "conv_share", "period_ms") if k in c}}
 
     admm_shapes = [
@@ -3967,7 +4135,7 @@ def main():
         shape("MHE fast path B=4096 n=44 m=104 8 slots f32/f64, shared P⁻¹ and A (mhe lane)",
               mhe_gi["a"], mhe_gi["a"]["launches"], mhe_gi["a"]["per_period"],
               mhe_gi["a"]["lanes_per_sm"]),
-        shape("MHE NaN variant B=4096 n=44 m=104 8 slots f32/f64, per-lane P⁻¹ and A "
+        shape("MHE NaN variant B=4096 n=44 m=104 8 slots f32/f64, per-lane P⁻¹, shared A "
               "(mhe lane, 1 % NaN)", mhe_gi["b"], mhe_gi["b"]["launches"],
               mhe_gi["b"]["per_period"], mhe_gi["b"]["lanes_per_sm"]),
         shape("MHE fast path at x̂ within ±0.5, B=4096 n=44 m=104 8 slots f32/f64, warm "

@@ -29,7 +29,7 @@ from ..models import NonLinModel
 from ..ops.qp import solve_qp
 from ..ops.qp_active import solve_qp_active
 from ..utils.config import BIG, as_device, resolve_device
-from ..utils.lanes import mtv, mv
+from ..utils.lanes import identity_lanes, mtv, mv
 from .base import PredictiveController
 from .construct import ControllerWeights
 from .linmpc import _clipinf
@@ -375,7 +375,7 @@ class SLMPC(PredictiveController):
         chunk = min(int(chunk), int(B))
         if B % chunk:
             raise ValueError(f"B ({B}) must be a multiple of chunk ({chunk})")
-        lane_ctrl = torch.arange(B, dtype=torch.int32, device=self.device)
+        lane_ctrl = identity_lanes(B, self.device)
         step = self._step
 
         def fleet_step(st, ym, ry, d, bounds):

@@ -41,6 +41,21 @@
 //   against the kernel's 1e-4·(1 + max|plain|) bar, and the f64 path (DMMA,
 //   mma.sync m8n8k4) is left for later work.
 //
+// A per-lane geometry (admm_warp_kernel's OWN, resident layout) takes a
+// batch where every lane is its own controller (n_d = B: the SLMPC and
+// NonLinMPC fleets' ADMM, n ≤ 3), which the grouping above would run a lane
+// a block: up to 16 lanes share a block, one a warp, each warp copying its
+// lane's A into its own area in the same asynchronous group as the lane's
+// l, u, ρ, z, y and Minv (16-byte pieces where the ends allow), with one
+// wait and no block barrier.  The Aᵀv partials are stored column by column
+// so that thread j reads its column's ⌊32/n⌋ partials ahead of their sum,
+// which keeps its order.  At n = 2 and n = 3 (the pendulum fleets) n is a
+// compile-time constant (template parameter NC): the column loops unroll, x̃
+// sits in registers for A·x̃, and each thread updates its rows i and i + 32
+// together while both exist (both rows' loads ahead of both rows' stores).  A row's
+// arithmetic is the same in the same order: the same bits as the
+// lane-a-block grouping.
+//
 // A second layout, "global", takes QPs whose block would not fit the SM's
 // shared memory at all (the last resort of ops/admm_kernel.py::
 // launch_geometry).  It is the same two kernels (LAYOUT == kGlobal): A, l, u
@@ -92,6 +107,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Profiling cuts: profile_per_lane.py builds copies with -DMPC_CUT=k to see
+// where a per-lane launch's time goes (their results are wrong).  0, the
+// default, cuts nothing; 1 returns at the kernel's start, 2 after the loads,
+// 4 runs one sweep instead of `iters`.
+#ifndef MPC_CUT
+#define MPC_CUT 0
+#endif
+
 namespace {
 
 constexpr int kMaxWarps = 16;   // ops/_build.py::MAX_WARPS
@@ -128,12 +151,37 @@ __device__ __forceinline__ void copy_in(T* dst, const T* src, int count, int t, 
 
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
 
+// `bytes` (a multiple of 4) from `src` to `dst` in shared memory, as
+// asynchronous copies of 16 bytes where both ends and the size allow it,
+// else 8, else 4
+__device__ __forceinline__ void copy_bytes_async(void* dst, const void* src, size_t bytes,
+                                                 int t, int nt) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) | bytes;
+  char* d = static_cast<char*>(dst);
+  const char* g = static_cast<const char*>(src);
+  if ((a & 15) == 0) {
+    for (size_t e = (size_t)t * 16; e < bytes; e += (size_t)nt * 16)
+      __pipeline_memcpy_async(d + e, g + e, 16);
+  } else if ((a & 7) == 0) {
+    for (size_t e = (size_t)t * 8; e < bytes; e += (size_t)nt * 8)
+      __pipeline_memcpy_async(d + e, g + e, 8);
+  } else {
+    for (size_t e = (size_t)t * 4; e < bytes; e += (size_t)nt * 4)
+      __pipeline_memcpy_async(d + e, g + e, 4);
+  }
+}
+
 // shared memory, in the order of ops/admm_kernel.py::smem_bytes; the global
 // layout's workspace holds each block's part after A without l, u and ρ
-// (workspace_bytes)
+// (workspace_bytes); a per-lane block (own_bytes) is one area a warp, its
+// lane's A and then its slice
 template <typename T>
 __host__ __device__ size_t warp_slice(int n, int m, bool global) {
   return align16(sizeof(T) * ((global ? 2 : 5) * (size_t)m + n * n + 2 * n + (32 / n) * n));
+}
+template <typename T>
+__host__ __device__ size_t own_area(int n, int m) {
+  return align16(sizeof(T) * (size_t)m * n) + warp_slice<T>(n, m, false);
 }
 template <typename T>
 __host__ __device__ size_t group_lane(int n, int m, bool global) {
@@ -190,7 +238,13 @@ __device__ __forceinline__ T row_step(T ax, T alpha, T one_m_alpha, T lo, T hi, 
 }
 
 // ---- one warp per lane (n ≤ 32) ------------------------------------------------
-template <typename T, int LAYOUT>
+// OWN (resident only): the per-lane geometry, where every lane is its own
+// controller: `block_ctrl` is then each LANE's controller, each warp copies
+// its lane's A into its own area in the same asynchronous group as the
+// lane's other loads and waits once, with no block barrier; the Aᵀv partial
+// sums lie column by column, so that a column's ⌊32/n⌋ partials are read
+// together and summed in the same order (the same bits).
+template <typename T, int LAYOUT, bool OWN, int NC = 0>
 __global__ void __launch_bounds__(32 * kMaxWarps, kWarpMinBlocks)
 admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                  const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
@@ -199,19 +253,32 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                  T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
                  const uint8_t* __restrict__ active, unsigned char* ws, int n, int m, int n_lad,
                  int iters, T sigma, T alpha) {
+  if (MPC_CUT == 1) return;
+  if (MPC_CUT == 4) iters = 1;
+  if constexpr (NC > 0) n = NC;        // the launch checked n == NC
   constexpr bool GLOBAL = LAYOUT == kGlobal;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int c = block_ctrl[blockIdx.x];
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t slice = warp_slice<T>(n, m, GLOBAL);
   const T* sA;                                                  // m*n
   unsigned char* wsm;
-  if constexpr (GLOBAL) {
+  int c;
+  if constexpr (OWN) {
+    const int b0 = warp < width ? table[(size_t)blockIdx.x * width + warp] : -1;
+    if (b0 < 0 || !active[b0]) return;
+    c = block_ctrl[b0];
+    T* A_w = reinterpret_cast<T*>(smem_raw + (size_t)warp * own_area<T>(n, m));
+    copy_bytes_async(A_w, A + (size_t)c * m * n, sizeof(T) * (size_t)m * n, lane, 32);
+    sA = A_w;
+    wsm = reinterpret_cast<unsigned char*>(A_w) + align16(sizeof(T) * (size_t)m * n);
+  } else if constexpr (GLOBAL) {
+    c = block_ctrl[blockIdx.x];
     sA = A + (size_t)c * m * n;
     wsm = ws + ((size_t)blockIdx.x * (blockDim.x >> 5) + warp) * slice;
   } else {
+    c = block_ctrl[blockIdx.x];
     T* A_s = reinterpret_cast<T*>(smem_raw);
     copy_async(A_s, A + (size_t)c * m * n, m * n, tid, blockDim.x);
     __pipeline_commit();
@@ -236,14 +303,23 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
   T* srhs = sM + n * n;
   T* sxt = srhs + n;
   T* spart = sxt + n;
-  if constexpr (!GLOBAL) {
-    copy_async(w0, l + bm, m, lane, 32);
-    copy_async(w0 + m, u + bm, m, lane, 32);
-    copy_async(w0 + 2 * m, rhovs + rg * m, m, lane, 32);
+  if constexpr (OWN) {
+    copy_bytes_async(w0, l + bm, sizeof(T) * m, lane, 32);
+    copy_bytes_async(w0 + m, u + bm, sizeof(T) * m, lane, 32);
+    copy_bytes_async(w0 + 2 * m, rhovs + rg * m, sizeof(T) * m, lane, 32);
+    copy_bytes_async(sz, z + bm, sizeof(T) * m, lane, 32);
+    copy_bytes_async(sy, y + bm, sizeof(T) * m, lane, 32);
+    copy_bytes_async(sM, Minvs + rg * n * n, sizeof(T) * n * n, lane, 32);
+  } else {
+    if constexpr (!GLOBAL) {
+      copy_async(w0, l + bm, m, lane, 32);
+      copy_async(w0 + m, u + bm, m, lane, 32);
+      copy_async(w0 + 2 * m, rhovs + rg * m, m, lane, 32);
+    }
+    copy_in<GLOBAL>(sz, z + bm, m, lane, 32);
+    copy_in<GLOBAL>(sy, y + bm, m, lane, 32);
+    copy_in<GLOBAL>(sM, Minvs + rg * n * n, n * n, lane, 32);
   }
-  copy_in<GLOBAL>(sz, z + bm, m, lane, 32);
-  copy_in<GLOBAL>(sy, y + bm, m, lane, 32);
-  copy_in<GLOBAL>(sM, Minvs + rg * n * n, n * n, lane, 32);
   __pipeline_commit();
   T xj = T(0), qj = T(0);
   if (lane < n) {
@@ -252,6 +328,7 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
   }
   __pipeline_wait_prior(0);
   __syncwarp();
+  if (MPC_CUT == 2) return;
 
   const int parts = 32 / n;            // row classes of the Aᵀv split
   const int pj = lane % n, pp = lane / n;
@@ -263,12 +340,20 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
 #pragma unroll 4
       for (int i = pp; i < m; i += parts)
         acc += sA[(size_t)i * n + pj] * (srho[i] * sz[i] - sy[i]);
-      spart[pp * n + pj] = acc;
+      spart[OWN ? pj * parts + pp : pp * n + pj] = acc;
     }
     __syncwarp();
     if (lane < n) {
       T s = T(0);
-      for (int p = 0; p < parts; ++p) s += spart[p * n + lane];
+      if constexpr (OWN) {
+        // the column's partials read ahead of the sum, summed in p order
+        const T* sp = spart + lane * parts;
+#pragma unroll
+        for (int p = 0; p < 32; ++p)
+          if (p < parts) s += sp[p];
+      } else {
+        for (int p = 0; p < parts; ++p) s += spart[p * n + lane];
+      }
       srhs[lane] = sigma * xj - qj + s;
     }
     __syncwarp();
@@ -279,15 +364,53 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
       xj = alpha * s + one_m_alpha * xj;
     }
     __syncwarp();
-    for (int i = lane; i < m; i += 32) {
-      T zt = T(0);
+    if constexpr (NC > 0) {
+      // this thread's rows i0 and i0 + 32 in one pass while both exist
+      // (both rows' loads ahead of their stores), then a last row alone
+      T xt[NC];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) xt[j] = sxt[j];
+      int i0 = lane;
+      for (; i0 + 32 < m; i0 += 64) {
+        const int i1 = i0 + 32;
+        T zt0 = T(0), zt1 = T(0);
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          zt0 += sA[i0 * NC + j] * xt[j];
+          zt1 += sA[i1 * NC + j] * xt[j];
+        }
+        const T z0 = sz[i0], y0 = sy[i0], r0 = srho[i0], lo0 = sl[i0], hi0 = su[i0];
+        const T z1 = sz[i1], y1 = sy[i1], r1 = srho[i1], lo1 = sl[i1], hi1 = su[i1];
+        const T zp0 = alpha * zt0 + one_m_alpha * z0;
+        const T zp1 = alpha * zt1 + one_m_alpha * z1;
+        const T zn0 = clip(zp0 + y0 / r0, lo0, hi0);
+        const T zn1 = clip(zp1 + y1 / r1, lo1, hi1);
+        sy[i0] = y0 + r0 * (zp0 - zn0);
+        sz[i0] = zn0;
+        sy[i1] = y1 + r1 * (zp1 - zn1);
+        sz[i1] = zn1;
+      }
+      if (i0 < m) {
+        T zt = T(0);
+#pragma unroll
+        for (int j = 0; j < NC; ++j) zt += sA[i0 * NC + j] * xt[j];
+        const T zp = alpha * zt + one_m_alpha * sz[i0];
+        const T zn = clip(zp + sy[i0] / srho[i0], sl[i0], su[i0]);
+        const T yn = sy[i0] + srho[i0] * (zp - zn);
+        sy[i0] = yn;
+        sz[i0] = zn;
+      }
+    } else {
+      for (int i = lane; i < m; i += 32) {
+        T zt = T(0);
 #pragma unroll 4
-      for (int j = 0; j < n; ++j) zt += sA[(size_t)i * n + j] * sxt[j];
-      const T zp = alpha * zt + one_m_alpha * sz[i];
-      const T zn = clip(zp + sy[i] / srho[i], sl[i], su[i]);
-      const T yn = sy[i] + srho[i] * (zp - zn);
-      sy[i] = yn;
-      sz[i] = zn;
+        for (int j = 0; j < n; ++j) zt += sA[(size_t)i * n + j] * sxt[j];
+        const T zp = alpha * zt + one_m_alpha * sz[i];
+        const T zn = clip(zp + sy[i] / srho[i], sl[i], su[i]);
+        const T yn = sy[i] + srho[i] * (zp - zn);
+        sy[i] = yn;
+        sz[i] = zn;
+      }
     }
     __syncwarp();
   }
@@ -699,9 +822,16 @@ admm_staged_kernel(const T* __restrict__ Minvs, const T* __restrict__ Ap,
   }
 }
 
-// the instantiation a launch of this variant, table width and layout takes
+// the instantiation a launch of this variant, table width, layout and
+// geometry (`own`: per-lane blocks) takes
 template <typename T>
-const void* kernel_for(int grouped, int width, int layout) {
+const void* kernel_for(int grouped, int width, int layout, int own, int n) {
+  if (own) {
+    if (grouped || layout != kResident) return nullptr;
+    return n == 2   ? (const void*)admm_warp_kernel<T, kResident, true, 2>
+           : n == 3 ? (const void*)admm_warp_kernel<T, kResident, true, 3>
+                    : (const void*)admm_warp_kernel<T, kResident, true>;
+  }
   if (layout == kStaged) {
     if (!grouped) return nullptr;
     if (width <= 1) return (const void*)admm_staged_kernel<T, 1>;
@@ -709,8 +839,8 @@ const void* kernel_for(int grouped, int width, int layout) {
     return (const void*)admm_staged_kernel<T, kStagedGroup>;
   }
   const bool global = layout == kGlobal;
-  if (!grouped) return global ? (const void*)admm_warp_kernel<T, kGlobal>
-                              : (const void*)admm_warp_kernel<T, kResident>;
+  if (!grouped) return global ? (const void*)admm_warp_kernel<T, kGlobal, false>
+                              : (const void*)admm_warp_kernel<T, kResident, false>;
   if (width <= 1) return global ? (const void*)admm_group_kernel<T, 1, kGlobal>
                                 : (const void*)admm_group_kernel<T, 1, kResident>;
   return global ? (const void*)admm_group_kernel<T, 2, kGlobal>
@@ -721,13 +851,14 @@ template <typename T>
 int launch(const void* Minvs, const void* A, const void* table, const void* block_ctrl,
            const void* rung, const void* q, const void* l, const void* u, const void* rhovs,
            void* x, void* z, void* y, const void* active, void* ws, int n_blocks, int width,
-           int warps, int grouped, int n, int m, int n_lad, int iters, int smem_bytes,
+           int warps, int grouped, int own, int n, int m, int n_lad, int iters, int smem_bytes,
            int layout, int rows, int tile, int stages, double sigma, double alpha,
            void* stream) {
   if (n_blocks <= 0 || iters <= 0) return 0;
   if (n < 1 || m < 1 || n_lad < 1 || width < 1) return (int)cudaErrorInvalidValue;
   if (!grouped && n > 32) return (int)cudaErrorInvalidValue;
   if (layout < kResident || layout > kStaged) return (int)cudaErrorInvalidValue;
+  if (own && (grouped || layout != kResident || width != warps)) return (int)cudaErrorInvalidValue;
   const bool by_warp = !grouped;
   size_t need;
   int threads;
@@ -742,7 +873,8 @@ int launch(const void* Minvs, const void* A, const void* table, const void* bloc
     threads = kGroupThreads;
   } else if (by_warp) {
     if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
-    need = align16(sizeof(T) * (size_t)m * n) + warps * warp_slice<T>(n, m, false);
+    need = own ? warps * own_area<T>(n, m)
+               : align16(sizeof(T) * (size_t)m * n) + warps * warp_slice<T>(n, m, false);
     threads = 32 * warps;
   } else {
     if (width > kGroup) return (int)cudaErrorInvalidValue;
@@ -753,7 +885,7 @@ int launch(const void* Minvs, const void* A, const void* table, const void* bloc
   if (layout == kGlobal) need = 0;
   if ((size_t)smem_bytes != need || (layout == kGlobal && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for<T>(grouped, width, layout);
+  const void* fn = kernel_for<T>(grouped, width, layout, own, n);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -799,25 +931,26 @@ int launch(const void* Minvs, const void* A, const void* table, const void* bloc
                       const void* block_ctrl, const void* rung, const void* q, const void* l, \
                       const void* u, const void* rhovs, void* x, void* z, void* y,            \
                       const void* active, void* ws, int n_blocks, int width, int warps,       \
-                      int grouped, int n, int m, int n_lad, int iters, int smem_bytes,        \
-                      int layout, int rows, int tile, int stages, double sigma, double alpha, \
-                      void* stream) {                                                         \
+                      int grouped, int own, int n, int m, int n_lad, int iters,               \
+                      int smem_bytes, int layout, int rows, int tile, int stages,             \
+                      double sigma, double alpha, void* stream) {                             \
     return launch<T>(Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y, active, ws,  \
-                     n_blocks, width, warps, grouped, n, m, n_lad, iters, smem_bytes, layout, \
-                     rows, tile, stages, sigma, alpha, stream);                               \
+                     n_blocks, width, warps, grouped, own, n, m, n_lad, iters, smem_bytes,    \
+                     layout, rows, tile, stages, sigma, alpha, stream);                       \
   }
 
 MPC_ADMM_ENTRY(mpc_admm_sweep_f32, float)
 MPC_ADMM_ENTRY(mpc_admm_sweep_f64, double)
 
 // Blocks of `threads` threads and `smem_bytes` of shared memory resident on
-// one SM (the runtime's occupancy calculator) for a variant, a table `width`
-// and a layout (0: resident, 1: global, 2: staged): one warp a lane, or
-// (`grouped`) the lanes in step.  Returns −1 on an error.
+// one SM (the runtime's occupancy calculator) for a variant, a table `width`,
+// a layout (0: resident, 1: global, 2: staged) and a geometry: one warp a
+// lane, or (`grouped`) the lanes in step; `own` the per-lane blocks (at n
+// variables).  Returns −1 on an error.
 extern "C" int mpc_admm_blocks_per_sm(int f64, int layout, int grouped, int width, int threads,
-                                      int smem_bytes) {
-  const void* fn = f64 ? kernel_for<double>(grouped, width, layout)
-                       : kernel_for<float>(grouped, width, layout);
+                                      int smem_bytes, int own, int n) {
+  const void* fn = f64 ? kernel_for<double>(grouped, width, layout, own, n)
+                       : kernel_for<float>(grouped, width, layout, own, n);
   if (fn == nullptr) return -1;
   // as a launch does: raise the kernel's shared-memory limit above the default
   // 48 KB only (a lower setting would refuse a later, larger launch)

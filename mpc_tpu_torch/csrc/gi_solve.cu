@@ -46,6 +46,20 @@
 // warp load 128 contiguous bytes at each column; pivot rows come from A
 // where it lies.  l and u are read in place.
 //
+// A per-lane geometry (template parameter OWN, resident layout) takes a
+// batch where every lane is its own controller (n_d = B: SLMPC, NonLinMPC,
+// the MHE fleets' per-lane windows), which the grouping above would run a
+// lane a block, each block waiting on its own serial loads (A and P⁻¹,
+// a block barrier, the row norms, another barrier, then the lane's state).
+// There, up to 16 lanes share a block, one a warp, and each warp copies its
+// lane's P⁻¹ and A (into its own area, A's rows padded to 16 bytes, in 16-
+// or 8-byte pieces where the rows allow) in the same asynchronous group as
+// the lane's l, u and Ginv, waits once, and computes the lane's row norms
+// itself; no block barrier follows the lane counter's set-up.  A second lane
+// map, `pmap`, serves lanes that share A but not P⁻¹ (the MHE fleet's NaN
+// variant): the blocks group the lanes by A's controller and each warp copies
+// its lane's P⁻¹ into its slice (resident) or reads it where it lies.
+//
 // Each row's aᵢ·x is one thread's sum in j order in every layout, and the
 // scan's argmax order (NaN first, then larger, ties to the lower row) is
 // total, so any split of the rows between threads and storage picks the
@@ -88,11 +102,24 @@
 #include <math.h>
 #include <stdint.h>
 
+// Profiling cuts: profile_per_lane.py builds copies with -DMPC_CUT=k to see
+// where a per-lane launch's time goes (their results are wrong).  0, the
+// default, cuts nothing; 1 returns at the kernel's start, 2 returns after
+// the loads without the row norms, 3 after the loads and the row norms, 4
+// runs one pivot (warm or main) a lane.
+#ifndef MPC_CUT
+#define MPC_CUT 0
+#endif
+
 namespace {
 
 constexpr int kMaxWarps = 16;     // ops/_build.py::MAX_WARPS
 // layouts, as ops/_build.py::LAYOUT_CODE numbers them
 constexpr int kResident = 0, kGlobal = 1, kSplit = 2;
+// geometries of the resident layout: the lanes of a controller a block (P⁻¹
+// and A once a block), the same with P⁻¹ a lane in its warp's slice (an A
+// map), and per-lane blocks (every lane its own P⁻¹ and A in its warp's area)
+constexpr int kShared = 0, kLaneP = 1, kOwn = 2;
 constexpr int kSmemPerSM = 228 * 1024;   // shared memory of one SM
 constexpr int kSmemPerBlock = 1024;      // reserved by the runtime per block
 constexpr unsigned kFull = 0xffffffffu;
@@ -149,21 +176,77 @@ __host__ __device__ constexpr int row_stride(int n) {
 }
 
 // Shared memory of the block, in the order of ops/gi_kernel.py::smem_bytes
-// and split_bytes: the controller's part (P⁻¹, A's first `rows` rows, the m
-// row norms; rows = m in the resident layout), then one slice per warp,
-// which holds l and u in the resident layout only.  The global layout's
-// workspace (ops/gi_kernel.py::workspace_bytes): the row norms of each
-// block, then one slice without l and u per lane.
+// and split_bytes: the controller's part (P⁻¹ unless P⁻¹ comes a lane, A's
+// first `rows` rows, the m row norms; rows = m in the resident layout),
+// then one slice per warp, which holds l and u in the resident layout only
+// and, first, the lane's P⁻¹ where P⁻¹ comes a lane (`pw`) in the resident
+// layout.  A per-lane block (OWN, ops/gi_kernel.py::own_bytes) is one area
+// a warp: its lane's controller part (P⁻¹, A, the row norms) and its slice.
+// The global layout's workspace (ops/gi_kernel.py::workspace_bytes): the row
+// norms of each block, then one slice without l and u per lane.
 template <typename TD, typename TS>
-__host__ __device__ size_t ctrl_bytes(int n, int rows, int m) {
-  return align16(sizeof(TS) * n * n) + sizeof(TD) * (size_t)rows * row_stride<TD>(n) +
-         align16(sizeof(TD) * m);
+__host__ __device__ size_t ctrl_bytes(int n, int rows, int m, bool pw) {
+  return (pw ? 0 : align16(sizeof(TS) * n * n)) +
+         sizeof(TD) * (size_t)rows * row_stride<TD>(n) + align16(sizeof(TD) * m);
 }
 template <typename TD, typename TS>
-__host__ __device__ size_t warp_bytes(int n, int m, int ns, bool lu) {
-  return align16(sizeof(TS) * (ns * ns + 5 * n + 6 * ns)) +
+__host__ __device__ size_t warp_bytes(int n, int m, int ns, bool lu, bool pw) {
+  return (pw ? align16(sizeof(TS) * n * n) : 0) +
+         align16(sizeof(TS) * (ns * ns + 5 * n + 6 * ns)) +
          align16(sizeof(TD) * (row_stride<TD>(n) + (lu ? 2 * (size_t)m : 0) + ns * n)) +
          align16(sizeof(int) * 3 * ns);
+}
+template <typename TD, typename TS>
+__host__ __device__ size_t own_bytes(int n, int m, int ns) {
+  return ctrl_bytes<TD, TS>(n, m, m, false) + warp_bytes<TD, TS>(n, m, ns, true, false);
+}
+
+// `bytes` (a multiple of 4) from `src` to `dst` in shared memory, as
+// asynchronous copies of 16 bytes where both ends and the size allow it,
+// else 8, else 4
+__device__ __forceinline__ void copy_bytes_async(void* dst, const void* src, size_t bytes,
+                                                 int t, int nt) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) | bytes;
+  char* d = static_cast<char*>(dst);
+  const char* g = static_cast<const char*>(src);
+  if ((a & 15) == 0) {
+    for (size_t e = (size_t)t * 16; e < bytes; e += (size_t)nt * 16)
+      __pipeline_memcpy_async(d + e, g + e, 16);
+  } else if ((a & 7) == 0) {
+    for (size_t e = (size_t)t * 8; e < bytes; e += (size_t)nt * 8)
+      __pipeline_memcpy_async(d + e, g + e, 8);
+  } else {
+    for (size_t e = (size_t)t * 4; e < bytes; e += (size_t)nt * 4)
+      __pipeline_memcpy_async(d + e, g + e, 4);
+  }
+}
+
+// A's m rows of n (unpadded, where `src` lies) into rows lda apart, as
+// asynchronous copies of whole 16- or 8-byte pieces of a row where the rows
+// allow it, else an element at a time; (row, piece) advance by the warp's
+// stride with no division in the loop
+template <typename TD>
+__device__ __forceinline__ void copy_rows_async(TD* dst, int lda, const TD* src, int m, int n,
+                                                int lane) {
+  const int row_b = n * (int)sizeof(TD);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(src);
+  const int w = ((row_b | (int)(base & 15)) & 15) == 0 ? 16
+                : ((row_b | (int)(base & 7)) & 7) == 0 ? 8 : (int)sizeof(TD);
+  const int per = row_b / w;              // pieces a row
+  const int step_r = 32 / per, step_p = 32 % per;
+  int r = lane / per, k = lane - r * per;
+  const char* g = reinterpret_cast<const char*>(src);
+  char* d = reinterpret_cast<char*>(dst);
+  while (r < m) {
+    __pipeline_memcpy_async(d + ((size_t)r * lda * sizeof(TD) + (size_t)k * w),
+                            g + ((size_t)r * row_b + (size_t)k * w), w);
+    r += step_r;
+    k += step_p;
+    if (k >= per) {
+      k -= per;
+      ++r;
+    }
+  }
 }
 
 // A's rows as a lane reads them: rows [0, nres) at `res`, lda apart, the
@@ -329,10 +412,13 @@ __device__ __forceinline__ void per_row(int lane, int rows, int len, F f, O out)
 // One lane's whole solve, run by one warp, in the slice ``wsm`` (shared
 // memory, or the lane's slice of the workspace in the global layout) with
 // A's rows read through ``A``.  Every thread of the warp returns with the
-// same (it, done && feas) and the lane's state written back.
-template <typename TD, typename TS, int LAYOUT>
+// same (it, done && feas) and the lane's state written back.  The warp may
+// have issued asynchronous copies of the lane's P⁻¹ (LATE: x_un waits for
+// them) and of its A (OWN: the warp then computes the row norms into
+// ``srn``) without a commit: the lane's loads are one group, one wait.
+template <typename TD, typename TS, int LAYOUT, bool OWN, bool LATE>
 __device__ void solve_lane(int b, unsigned char* wsm, const RowsOf<TD> A,
-                           const TD* srn, const TS* __restrict__ sP,
+                           TD* srn, const TS* __restrict__ sP,
                            const TD* __restrict__ q, const TD* __restrict__ l,
                            const TD* __restrict__ u, int32_t* __restrict__ idx_g,
                            int32_t* __restrict__ side_g, uint8_t* __restrict__ vmask_g,
@@ -403,23 +489,37 @@ __device__ void solve_lane(int b, unsigned char* wsm, const RowsOf<TD> A,
     slam[s] = TS(0);
   }
   const TD* qb = q + (size_t)b * n;
-  per_row<TS>(lane, n, n, [&](int k, int j) { return sP[k * n + j] * static_cast<TS>(qb[j]); },
-              [&](int k, TS s) {
-                sxun[k] = -s;
-                sx[k] = -s;
-              });
+  auto unconstrained = [&]() {
+    per_row<TS>(lane, n, n, [&](int k, int j) { return sP[k * n + j] * static_cast<TS>(qb[j]); },
+                [&](int k, TS s) {
+                  sxun[k] = -s;
+                  sx[k] = -s;
+                });
+  };
+  if constexpr (!LATE) unconstrained();
   __pipeline_wait_prior(0);
   __syncwarp();
+  if constexpr (OWN) {
+    // the row norms of the lane's own A: a thread a row, each sum in j order
+    for (int i = lane; i < m && MPC_CUT != 2; i += 32) {
+      const TD* a = A.res + (size_t)i * A.lda;
+      TD s2 = TD(0);
+      for (int j = 0; j < n; ++j) s2 += a[j] * a[j];
+      srn[i] = sqrt(s2);
+    }
+  }
+  if constexpr (LATE) unconstrained();
   for (int e = lane; e < ns * n; e += 32) {
     const int s = e / n, j = e - s * n;
     sAact[e] = svm[s] ? row(sidx[s])[j] : TD(0);
   }
   __syncwarp();
+  if (MPC_CUT == 2 || MPC_CUT == 3) return;
 
   // the lane's scalar carry, the same in every thread of the warp
   int it = 0, wpos = 0;
   const int wcnt = wcnt_g[b];
-  const int max_it = max_it_g[b];
+  const int max_it = MPC_CUT == 4 ? min(max_it_g[b], 1) : max_it_g[b];
   int done = !(warm || wcnt > 0);
 
   // ---- warm loop: insert one pending warm row, or KKT jump + wrong-sign drop --
@@ -716,12 +816,22 @@ __device__ void solve_lane(int b, unsigned char* wsm, const RowsOf<TD> A,
 // thread) where two blocks' shared memory fits an SM, else 1 (128; always in
 // the global and split layouts).  ``ws`` is the global layout's workspace;
 // ``At`` the split layout's column-major copy of A's rows [rows, m) of each
-// controller (n × (m − rows)).
-template <typename TD, typename TS, int MINB, int LAYOUT>
+// controller (n × (m − rows)).  ``pmap`` (nullptr: the block's controller)
+// is P⁻¹'s lane map where P⁻¹ and A come through different maps: the
+// resident layout (MODE kLaneP) copies a lane's P⁻¹ into its warp's slice,
+// the others read it where it lies.  MODE kOwn (resident only): the per-lane
+// geometry, where every lane is its own controller — no controller part for
+// the block, each warp copies its lane's A (through ``amap``) and P⁻¹
+// (through ``pmap``) in the same group as the lane's other loads, waits once
+// and computes the lane's row norms itself; no block barrier after the lane
+// counter.  The split and global layouts take MODE kShared and ``pmap`` at
+// run time.
+template <typename TD, typename TS, int MINB, int LAYOUT, int MODE>
 __global__ void __launch_bounds__(32 * kMaxWarps, MINB)
 gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
                 const TD* __restrict__ At, int rows,
                 const int32_t* __restrict__ table, const int32_t* __restrict__ block_ctrl,
+                const int32_t* __restrict__ pmap, const int32_t* __restrict__ amap,
                 int width, const TD* __restrict__ q, const TD* __restrict__ l,
                 const TD* __restrict__ u, int32_t* __restrict__ idx_g,
                 int32_t* __restrict__ side_g, uint8_t* __restrict__ vmask_g,
@@ -731,23 +841,34 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
                 TS* __restrict__ lam_out, int32_t* __restrict__ it_out,
                 uint8_t* __restrict__ conv_out, unsigned char* ws, int n, int m,
                 int ns, int warm, double tol) {
+  if (MPC_CUT == 1) return;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int c = block_ctrl[blockIdx.x];
   const int32_t* lanes = table + (size_t)blockIdx.x * width;
   constexpr bool GLOBAL = LAYOUT == kGlobal;
-  const size_t slice = warp_bytes<TD, TS>(n, m, ns, LAYOUT == kResident);
-  const TD* Ac = A + (size_t)c * m * n;
+  constexpr bool OWN = MODE == kOwn;
+  // P⁻¹ a lane, copied into the warp's slice (resident) or read in place
+  constexpr bool P_SLICE = MODE == kLaneP;
+  const bool pw = P_SLICE || (LAYOUT != kResident && pmap != nullptr);
+  const size_t slice = warp_bytes<TD, TS>(n, m, ns, LAYOUT == kResident, P_SLICE);
+  const int lda = row_stride<TD>(n);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int next_slot;
-  const TS* sP;            // n*n P⁻¹
-  RowsOf<TD> rows_of;      // A's rows
-  TD* srn;                 // m row norms
+  const TS* sP = nullptr;  // n*n P⁻¹
+  RowsOf<TD> rows_of{};    // A's rows
+  TD* srn = nullptr;       // m row norms
   unsigned char* wsm;      // the warp's slice (on chip), the lanes' slices (global)
-  if constexpr (GLOBAL) {
+  if constexpr (OWN) {
+    // ---- per-lane blocks: each warp's area, nothing shared but the counter ----
+    wsm = smem_raw + (size_t)warp * own_bytes<TD, TS>(n, m, ns);
+    if (tid == 0) next_slot = nt >> 5;
+    __syncthreads();
+  } else if constexpr (GLOBAL) {
+    const int c = block_ctrl[blockIdx.x];
+    const TD* Ac = A + (size_t)c * m * n;
     // ---- the controller's tables where they lie; the block's row norms ------
     sP = Pinv + (size_t)c * n * n;
     rows_of = {Ac, n, m, Ac, n, nullptr, 0};
@@ -756,25 +877,26 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
     if (tid == 0) next_slot = nt >> 5;
   } else {
     // ---- the controller's part, once per block: A's first `nres` rows ----------
+    const int c = block_ctrl[blockIdx.x];
+    const TD* Ac = A + (size_t)c * m * n;
     const int nres = LAYOUT == kSplit ? rows : m;
-    const int lda = row_stride<TD>(n);
     TS* P_s = reinterpret_cast<TS*>(smem_raw);
-    TD* A_s = reinterpret_cast<TD*>(smem_raw + align16(sizeof(TS) * n * n));
+    TD* A_s = reinterpret_cast<TD*>(smem_raw + (pw ? 0 : align16(sizeof(TS) * n * n)));
     for (int e = tid; e < nres * n; e += nt) {
       const int i = e / n, j = e - i * n;
       __pipeline_memcpy_async(A_s + (size_t)i * lda + j, Ac + e, sizeof(TD));
     }
-    copy_async(P_s, Pinv + (size_t)c * n * n, n * n, tid, nt);
+    if (!pw) copy_async(P_s, Pinv + (size_t)c * n * n, n * n, tid, nt);
     __pipeline_commit();
     if (tid == 0) next_slot = nt >> 5;
     __pipeline_wait_prior(0);
     __syncthreads();
-    sP = P_s;
+    sP = pw ? nullptr : P_s;
     rows_of = {A_s, lda, nres, Ac, n, At + (size_t)c * n * (m - nres), m - nres};
     srn = A_s + (size_t)nres * lda;
-    wsm = smem_raw + ctrl_bytes<TD, TS>(n, nres, m) + warp * slice;
+    wsm = smem_raw + ctrl_bytes<TD, TS>(n, nres, m, pw) + warp * slice;
   }
-  for (int i = tid; i < m; i += nt) {
+  for (int i = tid; i < m && MPC_CUT != 2 && !OWN; i += nt) {
     TD s2 = TD(0);
     if (LAYOUT != kSplit || i < rows_of.nres) {
       const TD* a = rows_of.res + (size_t)i * rows_of.lda;
@@ -785,17 +907,38 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
     }
     srn[i] = sqrt(s2);
   }
-  __syncthreads();
+  if (!OWN) __syncthreads();
 
   // ---- each warp solves lanes until the block's list is used up ----------------
   int slot = warp;
   while (slot < width) {
     const int b = lanes[slot];
     if (b < 0) break;        // −1 pads the end of the list
-    solve_lane<TD, TS, LAYOUT>(b, GLOBAL ? wsm + (size_t)b * slice : wsm, rows_of, srn, sP, q,
-                               l, u, idx_g, side_g, vmask_g, Ginv_g, widx_g, wside_g, wcnt_g,
-                               max_it_g, x_out, lam_out, it_out, conv_out, n, m, ns, warm,
-                               tol);
+    const TS* sPl = sP;
+    RowsOf<TD> rl = rows_of;
+    TD* srnl = srn;
+    unsigned char* wl = GLOBAL ? wsm + (size_t)b * slice : wsm;
+    if constexpr (OWN) {
+      // the lane's own P⁻¹ and A into the warp's area (not yet committed)
+      TS* P_w = reinterpret_cast<TS*>(wsm);
+      TD* A_w = reinterpret_cast<TD*>(wsm + align16(sizeof(TS) * n * n));
+      const TD* Ag = A + (size_t)amap[b] * m * n;
+      copy_bytes_async(P_w, Pinv + (size_t)pmap[b] * n * n, sizeof(TS) * n * n, lane, 32);
+      copy_rows_async(A_w, lda, Ag, m, n, lane);
+      sPl = P_w;
+      rl = {A_w, lda, m, Ag, n, nullptr, 0};
+      srnl = A_w + (size_t)m * lda;
+      wl = wsm + ctrl_bytes<TD, TS>(n, m, m, false);
+    } else if constexpr (P_SLICE) {
+      copy_bytes_async(wsm, Pinv + (size_t)pmap[b] * n * n, sizeof(TS) * n * n, lane, 32);
+      sPl = reinterpret_cast<const TS*>(wsm);
+      wl = wsm + align16(sizeof(TS) * n * n);
+    } else if (pw) {
+      sPl = Pinv + (size_t)pmap[b] * n * n;
+    }
+    solve_lane<TD, TS, LAYOUT, OWN, OWN || P_SLICE>(
+        b, wl, rl, srnl, sPl, q, l, u, idx_g, side_g, vmask_g, Ginv_g, widx_g, wside_g, wcnt_g,
+        max_it_g, x_out, lam_out, it_out, conv_out, n, m, ns, warm, tol);
     int nxt = 0;
     if (lane == 0) nxt = atomicAdd(&next_slot, 1);
     slot = __shfl_sync(kFull, nxt, 0);
@@ -804,18 +947,25 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
 
 inline bool two_blocks(int smem_bytes) { return 2 * (smem_bytes + kSmemPerBlock) <= kSmemPerSM; }
 
-// the instantiation a launch of this layout and shared memory takes
+// the instantiation a launch of this layout, geometry (`mode`: kShared,
+// kLaneP, kOwn; the resident layout's) and shared memory takes
+template <typename TD, typename TS, int MODE>
+auto resident_for(int smem_bytes) {
+  return two_blocks(smem_bytes) ? gi_solve_kernel<TD, TS, 2, kResident, MODE>
+                                : gi_solve_kernel<TD, TS, 1, kResident, MODE>;
+}
 template <typename TD, typename TS>
-auto kernel_for(int layout, int smem_bytes) {
-  return layout == kGlobal  ? gi_solve_kernel<TD, TS, 1, kGlobal>
-         : layout == kSplit ? gi_solve_kernel<TD, TS, 1, kSplit>
-                            : (two_blocks(smem_bytes) ? gi_solve_kernel<TD, TS, 2, kResident>
-                                                      : gi_solve_kernel<TD, TS, 1, kResident>);
+auto kernel_for(int layout, int smem_bytes, int mode) {
+  return layout == kGlobal  ? gi_solve_kernel<TD, TS, 1, kGlobal, kShared>
+         : layout == kSplit ? gi_solve_kernel<TD, TS, 1, kSplit, kShared>
+         : mode == kOwn     ? resident_for<TD, TS, kOwn>(smem_bytes)
+         : mode == kLaneP   ? resident_for<TD, TS, kLaneP>(smem_bytes)
+                            : resident_for<TD, TS, kShared>(smem_bytes);
 }
 
 template <typename TD, typename TS>
 int launch(const void* Pinv, const void* A, const void* At, int rows, const void* table,
-           const void* block_ctrl,
+           const void* block_ctrl, const void* pmap, const void* amap, int own,
            const void* q, const void* l, const void* u, void* idx, void* side, void* vmask,
            void* Ginv, const void* widx, const void* wside, const void* wcnt,
            const void* max_it, void* x, void* lam, void* it, void* conv, void* ws, int n_blocks,
@@ -827,13 +977,22 @@ int launch(const void* Pinv, const void* A, const void* At, int rows, const void
   if (layout < kResident || layout > kSplit) return (int)cudaErrorInvalidValue;
   if (layout == kSplit && (rows < 0 || rows > m || (rows < m && At == nullptr)))
     return (int)cudaErrorInvalidValue;
+  // the per-lane geometry: resident only, both lane maps given
+  if (own && (layout != kResident || pmap == nullptr || amap == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!own && block_ctrl == nullptr) return (int)cudaErrorInvalidValue;
+  const bool pw = !own && pmap != nullptr;
   const size_t need =
       layout == kGlobal  ? 0
-      : layout == kSplit ? ctrl_bytes<TD, TS>(n, rows, m) + warps * warp_bytes<TD, TS>(n, m, ns, false)
-                         : ctrl_bytes<TD, TS>(n, m, m) + warps * warp_bytes<TD, TS>(n, m, ns, true);
+      : own              ? warps * own_bytes<TD, TS>(n, m, ns)
+      : layout == kSplit ? ctrl_bytes<TD, TS>(n, rows, m, pw) +
+                               warps * warp_bytes<TD, TS>(n, m, ns, false, false)
+                         : ctrl_bytes<TD, TS>(n, m, m, pw) +
+                               warps * warp_bytes<TD, TS>(n, m, ns, true, pw);
   if ((size_t)smem_bytes != need || (layout == kGlobal && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kern = kernel_for<TD, TS>(layout, smem_bytes);
+  const int mode = own ? kOwn : (layout == kResident && pw ? kLaneP : kShared);
+  auto kern = kernel_for<TD, TS>(layout, smem_bytes, mode);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
@@ -841,7 +1000,8 @@ int launch(const void* Pinv, const void* A, const void* At, int rows, const void
   }
   kern<<<n_blocks, 32 * warps, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TS*>(Pinv), static_cast<const TD*>(A), static_cast<const TD*>(At),
-      rows, static_cast<const int32_t*>(table), static_cast<const int32_t*>(block_ctrl), width,
+      rows, static_cast<const int32_t*>(table), static_cast<const int32_t*>(block_ctrl),
+      static_cast<const int32_t*>(pmap), static_cast<const int32_t*>(amap), width,
       static_cast<const TD*>(q), static_cast<const TD*>(l), static_cast<const TD*>(u),
       static_cast<int32_t*>(idx), static_cast<int32_t*>(side), static_cast<uint8_t*>(vmask),
       static_cast<TS*>(Ginv), static_cast<const int32_t*>(widx),
@@ -856,16 +1016,17 @@ int launch(const void* Pinv, const void* A, const void* At, int rows, const void
 
 #define MPC_GI_ENTRY(NAME, TD, TS)                                                            \
   extern "C" int NAME(const void* Pinv, const void* A, const void* At, int rows,              \
-                      const void* table, const void* block_ctrl, const void* q,               \
-                      const void* l, const void* u,                                           \
+                      const void* table, const void* block_ctrl, const void* pmap,            \
+                      const void* amap, int own, const void* q, const void* l, const void* u, \
                       void* idx, void* side, void* vmask, void* Ginv, const void* widx,       \
                       const void* wside, const void* wcnt, const void* max_it, void* x,       \
                       void* lam, void* it, void* conv, void* ws, int n_blocks, int width,     \
                       int warps, int n, int m, int ns, int warm, int smem_bytes, int layout,  \
                       double tol, void* stream) {                                             \
-    return launch<TD, TS>(Pinv, A, At, rows, table, block_ctrl, q, l, u, idx, side, vmask,    \
-                          Ginv, widx, wside, wcnt, max_it, x, lam, it, conv, ws, n_blocks,    \
-                          width, warps, n, m, ns, warm, smem_bytes, layout, tol, stream);     \
+    return launch<TD, TS>(Pinv, A, At, rows, table, block_ctrl, pmap, amap, own, q, l, u,     \
+                          idx, side, vmask, Ginv, widx, wside, wcnt, max_it, x, lam, it,      \
+                          conv, ws, n_blocks, width, warps, n, m, ns, warm, smem_bytes,       \
+                          layout, tol, stream);                                               \
   }
 
 MPC_GI_ENTRY(mpc_gi_solve_f32_f64, float, double)
@@ -874,12 +1035,15 @@ MPC_GI_ENTRY(mpc_gi_solve_f64_f64, double, double)
 
 // Blocks of `warps` warps and `smem_bytes` of shared memory resident on one
 // SM (the runtime's occupancy calculator) in a layout (0: resident, 1:
-// global, 2: split); variant 0 = (f32 data, f64 slots), 1 = (f32, f32), 2 =
-// (f64, f64).  Returns −1 on an error.
-extern "C" int mpc_gi_blocks_per_sm(int variant, int layout, int warps, int smem_bytes) {
-  const void* fn = variant == 0   ? (const void*)kernel_for<float, double>(layout, smem_bytes)
-                   : variant == 1 ? (const void*)kernel_for<float, float>(layout, smem_bytes)
-                                  : (const void*)kernel_for<double, double>(layout, smem_bytes);
+// global, 2: split) and geometry (`mode`: 0 a controller's lanes a block, 1
+// the same with P⁻¹ a lane, 2 per-lane blocks); variant 0 = (f32 data, f64
+// slots), 1 = (f32, f32), 2 = (f64, f64).  Returns −1 on an error.
+extern "C" int mpc_gi_blocks_per_sm(int variant, int layout, int warps, int smem_bytes,
+                                    int mode) {
+  const void* fn =
+      variant == 0   ? (const void*)kernel_for<float, double>(layout, smem_bytes, mode)
+      : variant == 1 ? (const void*)kernel_for<float, float>(layout, smem_bytes, mode)
+                     : (const void*)kernel_for<double, double>(layout, smem_bytes, mode);
   // as a launch does: raise the kernel's shared-memory limit above the default
   // 48 KB only (a lower setting would refuse a later, larger launch)
   if (smem_bytes > 48 * 1024 &&

@@ -163,23 +163,24 @@ def load_library():
         for name in ("mpc_admm_sweep_f32", "mpc_admm_sweep_f64"):
             fn = getattr(lib, name)
             # Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y,
-            # active, ws, n_blocks, width, warps, grouped, n, m, n_lad,
-            # iters, smem_bytes, layout, rows, tile, stages, sigma, alpha,
-            # stream
-            fn.argtypes = [ptr] * 14 + [i32] * 13 + [f64, f64, ptr]
+            # active, ws, n_blocks, width, warps, grouped, own, n, m,
+            # n_lad, iters, smem_bytes, layout, rows, tile, stages, sigma,
+            # alpha, stream
+            fn.argtypes = [ptr] * 14 + [i32] * 14 + [f64, f64, ptr]
             fn.restype = i32
         for name in ("mpc_gi_solve_f32_f64", "mpc_gi_solve_f32_f32",
                      "mpc_gi_solve_f64_f64"):
             fn = getattr(lib, name)
-            # Pinv, A, At, rows, table, block_ctrl, q, l, u, idx, side,
-            # vmask, Ginv, widx, wside, wcnt, max_it, x, lam, it, conv, ws,
-            # n_blocks, width, warps, n, m, ns, warm, smem_bytes, layout,
-            # tol, stream
-            fn.argtypes = [ptr] * 3 + [i32] + [ptr] * 18 + [i32] * 9 + [f64, ptr]
+            # Pinv, A, At, rows, table, block_ctrl, pmap, amap, own, q, l,
+            # u, idx, side, vmask, Ginv, widx, wside, wcnt, max_it, x, lam,
+            # it, conv, ws, n_blocks, width, warps, n, m, ns, warm,
+            # smem_bytes, layout, tol, stream
+            fn.argtypes = ([ptr] * 3 + [i32] + [ptr] * 4 + [i32] + [ptr] * 16 + [i32] * 9
+                           + [f64, ptr])
             fn.restype = i32
-        # residency: (variant, layout, warps, smem) and (f64, layout,
-        # grouped, width, threads, smem) → blocks per SM
-        lib.mpc_gi_blocks_per_sm.argtypes = [i32] * 4
-        lib.mpc_admm_blocks_per_sm.argtypes = [i32] * 6
+        # residency: (variant, layout, warps, smem, mode) and (f64, layout,
+        # grouped, width, threads, smem, own, n) → blocks per SM
+        lib.mpc_gi_blocks_per_sm.argtypes = [i32] * 5
+        lib.mpc_admm_blocks_per_sm.argtypes = [i32] * 8
         _lib = lib
     return _lib

@@ -30,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.lanes import lane_blocks, mtv, mv, take
+from ..utils.lanes import (identity_lanes, lane_blocks, lane_rows, mtv, mv,
+                           singleton_groups, take)
 from ._build import (LAUNCHES, LAYOUT_CODE, MAX_WARPS, STATIC_RESERVE,
                      align16, check_layout, launch_budget, pow2)
 
@@ -50,6 +51,9 @@ WARP_LANES_PER_SM = 8
 STAGED_LANES = 4
 STAGED_TILE_ROWS = 256
 STAGED_STAGES = 2
+# The per-lane geometry (every lane its own controller): at most
+# PER_LANE_WARPS lanes a block, one a warp
+PER_LANE_WARPS = MAX_WARPS
 
 
 def _parts(n: int) -> int:
@@ -70,6 +74,14 @@ def smem_bytes(n: int, m: int, itemsize: int, lanes: int = 1, grouped=None) -> i
         return a + lanes * align16(itemsize * (5 * m + n * n + 2 * n + (32 // n) * n))
     return (a + lanes * align16(itemsize * (6 * m + 4 * n))
             + align16(itemsize * _parts(n) * lanes * n))
+
+
+def own_bytes(n: int, m: int, itemsize: int, warps: int = 1) -> int:
+    """Shared memory of a per-lane block (every lane its own controller) of
+    ``warps`` warps, one lane a warp: each warp's area is its lane's A and
+    then the lane's part of ``smem_bytes``."""
+    return warps * (align16(itemsize * m * n)
+                    + align16(itemsize * (5 * m + n * n + 2 * n + (32 // n) * n)))
 
 
 def workspace_bytes(n: int, m: int, itemsize: int, lanes: int = 1, grouped=None,
@@ -153,12 +165,26 @@ def launch_geometry(lane_ctrl, n, m, itemsize, budget, sms, layout=None):
     (``staged_plan``; up to STAGED_LANES lanes a block), else "global"; the
     variant does not depend on the layout, so where several take a shape
     they sum in the same order.  ``layout`` may also be ("staged", rows),
-    the count of A's rows kept in shared memory (for the card checks)."""
+    the count of A's rows kept in shared memory (for the card checks).
+
+    The per-lane geometry: one warp a lane where every lane is the only one
+    of its controller (n_d = B) and the resident layout takes it — each
+    warp with its lane's own A (``own_bytes``), as many warps a block as
+    ⌈B/sms⌉ asks for (a power of two, up to ``PER_LANE_WARPS``, while they
+    fit):
+    ``table`` is ``utils/lanes.py::lane_rows`` and ``block_ctrl`` None."""
     layout, rows = check_layout("admm_sweep", layout)
     B = lane_ctrl.shape[0]
     staged = lambda lanes, r=None: staged_plan(n, m, itemsize, lanes, budget, r)
     grouped = (n > 32 or B < WARP_LANES_PER_SM * sms
                and (smem_bytes(n, m, itemsize, 1, True) <= budget or staged(1) is not None))
+    if (not grouped and layout in (None, "resident") and own_bytes(n, m, itemsize) <= budget
+            and singleton_groups(lane_ctrl)):
+        cap = min(PER_LANE_WARPS, pow2(-(-B // sms)))
+        while cap > 1 and own_bytes(n, m, itemsize, cap) > budget:
+            cap -= 1
+        return (lane_rows(B, cap, lane_ctrl.device), None, cap, False,
+                own_bytes(n, m, itemsize, cap), "resident")
     if layout is None:
         layout = ("resident" if smem_bytes(n, m, itemsize, 1, grouped) <= budget
                   else "staged" if grouped and staged(1) is not None else "global")
@@ -270,7 +296,10 @@ def admm_sweep(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active,
     s = x.element_size()
     table, block_ctrl, warps, grouped, smem, layout = launch_geometry(
         lane_ctrl, n, m, s, launch_budget(props), props.multi_processor_count, _layout)
-    ptrs = (Minvs, A, table, block_ctrl, rung, q, l, u, rhovs, x, z, y, active)
+    # the per-lane geometry (block_ctrl None) reads each lane's controller
+    own = block_ctrl is None
+    ptrs = (Minvs, A, table, lane_ctrl if own else block_ctrl, rung, q, l, u, rhovs, x, z, y,
+            active)
     # the global layout's workspace: a block of the caching allocator, which
     # hands the same block back to the next launch of this shape on this
     # stream
@@ -287,7 +316,7 @@ def admm_sweep(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in ptrs), None if ws is None else ws.data_ptr(),
-                table.shape[0], table.shape[1], warps, int(grouped), n, m, n_lad,
+                table.shape[0], table.shape[1], warps, int(grouped), int(own), n, m, n_lad,
                 int(iters), smem, LAYOUT_CODE[layout], *plan[:3], float(sigma),
                 float(alpha), stream)
     if rc != 0:
@@ -310,7 +339,7 @@ def admm_batch(Minv, A, q, l, u, rho, x0, *, iters=200, sigma=1e-6,
     Minv_b, A_b, q_b, l_b, u_b, rho_b = map(lead, (Minv, A, q, l, u, rho))
     x = lead(x0).clone()
     B = x.shape[0]
-    lane_ctrl = torch.arange(B, dtype=torch.int32, device=x.device)
+    lane_ctrl = identity_lanes(B, x.device)
     rung = torch.zeros(B, dtype=torch.int32, device=x.device)
     z = torch.clamp(mv(A_b, x), l_b, u_b).contiguous()
     y = torch.zeros_like(z)

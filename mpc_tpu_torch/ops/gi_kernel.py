@@ -25,8 +25,10 @@ failed build or launch raises.
 
 Arguments, batch leading (B lanes, n variables, m rows, ns slots):
 
-* ``Pinv`` (n_d, n, n) in the SLOT dtype and ``A`` (n_d, m, n) in the DATA
-  dtype, read per lane through ``lane_ctrl`` (B,) int32;
+* ``Pinv`` (n_d, n, n) in the SLOT dtype and ``A`` (n_a, m, n) in the DATA
+  dtype, read per lane through ``lane_ctrl`` (B,) int32, A through the A
+  map ``a_ctrl`` (B,) int32 where one is given (the MHE fleet's NaN
+  variant: a P⁻¹ a lane, one shared A), else through ``lane_ctrl`` too;
 * ``q`` (B, n), ``l``/``u`` (B, m) in the data dtype;
 * the operator state ``idx``/``side`` (B, ns) int32, ``vmask`` (B, ns) bool
   and ``Ginv`` (B, ns, ns) in the slot dtype — updated IN PLACE;
@@ -43,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.lanes import lane_blocks, take
+from ..utils.lanes import lane_blocks, lane_rows, singleton_groups, take
 from ._build import (LANES_PER_BLOCK, LAUNCHES, LAYOUT_CODE, MAX_WARPS,
                      STATIC_RESERVE, align16, check_layout, launch_budget,
                      pow2)
@@ -56,7 +58,7 @@ SPLIT_WARPS = 16
 
 
 def smem_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
-               warps: int = 1) -> int:
+               warps: int = 1, pw: bool = False) -> int:
     """Shared memory of one block of ``warps`` lanes, exactly as the kernel
     lays it out (each part rounded up to 16 bytes): the controller's P⁻¹
     (slot dtype), A with its rows padded to 16 bytes and its row norms (data
@@ -64,10 +66,20 @@ def smem_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
     pivot row, P⁻¹aₚ, a scratch vector) and the ns-vectors (λ, g, r, a Ginv
     row, the KKT right-hand side and multipliers) in the slot dtype, x
     (padded), l, u and the slot table Aact in the data dtype, and idx, side,
-    vmask as 4-byte ints."""
+    vmask as 4-byte ints.  ``pw`` (P⁻¹ a lane, A shared): P⁻¹ moves from
+    the block's part to the head of each warp's slice."""
     lda = _row_stride(n, data_size)
-    ctrl = align16(slot_size * n * n) + data_size * m * lda + align16(data_size * m)
-    return ctrl + warps * _slice_bytes(n, m, ns, data_size, slot_size)
+    p = align16(slot_size * n * n)
+    ctrl = (0 if pw else p) + data_size * m * lda + align16(data_size * m)
+    return ctrl + warps * ((p if pw else 0) + _slice_bytes(n, m, ns, data_size, slot_size))
+
+
+def own_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
+              warps: int = 1) -> int:
+    """Shared memory of a per-lane block (every lane its own controller) of
+    ``warps`` warps: each warp's area is its lane's P⁻¹, A (rows padded to
+    16 bytes) and row norms, then the slice of ``smem_bytes``."""
+    return warps * smem_bytes(n, m, ns, data_size, slot_size, 1)
 
 
 def _row_stride(n, data_size):
@@ -97,59 +109,78 @@ def workspace_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
 
 
 def split_bytes(n: int, m: int, ns: int, data_size: int, slot_size: int,
-                warps: int = 1, rows: int = 0) -> int:
+                warps: int = 1, rows: int = 0, pw: bool = False) -> int:
     """Shared memory of a split-layout block of ``warps`` warps, exactly as
-    the kernel lays it out: P⁻¹, A's first ``rows`` rows padded to 16 bytes
-    and the m row norms, then per warp the slice of ``smem_bytes`` without
-    l and u."""
+    the kernel lays it out: P⁻¹ (unless P⁻¹ comes a lane, ``pw``: then read
+    where it lies), A's first ``rows`` rows padded to 16 bytes and the m row
+    norms, then per warp the slice of ``smem_bytes`` without l and u."""
     lda = _row_stride(n, data_size)
-    return (align16(slot_size * n * n) + data_size * rows * lda + align16(data_size * m)
+    return ((0 if pw else align16(slot_size * n * n)) + data_size * rows * lda
+            + align16(data_size * m)
             + warps * _slice_bytes(n, m, ns, data_size, slot_size, lu=False))
 
 
-def split_plan(n, m, ns, data_size, slot_size, warps, budget, rows=None):
+def split_plan(n, m, ns, data_size, slot_size, warps, budget, rows=None, pw=False):
     """``(rows, smem)`` of a split block of ``warps`` warps in the
     shared-memory ``budget`` less STATIC_RESERVE, or None where it does not
     fit; ``rows`` None keeps as many of A's leading rows as the budget
     leaves room for."""
     cap = budget - STATIC_RESERVE
-    sizes = (n, m, ns, data_size, slot_size, warps)
+    size = lambda r: split_bytes(n, m, ns, data_size, slot_size, warps, r, pw)
     if rows is None:
-        base = split_bytes(*sizes)
+        base = size(0)
         if base > cap:
             return None
         rows = min(m, (cap - base) // (data_size * _row_stride(n, data_size)))
-    elif not 0 <= rows <= m or split_bytes(*sizes, rows) > cap:
+    elif not 0 <= rows <= m or size(rows) > cap:
         return None
-    return rows, split_bytes(*sizes, rows)
+    return rows, size(rows)
 
 
 def launch_geometry(lane_ctrl, n, m, ns, data_size, slot_size, budget, sms,
-                    layout=None):
+                    layout=None, a_ctrl=None):
     """``(table, block_ctrl, warps, smem, layout)`` of a launch: the lanes
     grouped by controller (``utils/lanes.py::lane_blocks``, cached per
-    ``lane_ctrl``), ⌈B/sms⌉ lanes a block rounded up to a power of two, at
-    most ``LANES_PER_BLOCK``, so that a small batch still spreads over the
-    card's ``sms`` multiprocessors; as many warps a block as the table is
-    wide, up to ``MAX_WARPS``.  ``layout`` None takes "resident" when one
-    warp's block fits the shared-memory ``budget`` (the warps then also fit
-    it), else "split" when one warp's split block fits it (up to
-    SPLIT_WARPS warps, A's leading rows in the rest: ``split_plan``), else
-    "global" (no shared memory but the lane counter).  ``layout`` may also
-    be ("split", rows), the count of A's rows kept in shared memory (for
-    the card checks)."""
+    ``lane_ctrl``; by A's controller, the A map ``a_ctrl``, where one is
+    given, each warp then reading its lane's P⁻¹), ⌈B/sms⌉ lanes a block
+    rounded up to a power of two, at most ``LANES_PER_BLOCK``, so that a
+    small batch still spreads over the card's ``sms`` multiprocessors; as
+    many warps a block as the table is wide, up to ``MAX_WARPS``.
+    ``layout`` None takes "resident" when one warp's block fits the
+    shared-memory ``budget`` (the warps then also fit it), else "split"
+    when one warp's split block fits it (up to SPLIT_WARPS warps, A's
+    leading rows in the rest: ``split_plan``), else "global" (no shared
+    memory but the lane counter).  ``layout`` may also be ("split", rows),
+    the count of A's rows kept in shared memory (for the card checks).
+
+    The per-lane geometry: where every lane is the only one of its A's
+    controller (n_d = B) and the resident layout takes it, a block holds
+    one lane a warp, each warp with its lane's own P⁻¹, A and row norms
+    (``own_bytes``), as many warps as ⌈B/sms⌉ asks for (a power of two, up
+    to ``MAX_WARPS``, while they fit): ``table`` is ``utils/lanes.py::
+    lane_rows`` and ``block_ctrl`` None."""
     layout, rows = check_layout("gi_solve", layout)
     sizes = (n, m, ns, data_size, slot_size)
-    split = lambda warps: split_plan(*sizes, warps, budget, rows)
+    pw = a_ctrl is not None
+    group = lane_ctrl if a_ctrl is None else a_ctrl
+    B = lane_ctrl.shape[0]
+    width = min(LANES_PER_BLOCK, pow2(-(-B // sms)))
+    if (layout in (None, "resident") and own_bytes(*sizes) <= budget
+            and singleton_groups(group)):
+        warps = min(width, MAX_WARPS)
+        while warps > 1 and own_bytes(*sizes, warps) > budget:
+            warps -= 1
+        return lane_rows(B, warps, group.device), None, warps, own_bytes(*sizes, warps), \
+            "resident"
+    split = lambda warps: split_plan(*sizes, warps, budget, rows, pw)
     if layout is None:
-        layout = ("resident" if smem_bytes(*sizes) <= budget
-                  else "split" if split_plan(*sizes, 1, budget) is not None else "global")
+        layout = ("resident" if smem_bytes(*sizes, 1, pw) <= budget
+                  else "split" if split_plan(*sizes, 1, budget, None, pw) is not None
+                  else "global")
     if layout == "split" and split(1) is None:
         raise ValueError(f"the split layout does not take n={n}, m={m}, {ns} slots, "
                          f"{rows} rows")
-    B = lane_ctrl.shape[0]
-    width = min(LANES_PER_BLOCK, pow2(-(-B // sms)))
-    table, block_ctrl = lane_blocks(lane_ctrl, width)
+    table, block_ctrl = lane_blocks(group, width)
     warps = min(table.shape[1], MAX_WARPS)
     if layout == "global":
         return table, block_ctrl, warps, 0, layout
@@ -158,9 +189,9 @@ def launch_geometry(lane_ctrl, n, m, ns, data_size, slot_size, budget, sms,
         while warps > 1 and split(warps) is None:
             warps -= 1
         return table, block_ctrl, warps, split(warps)[1], layout
-    while warps > 1 and smem_bytes(*sizes, warps) > budget:
+    while warps > 1 and smem_bytes(*sizes, warps, pw) > budget:
         warps -= 1
-    return table, block_ctrl, warps, smem_bytes(*sizes, warps), layout
+    return table, block_ctrl, warps, smem_bytes(*sizes, warps, pw), layout
 
 
 def slot_dtype_for(dt, slot_dtype=None):
@@ -175,7 +206,7 @@ def slot_dtype_for(dt, slot_dtype=None):
 
 
 def _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
-                wside, wcnt, max_it):
+                wside, wcnt, max_it, a_ctrl=None):
     B, n = q.shape
     m = l.shape[1]
     ns = idx.shape[1]
@@ -185,12 +216,14 @@ def _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
             "widx": (widx, (B, ns)), "wside": (wside, (B, ns)),
             "wcnt": (wcnt, (B,)), "max_it": (max_it, (B,)),
             "lane_ctrl": (lane_ctrl, (B,))}
+    if a_ctrl is not None:
+        want["a_ctrl"] = (a_ctrl, (B,))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    n_d = A.shape[0]
     if A.dim() != 3 or tuple(A.shape[1:]) != (m, n):
-        raise ValueError(f"A has shape {tuple(A.shape)}, expected (n_d, {m}, {n})")
+        raise ValueError(f"A has shape {tuple(A.shape)}, expected (n_a, {m}, {n})")
+    n_d = Pinv.shape[0] if a_ctrl is not None else A.shape[0]
     if tuple(Pinv.shape) != (n_d, n, n):
         raise ValueError(f"Pinv has shape {tuple(Pinv.shape)}, expected ({n_d}, {n}, {n})")
     if not 1 <= ns <= n:
@@ -206,7 +239,7 @@ def _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
         raise TypeError(f"Pinv is {Pinv.dtype}, Ginv (the slot dtype) is {hi}")
     for name, t in (("lane_ctrl", lane_ctrl), ("idx", idx), ("side", side),
                     ("widx", widx), ("wside", wside), ("wcnt", wcnt),
-                    ("max_it", max_it)):
+                    ("max_it", max_it)) + ((("a_ctrl", a_ctrl),) if a_ctrl is not None else ()):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     if vmask.dtype != torch.bool:
@@ -232,7 +265,7 @@ def violation_scan_reference(A_l, x_d, l, u, row_nrm):
 
 
 def gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv,
-                       widx, wside, wcnt, warm, max_it, tol):
+                       widx, wside, wcnt, warm, max_it, tol, a_ctrl=None):
     """Plain torch version of the kernel (same contract, any shape).
 
     ``_gi_impl`` over a leading lane axis: one Python loop per GI loop,
@@ -241,10 +274,10 @@ def gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv,
     ``lax.while_loop``, which keeps a finished lane's carry.
     """
     B, n, m, ns = _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask,
-                              Ginv, widx, wside, wcnt, max_it)
+                              Ginv, widx, wside, wcnt, max_it, a_ctrl)
     dt, hi, dev = A.dtype, Ginv.dtype, q.device
     inf = float("inf")
-    A_l = take(A, lane_ctrl)                       # (B, m, n) data dtype
+    A_l = take(A, lane_ctrl if a_ctrl is None else a_ctrl)    # (B, m, n) data dtype
     P_l = take(Pinv, lane_ctrl)                    # (B, n, n) slot dtype
     ar = torch.arange(B, device=dev)
     slot_id = torch.arange(ns, device=dev)
@@ -472,7 +505,7 @@ def gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv,
 
 
 def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
-             wside, wcnt, warm, max_it, tol, *, _layout=None):
+             wside, wcnt, warm, max_it, tol, a_ctrl=None, *, _layout=None):
     """The per-lane GI solve (see the module docstring).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
@@ -485,13 +518,13 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
     if dev.type == "cpu":
         return gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side,
                                   vmask, Ginv, widx, wside, wcnt, warm,
-                                  max_it, tol)
+                                  max_it, tol, a_ctrl)
     if dev.type != "cuda":
         raise ValueError(f"gi_solve runs on cpu or cuda, got {dev}")
     B, n, m, ns = _check_args(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask,
-                              Ginv, widx, wside, wcnt, max_it)
+                              Ginv, widx, wside, wcnt, max_it, a_ctrl)
     ts = (Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx, wside,
-          wcnt, max_it)
+          wcnt, max_it) + (() if a_ctrl is None else (a_ctrl,))
     for t in ts:
         if t.device != dev:
             raise ValueError(f"gi_solve arguments must all lie on {dev}")
@@ -513,9 +546,14 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
     sizes = (A.element_size(), Ginv.element_size())
     table, block_ctrl, warps, smem, layout = launch_geometry(
         lane_ctrl, n, m, ns, *sizes, launch_budget(props),
-        props.multi_processor_count, _layout)
-    ptrs = (table, block_ctrl, q, l, u, idx, side, vmask, Ginv, widx, wside,
-            wcnt, max_it, x, lam, it, conv)
+        props.multi_processor_count, _layout, a_ctrl)
+    # the per-lane geometry (block_ctrl None) reads A and P⁻¹ through the
+    # lanes' maps; with an A map the blocks are A's, P⁻¹ comes a lane
+    own = block_ctrl is None
+    pmap = lane_ctrl if own or a_ctrl is not None else None
+    amap = (lane_ctrl if a_ctrl is None else a_ctrl) if own else None
+    maps = [None if t is None else t.data_ptr() for t in (block_ctrl, pmap, amap)]
+    ptrs = (q, l, u, idx, side, vmask, Ginv, widx, wside, wcnt, max_it, x, lam, it, conv)
     # the global layout's workspace: a block of the caching allocator, which
     # hands the same block back to the next launch of this shape on this
     # stream
@@ -527,13 +565,15 @@ def gi_solve(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv, widx,
     # copy of the others (n_d, n, m − rows), one copy a launch
     n_res, At = 0, None
     if layout == "split":
-        n_res = split_plan(n, m, ns, *sizes, warps, launch_budget(props), rows)[0]
+        n_res = split_plan(n, m, ns, *sizes, warps, launch_budget(props), rows,
+                           a_ctrl is not None)[0]
         if n_res < m:
             At = A[:, n_res:, :].transpose(1, 2).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(Pinv.data_ptr(), A.data_ptr(), None if At is None else At.data_ptr(), n_res,
-                *(t.data_ptr() for t in ptrs), None if ws is None else ws.data_ptr(),
+                table.data_ptr(), *maps, int(own), *(t.data_ptr() for t in ptrs),
+                None if ws is None else ws.data_ptr(),
                 table.shape[0], table.shape[1], warps, n, m, ns, int(bool(warm)), smem,
                 LAYOUT_CODE[layout], float(tol), stream)
     if rc != 0:

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.lanes import mtv, mv, take
+from ..utils.lanes import identity_lanes, mtv, mv, take
 from .admm_kernel import admm_sweep
 
 _BIG = 1e18  # bounds beyond this are treated as infinite
@@ -225,7 +225,7 @@ def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
     if lane_ctrl is None or cache is None:
         # the uncached setup is per lane: each lane is its own controller
         P, A = take(P, lane_ctrl), take(A, lane_ctrl)
-        lane_ctrl = torch.arange(B, dtype=torch.int32, device=dev)
+        lane_ctrl = identity_lanes(B, dev)
 
     P_orig, q_orig, A_orig, l_orig, u_orig = P, q, A, l, u
     fin_l = l > -_BIG

@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.lanes import mv
+from ..utils.lanes import identity_lanes, mv
 from ..utils.small_linalg import inv_spd_small
 from .gi_kernel import gi_solve, slot_dtype_for
 from .qp import QPSolution, _BIG
@@ -65,7 +65,7 @@ def gi_state_init(n_slots, batch, slot_dtype=torch.float64, device=None):
                 gis_Ginv=eye.expand(batch, n_slots, n_slots).contiguous())
 
 
-def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, cache=None,
+def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, a_ctrl=None, cache=None,
                     state0=None, iter_budget=None, max_active=None,
                     max_pivots=150, tol=1e-9, slot_dtype=None, solve=gi_solve):
     """Solve a batch of dense QPs by dual active set.
@@ -74,7 +74,10 @@ def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, cache=None,
     are stacked over distinct controllers (``cache=None``: P⁻¹ is computed
     here, see the module docstring); ``q`` (B, n), ``l``/``u`` (B, m)
     and ``y0`` (B, m) are per lane.  ``lane_ctrl`` (B,) int32 maps lanes to
-    controllers; ``None`` means n_d == B.
+    controllers; ``None`` means n_d == B.  ``a_ctrl`` (B,) int32, the A
+    map, reads ``A`` (n_a, m, n) through a map of its own (P and P⁻¹ still
+    through ``lane_ctrl``): a fleet whose lanes share one A but not one P
+    passes A once; ``None`` reads A through ``lane_ctrl``.
 
     ``y0`` seeds the warm list from previous duals (sign → side, magnitude
     ranks the candidates); ``state0`` (the ``gi_state`` of the previous
@@ -99,7 +102,7 @@ def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, cache=None,
         # already-active rows forever (the reference's floor)
         tol = max(tol, 3e-6)
     if lane_ctrl is None:
-        lane_ctrl = torch.arange(B, dtype=torch.int32, device=dev)
+        lane_ctrl = identity_lanes(B, dev)
     max_it = torch.full((B,), int(max_pivots), dtype=torch.int32, device=dev)
     if iter_budget is not None:
         budget = torch.as_tensor(iter_budget, device=dev).to(torch.int32)
@@ -139,15 +142,17 @@ def solve_qp_active(P, q, A, l, u, y0=None, *, lane_ctrl=None, cache=None,
         eye = torch.eye(n, dtype=dt, device=dev).expand(P.shape)
         Pinv = torch.cholesky_solve(eye, torch.linalg.cholesky(P)).to(hi).contiguous()
     args = [t.contiguous() for t in (A, lane_ctrl, q, l, u)]
+    a_map = () if a_ctrl is None else (a_ctrl.contiguous(),)
     x_hi, lam, it, conv = solve(Pinv, *args, idx, side, vmask, Ginv, widx,
-                                wside, wcnt, warm, max_it, tol)
+                                wside, wcnt, warm, max_it, tol, *a_map)
     # duals back to row space, OSQP sign convention (+ at upper bound)
     contrib = torch.where(vmask, side.to(hi) * lam, 0.0).to(dt)
     y = torch.zeros(B, m, dtype=dt, device=dev).scatter_add_(1, idx.long(), contrib)
     x = x_hi.to(dt)
     obj = (0.5 * torch.sum(x * mv(P, x, lane_ctrl), -1)
            + torch.sum(q * x, -1))
-    return QPSolution(x=x, y=y, z=mv(A, x, lane_ctrl), converged=conv,
+    return QPSolution(x=x, y=y, z=mv(A, x, lane_ctrl if a_ctrl is None else a_ctrl),
+                      converged=conv,
                       iters=it, obj=obj,
                       rung=torch.full((B,), 4, dtype=torch.int32, device=dev),
                       gi_state=dict(gis_idx=idx, gis_side=side,

@@ -17,8 +17,8 @@ so the host keeps it and the shift/insert bookkeeping is plain slot copies
   slot-shifted duals.
 * A NaN measurement in a window (diagonal invR): the same solve with a
   per-lane H̃ and H̃⁻¹ (a Sherman–Morrison downdate per lane) while any
-  window may hold the NaN.  The GI solve reads P⁻¹ and A through one lane
-  map, so A is expanded to one copy per lane (kept for the fleet's life).
+  window may hold the NaN.  The GI solve reads them through the identity
+  lane map and the one shared A through its A map (``a_ctrl`` all zeros).
 * Otherwise (``solver="general"``, NonLinModel, a non-diagonal invR with a
   NaN): the template's general window solver over the lane axis.  A
   NonLinModel fleet advances each lane's arrival covariance on the device
@@ -43,6 +43,7 @@ from ..ops.gi_kernel import gi_solve
 from ..ops.admm_kernel import admm_sweep
 from ..ops.qp import solve_qp
 from ..ops.qp_active import solve_qp_active
+from ..utils.lanes import identity_lanes
 from ..utils.small_linalg import inv_spd_small
 from .mesh import LaneShards
 
@@ -203,13 +204,12 @@ class BatchedMHE:
                 self._ddn = mhe_fast.make_nan_downdate(mats)
                 self._r_diag = torch.as_tensor(2.0 * np.diag(np.asarray(t.invR, float)),
                                                dtype=torch.float64, device=dev)
-            self._A_lanes = None          # A_rows per lane, made on first NaN
         self._c = upload(consts, dt, dev)
         # the lane maps, one tensor each for the fleet's life (the kernels'
         # lane grouping is cached per map): every lane reads controller 0
         # (the shared H̃⁻¹ and A), or its own
         self._lc0 = torch.zeros(B, dtype=torch.int32, device=dev)
-        self._lane = torch.arange(B, dtype=torch.int32, device=dev)
+        self._lane = identity_lanes(B, dev)
         if not self._lin:
             # per-lane in-graph arrival covariance: the reference advances
             # P̄ with the covestim at each stream's own arrival state
@@ -304,9 +304,10 @@ class BatchedMHE:
                      ).reshape(self.B, -1)
             Pq_l, Pinv_l = self._ddn(Pq, Pinv, w_nan)
             q, l, u, cx, _ = self._asm(c, U0, D0, Y0m_nn, x_arr, mask_w, invP, mask_v=mask_v)
-            if self._A_lanes is None:
-                self._A_lanes = c["A_rows"].expand(self.B, -1, -1).contiguous()
-            sol = solve_qp_active(Pq_l, q, self._A_lanes, l, u, y0=y0, lane_ctrl=self._lane,
+            # per-lane H̃ and H̃⁻¹ through the identity map; the shared A
+            # through the A map, as the reference's vmap closes over A_rows
+            sol = solve_qp_active(Pq_l, q, c["A_rows"][None], l, u, y0=y0,
+                                  lane_ctrl=self._lane, a_ctrl=self._lc0,
                                   cache=dict(gic_Pinv=Pinv_l), max_active=self._gi_cap,
                                   solve=self.gi)
         x_s, y_s, conv, its = sol.x, sol.y, sol.converged, sol.iters

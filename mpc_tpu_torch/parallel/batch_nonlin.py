@@ -17,6 +17,7 @@ import torch
 
 from ..controllers.nonlinmpc import NonLinMPC
 from ..estimators import UnscentedKalmanFilter
+from ..utils.lanes import identity_lanes
 from .mesh import LaneShards
 
 STATE_KEYS = ("x0_hat", "P_hat", "lastu0", "Z_tilde")
@@ -36,7 +37,7 @@ class _Shard:
             P_hat=P0[None].repeat(B, 1, 1),
             lastu0=torch.zeros(B, model.nu, dtype=dt, device=dev),
             Z_tilde=torch.zeros(B, template.nZt, dtype=dt, device=dev))
-        self.lane = torch.arange(B, dtype=torch.int32, device=dev)
+        self.lane = identity_lanes(B, dev)
         self.corr, self.pred = est._kernels(dt, dev)
         self.h = torch.func.vmap(est.tensor_fns(dt, dev)[1])
         self.c = {k: t(v) for k, v in dict(

@@ -57,7 +57,7 @@ from .ops.qp_active import gi_state_init, solve_qp_active
 from .parallel.mesh import LaneShards
 from .sim import SimResult, _copy_model
 from .utils.config import as_device
-from .utils.lanes import mv, take
+from .utils.lanes import identity_lanes, mv, take
 from .utils.small_linalg import chol_small, inv_spd_small
 
 
@@ -163,7 +163,7 @@ def _lanes(cache, B, device, shared):
     key = (B, torch.device(device))
     if key not in cache:
         cache[key] = (torch.zeros(B, dtype=torch.int32, device=device) if shared
-                      else torch.arange(B, dtype=torch.int32, device=device))
+                      else identity_lanes(B, device))
     return cache[key]
 
 
@@ -506,7 +506,7 @@ class CompiledClosedLoopFleet:
         proto.device, proto.dtype, proto._kf = self.device, self.dtype, False
         proto._ym = _picker(self.i_ym, self.device)
         self._proto = proto
-        self._lane = torch.arange(self.B, dtype=torch.int32, device=self.device)
+        self._lane = identity_lanes(self.B, self.device)
 
     def run(self, N, ry=None, *, y_noise=None, x_0=None, d=None, seed=0):
         """Run all B loops for N steps.  ``ry``: (ny,), (B, ny) or
@@ -883,7 +883,7 @@ def _make_mhe_step(mhe, dtype, device, solvers):
         p = dict(U=U0_w, D=D0_w, Y0m=torch.nan_to_num(Y0m_w), mask_w=mask_w,
                  mask_v=mask_v, invP=invP, x_arr_prior=x_arr_prior, **statics)
         if B not in lanes:
-            lanes[B] = torch.arange(B, dtype=torch.int32, device=device)
+            lanes[B] = identity_lanes(B, device)
         Zt, x_new, _X, _Ym, J, ok, _it = mhe._solve_fn(p, Z, lanes[B], Nk3, *solvers())
         # --- update_cov! (predict) once the window is full ---
         if Nk3 == He:

@@ -17,11 +17,22 @@ with its helpers: the ADMM sweep (10 sweeps) at headline-ADMM (B=4096, n=5,
 m=101, f32), 8x8/Hp=15 (B=256, n=33, m=577, f32) and the same lanes tiled
 to B=4096, and the README plant at B=1 (n=3, m=233, f64); the GI solve at
 headline-GI, large-GI, float64 random QPs (B=4096, n=6, m=24, cap 3) and
-the README plant at B=1.  Each kernel is timed by ``chip_smoke.device_ms``
-(the profiler's kernel records, mean of 10 calls) in turns, parent, this,
-this, parent, and the two outputs are compared.  At 8x8/Hp=15, B=4096 the
+the README plant at B=1; then the launches where every lane owns its QP
+matrices (``chip_smoke.per_lane_inputs``): the nonlin lane's sweep and GI
+solve (B=4096, n=2, m=72), the mhe_nonlin lane's GI solve (B=1024, n=33,
+m=146), the mhe lane's NaN variant (B=4096, n=44, m=104), whose call with
+an A map reaches a parent without one with A copied to every lane, as that
+parent's fleet made it (the copy made in the set-up), the SLMPC fleet's GI
+solve and sweep (B=4096, n=3, m=65) and a compiled-loop fleet's GI solve
+(n_d = B = 128, float64).  Each kernel
+is timed by ``chip_smoke.device_ms`` (the profiler's kernel records, mean
+of 10 calls) in turns, parent, this, this, parent, and the two outputs are
+compared.  At 8x8/Hp=15, B=4096 the
 sweep is also timed at one and two lanes a block (``admm_kernel.GROUP``) in
-turns 1, 2, 2, 1.  Beside each time: the bound, the roofline
+turns 1, 2, 2, 1, the NaN variant's GI at 32 and 16 lanes a block
+(``gi_kernel.LANES_PER_BLOCK``) in turns 32, 16, 16, 32, and the nonlin
+lane's per-lane sweep at 16, 4 and 1 lanes a block
+(``admm_kernel.PER_LANE_WARPS``) in turns 16, 4, 1, 1, 4, 16.  Beside each time: the bound, the roofline
 share and the lanes resident per SM (``chip_smoke.py``'s helpers).  The
 card's name and power limit are printed last.
 """
@@ -35,8 +46,8 @@ import sys
 
 from chip_smoke import (ADMM_KERNELS, GI_KERNELS, ROOT, SWEEP_ARGS, _clone, admm_bound,
                         admm_residency, card_line, device_ms, gi_bound, gi_random_inputs,
-                        gi_residency, gi_steady_inputs, large_controllers, readme_controller,
-                        single_kernel_inputs, steady_inputs, tile_lanes)
+                        gi_residency, gi_steady_inputs, large_controllers, per_lane_inputs,
+                        readme_controller, single_kernel_inputs, steady_inputs, tile_lanes)
 
 PARENT = "parent_mpc_tpu_torch"
 SWEEP_NAMES = ("admm_",)      # the sweep kernels' names, in this checkout and before
@@ -92,31 +103,61 @@ def sweep_case(torch, ops, _build, pops, args):
     return res
 
 
-def group_widths(torch, ops, args, widths=(1, 2)):
-    """The lanes-in-step sweep at each of ``widths`` lanes a block, in turns."""
+def group_widths(torch, ops, args, widths=(1, 2), knob="GROUP"):
+    """The sweep at each of ``widths`` lanes a block (``admm_kernel``'s
+    ``knob``: the lanes in step, or the per-lane geometry's warps), in
+    turns."""
     from mpc_tpu_torch.ops import admm_kernel
-    default, h = admm_kernel.GROUP, {}
+    default, h = getattr(admm_kernel, knob), {}
 
     def at(w):
         def setup():
-            admm_kernel.GROUP = w
+            setattr(admm_kernel, knob, w)
             h["a"] = _clone(args)
         return setup, lambda: ops.admm_sweep(*h["a"])
     try:
         return in_turns(torch, {w: at(w) for w in widths}, ADMM_KERNELS,
                         list(widths) + list(reversed(widths)))
     finally:
-        admm_kernel.GROUP = default
+        setattr(admm_kernel, knob, default)
+
+
+def parent_gi_args(pops, args):
+    """This GI call's arguments for the parent: with an A map its parent may
+    not take, A copied to every lane and the map dropped."""
+    if len(args) <= 16 or "a_ctrl" in inspect.signature(pops.gi_solve).parameters:
+        return args
+    a = list(args[:16])
+    a[1] = args[1].index_select(0, args[16]).contiguous()
+    return a
+
+
+def gi_widths(torch, ops, args, widths):
+    """GI at each of ``widths`` lanes a block (``gi_kernel.LANES_PER_BLOCK``),
+    in turns."""
+    from mpc_tpu_torch.ops import gi_kernel
+    default, h = gi_kernel.LANES_PER_BLOCK, {}
+
+    def at(w):
+        def setup():
+            gi_kernel.LANES_PER_BLOCK = w
+            h["a"] = _clone(args)
+        return setup, lambda: ops.gi_solve(*h["a"])
+    try:
+        return in_turns(torch, {w: at(w) for w in widths}, GI_KERNELS,
+                        list(widths) + list(reversed(widths)))
+    finally:
+        gi_kernel.LANES_PER_BLOCK = default
 
 
 def gi_case(torch, ops, _build, pops, args):
     h = {}
-    setup = lambda: h.update(a=_clone(args))
-    calls = {"new": (setup, lambda: ops.gi_solve(*h["a"])),
-             "parent": (setup, lambda: pops.gi_solve(*h["a"]))}
+    pargs = parent_gi_args(pops, args)
+    calls = {"new": (lambda: h.update(a=_clone(args)), lambda: ops.gi_solve(*h["a"])),
+             "parent": (lambda: h.update(a=_clone(pargs)), lambda: pops.gi_solve(*h["a"]))}
     res = in_turns(torch, calls, GI_KERNELS, ("parent", "new", "new", "parent"))
     xk, _, itk, ck = ops.gi_solve(*_clone(args))
-    xp, _, itp, cp = pops.gi_solve(*_clone(args))
+    xp, _, itp, cp = pops.gi_solve(*_clone(pargs))
     torch.cuda.synchronize()
     res["pivots_mean"] = itk.float().mean().item()
     res["pivots_max"] = int(itk.max())
@@ -180,6 +221,7 @@ def main():
         res = mt.sim(ctrl, 10, [5, 0])
         cases[f"{key} README B=1"] = (key, single_kernel_inputs(
             ops, ctrl, key, res.Y_data[-1], [5, 0]))
+    cases.update(per_lane_inputs(torch, mt, ops, dev))
 
     for name, (kind, a) in cases.items():
         r = (sweep_case if kind == "sweep" else gi_case)(torch, ops, _build, pops, a)
@@ -188,6 +230,13 @@ def main():
     out["sweep 8x8 B=4096 lanes a block"] = group_widths(torch, ops, cases["sweep 8x8 B=4096"][1])
     print("sweep 8x8 B=4096 lanes a block", json.dumps(out["sweep 8x8 B=4096 lanes a block"]),
           flush=True)
+    key = "gi (b) mhe NaN lanes a block"
+    out[key] = gi_widths(torch, ops, cases["gi (b) mhe NaN n=44 m=104"][1], (32, 16))
+    print(key, json.dumps(out[key]), flush=True)
+    key = "sweep NonLinMPC n=2 m=72 per-lane warps a block"
+    out[key] = group_widths(torch, ops, cases["sweep NonLinMPC n=2 m=72"][1], (16, 4, 1),
+                            "PER_LANE_WARPS")
+    print(key, json.dumps(out[key]), flush=True)
     out["card"] = card_line()
     if args.out:
         with open(args.out, "w") as f:

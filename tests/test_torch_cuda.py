@@ -885,3 +885,130 @@ def test_gi_split_at_the_hp60_shape_gives_the_global_bits():
     both = conv & out[None][3]
     assert int(both.sum()) >= 256
     assert (out[None][0] - x)[both].abs().max().item() < 1e-4 * (1.0 + x.abs().max().item())
+
+
+def _geometry(kernel, *args, **kw):
+    """The launch geometry a wrapper takes on the card for these sizes."""
+    from mpc_tpu_torch.ops import gi_kernel
+    props = torch.cuda.get_device_properties(0)
+    mod = gi_kernel if kernel == "gi" else admm_kernel
+    return mod.launch_geometry(*args, min(232448, props.shared_memory_per_block_optin),
+                               props.multi_processor_count, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,B,dtype,slots,cap", [(2, 72, 4096, torch.float32, None, None),
+                                                   (33, 146, 300, torch.float32, None, None),
+                                                   (6, 24, 700, torch.float64, None, 3),
+                                                   (5, 40, 1, torch.float64, None, None)])
+@pytest.mark.parametrize("order", ["identity", "permuted"])
+def test_gi_per_lane_geometry_returns_the_global_bits(n, m, B, dtype, slots, cap, order):
+    """Every lane its own P and A (n_d = B, through the identity map or a
+    permutation): the wrapper takes the per-lane geometry (each warp its
+    lane's own P⁻¹, A and row norms, one load group) and returns the bits of
+    the global layout, which groups the lanes a lane a block as before, and
+    of the split layout with a third of A's rows resident; x within 1e-9
+    (float64) or 1e-4 (float32) of the plain solve."""
+    from mpc_tpu_torch.utils.lanes import identity_lanes
+    dev = _card()
+    lc = (identity_lanes(B, dev) if order == "identity"
+          else torch.randperm(B, generator=torch.Generator().manual_seed(1)).to(
+              dev, torch.int32))
+    a = _gi_problem(dev, dtype, n=n, m=m, B=B, seed=7, lane_ctrl=lc)
+    args = _gi_args(a, lc, cap, slots)
+    s_d, s_s = args[1].element_size(), args[0].element_size()
+    assert _geometry("gi", lc, n, m, args[6].shape[1], s_d, s_s)[1] is None
+    out = {}
+    for layout in (None, "global", ("split", m // 3)):
+        c = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        out[str(layout)] = (*gi_solve(*c, _layout=layout), *c[6:10])
+    p = gi_solve_reference(*[t.clone() if isinstance(t, torch.Tensor) else t for t in args])
+    torch.cuda.synchronize()
+    for other in ("global", str(("split", m // 3))):
+        for r, g in zip(out["None"], out[other]):
+            assert torch.equal(r, g), other
+    k = out["None"]
+    both = k[3] & p[3]
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    assert (k[0] - p[0])[both].abs().max().item() <= tol * (1.0 + p[0].abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,slots", [(torch.float32, None), (torch.float64, None),
+                                         (torch.float32, torch.float32)])
+@pytest.mark.parametrize("n_a", [1, 3])
+def test_gi_a_map_returns_the_copied_a_bits(dtype, slots, n_a):
+    """P⁻¹ a lane and A through its own map (the MHE NaN variant's shape,
+    n=44, m=104, 8 slots, B=600; one shared A or three): the A map returns
+    the bits of the same call with A copied to every lane (the per-lane
+    geometry) and of the global and split layouts with the map; x within
+    1e-9 (float64) or 1e-4 (float32) of the plain solve with the map."""
+    dev = _card()
+    B, n, m = 600, 44, 104
+    a = _gi_problem(dev, dtype, n=n, m=m, B=B, seed=11)
+    ac = (torch.arange(B, device=dev, dtype=torch.int32) * 7) % n_a
+    A_shared = a["A"][:n_a].contiguous()
+    # bounds about a point of the lane's own A
+    g = torch.Generator().manual_seed(3)
+    x0 = (torch.randn(B, n, generator=g, dtype=torch.float64) * 0.1).to(dev, dtype)
+    Ax = (A_shared[ac.long()] @ x0[..., None])[..., 0]
+    a["l"] = torch.where(a["l"] < -1e19, a["l"], Ax - 2.0)
+    a["u"] = Ax + 2.5
+    rec = {}
+
+    def capture(*args):
+        rec["args"] = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        return gi_solve_reference(*args)
+    solve_qp_active(a["P"], a["q"], A_shared, a["l"], a["u"], a["y0"], a_ctrl=ac,
+                    cache=a["cache"], max_active=8, slot_dtype=slots, solve=capture)
+    args = rec["args"]
+    assert len(args) == 17 and _geometry("gi", args[2], n, m, 8, args[1].element_size(),
+                                         args[0].element_size(), a_ctrl=ac)[1] is not None
+    out = {}
+    for layout in (None, "global", ("split", 40)):
+        c = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        out[str(layout)] = (*gi_solve(*c, _layout=layout), *c[6:10])
+    c = [t.clone() if isinstance(t, torch.Tensor) else t for t in args[:16]]
+    c[1] = A_shared.index_select(0, ac).contiguous()
+    out["copied"] = (*gi_solve(*c), *c[6:10])
+    p = gi_solve_reference(*[t.clone() if isinstance(t, torch.Tensor) else t for t in args])
+    torch.cuda.synchronize()
+    for other in ("global", str(("split", 40)), "copied"):
+        for r, g_ in zip(out["None"], out[other]):
+            assert torch.equal(r, g_), other
+    k = out["None"]
+    both = k[3] & p[3]
+    assert int(both.sum()) >= B // 2
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    assert (k[0] - p[0])[both].abs().max().item() <= tol * (1.0 + p[0].abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,B", [(2, 72, 4096), (3, 65, 2112), (8, 40, 1400)])
+def test_sweep_per_lane_geometry_returns_the_global_bits(dtype, n, m, B):
+    """Every lane its own controller (n_d = B) with a batch that puts a warp
+    on each lane: the sweep takes the per-lane geometry (each warp its
+    lane's own A, one load group, the partial sums read together) and
+    returns the bits of the global layout, which groups the lanes a lane a
+    block as before; x, z and y within 1e-4 (float32) or 1e-9 (float64) of
+    the plain sweep, relative to their largest entries."""
+    from mpc_tpu_torch.utils.lanes import identity_lanes
+    dev = _card()
+    lc = identity_lanes(B, dev)
+    assert _geometry("sweep", lc, n, m, dtype.itemsize)[1] is None
+    a = _problem(dev, dtype, n=n, m=m, lane_ctrl=lc.cpu())
+    a["lane_ctrl"] = lc
+    out = {}
+    for layout in (None, "global", "plain"):
+        b = {k: v.clone() for k, v in a.items()}
+        fn = admm_sweep_reference if layout == "plain" else functools.partial(
+            admm_sweep, _layout=layout)
+        fn(*(b[k] for k in SWEEP), 40, 1e-6, 1.6)
+        out[str(layout)] = b
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    for k in ("x", "z", "y"):
+        assert torch.equal(out["None"][k], out["global"][k]), k
+        p = out["plain"][k]
+        assert (out["None"][k] - p).abs().max().item() <= tol * (1.0 + p.abs().max().item()), k
