@@ -9,6 +9,14 @@ on the host.  Then the recorded lanes' data are copied into preallocated
 device buffers (no host synchronisation) and the world advances with the
 port's u.  The window runs periods until ``--seconds`` have passed; with
 ``--trace 1`` a stretch of periods under ``torch.profiler`` follows it.
+
+``attempted`` and ``failed`` count the lane-periods of the cell file's
+``counted_periods`` periods after warm-up, and no others: ``B`` times that
+number, and the lanes the port reports unconverged in them.  Every run of a
+seed then counts the same lane-periods, however fast it ran.  Where the
+window closes before it holds them, the run goes on with the same periods
+until it does; those periods are recorded and checked like the window's,
+and are outside every timing.
 """
 from __future__ import annotations
 
@@ -138,28 +146,37 @@ def run(workload, seed, seconds, trace_on, device, t0, root=registry.ROOT,
     setup_s = t_win - t0
     stages = (f"set-up: {t_start - t0:.3f} s to the run, {t_built - t_start:.3f} s to build "
               f"the cell, {t_win - t_built:.3f} s for {warm} warm-up periods")
+    counted = int(cell_spec["counted_periods"])
     k = warm
     t_end = t_win
     while t_end - t_win < seconds:
         t_end = period(k)
         k += 1
     window_s = t_end - t_win
-    n_win = k - warm
-    win = slice(warm, k)
-    result = dict(correct=False, attempted=B * n_win,
-                  failed=sum(B - n for n in log["nconv"][win]))
+    k_win = k
+    n_win = k_win - warm
+    win = slice(warm, k_win)
+    while k < warm + counted:                   # counted periods the window missed: untimed
+        period(k)
+        k += 1
+    n_past = k - k_win
+    result = dict(correct=False, attempted=B * counted,
+                  failed=sum(B - n for n in log["nconv"][warm:warm + counted]))
+    n_over = max(n_win - counted, 0)
+    over_failed = sum(B - n for n in log["nconv"][warm + counted:k_win])
     ctx = dict(B=B, setup_s=setup_s, window_s=window_s, n_window=n_win,
                period_ms=log["period"][win], kernel=cell.kernel,
                # each window period's whole cycle, start to the next start
-               cycle_s=[b - a for a, b in zip(log["start"][warm:k - 1], log["start"][warm + 1:k])],
-               cycle_launches=_per_period(log["launches"], warm, k - 1))
+               cycle_s=[b - a for a, b in zip(log["start"][warm:k_win - 1],
+                                              log["start"][warm + 1:k_win])],
+               cycle_launches=_per_period(log["launches"], warm, k_win - 1))
     prof = None
     if trace_on:
         n_st = int(cell_spec["stretch_periods"])
-        a = k - min(n_st, n_win)                # the window's last periods
-        ctx["dispatch_ms"] = log["dispatch"][a:k]
-        ctx["launches"] = _per_period(log["launches"], a, k)
-        iters = rec.get("iters_max", a, k)
+        a = k_win - min(n_st, n_win)            # the window's last periods
+        ctx["dispatch_ms"] = log["dispatch"][a:k_win]
+        ctx["launches"] = _per_period(log["launches"], a, k_win)
+        iters = rec.get("iters_max", a, k_win)
         ctx["iters_max"] = None if iters is None else iters.tolist()
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if pinned else [])
@@ -223,6 +240,10 @@ def run(workload, seed, seconds, trace_on, device, t0, root=registry.ROOT,
     notes = [f"cell {workload}: B={B}, seed={seed}, window {window_s:.3f} s, "
              f"{n_win} periods in the window ({len(ctx['period_ms'])} period samples), "
              f"{n_all} periods recorded, {int(cell.check_lanes.numel())} lanes checked",
+             f"counted: {counted} periods after warm-up ({result['attempted']} lane-periods, "
+             f"{result['failed']} unconverged); {n_past} periods run past the timed window; "
+             f"{n_over} timed periods beyond the counted ones, with {over_failed} unconverged "
+             "lane-periods",
              f"window: host dispatch of the step {_mean(log['dispatch'][win]):.3f} ms, "
              f"period {_mean(ctx['period_ms']):.3f} ms, cycle {_mean(ctx['cycle_s']) * 1e3:.3f} ms "
              "(means)",

@@ -4,7 +4,9 @@
 
 from the root of a checkout.  Prints the run's notes and, last, each
 number the correctness check compared beside its limit on standard error,
-and one JSON result line as the last line of standard output.  Exits
+and one JSON result line as the last line of standard output; its
+``attempted`` and ``failed`` count the lane-periods of the cell file's
+``counted_periods`` periods after warm-up, the same in every run.  Exits
 with a non-zero code and prints no result when there is no card (or fewer
 than the cell needs), when the check fails to run, or when ``jax``,
 ``jaxlib``, ``flax`` or ``mpc_tpu`` is loaded once the window has closed.

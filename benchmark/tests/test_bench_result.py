@@ -11,7 +11,7 @@ import torch
 
 from benchmark import harness, registry
 
-from .helpers import small_run
+from .helpers import SMALL, lanes, small_run
 
 SPEC = registry.benchmark_spec()
 
@@ -26,7 +26,8 @@ def test_bench_result_line_schema(workload, trace, capsys):
     assert list(last)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(last)[-1] == "checks"
     assert last["correct"] is True
-    assert last["attempted"] > 0 and 0 <= last["failed"] <= last["attempted"]
+    assert last["attempted"] == lanes(notes) * SMALL[workload][0]["counted_periods"]
+    assert 0 <= last["failed"] <= last["attempted"]
     assert set(last["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
     names = {m["name"]: m for m in registry.cell_metrics(SPEC, workload, trace)}
     for name, m in last["metrics"].items():
