@@ -2371,8 +2371,7 @@ def mhe_nonlin_phase(torch, mt, ops, _build, dev, B=1024, He=10, K=MHE_NL_K):
 def per_lane_inputs(torch, mt, ops, dev, B=4096):
     """The inputs of the per-lane launches (every lane its own QP
     matrices), captured as the phases above capture them, for
-    ``profile_per_lane.py`` and ``profile_kernels.py``: ``{name: (kernel,
-    args)}``.  The nonlin lane's sweep (B=4096, n=2, m=72, f32; the first
+    ``profile_kernels.py``: ``{name: (kernel, args)}``.  The nonlin lane's sweep (B=4096, n=2, m=72, f32; the first
     of 4 ADMM periods from rest with warm duals and the mask mixed) and GI
     solve (n=2, m=72; the first with warm rows on half the lanes), the
     mhe_nonlin lane's GI solve (shape (c), B=1024, n=33, m=146), the mhe

@@ -29,6 +29,7 @@ from ..ops.qp_active import build_gi_cache, gi_state_init, solve_qp_active
 from ..utils.config import BIG, resolve_device
 from ..utils.lanes import mtv, mv, take
 from ..utils.linalg import repeatdiag
+from ..utils.trace import ROOT, span, synced
 from .base import (PredictiveController, default_Hp, estimate_delays,
                    info2debugstr)
 from .construct import (ControllerWeights, init_quadprog, relax_DU,
@@ -483,28 +484,29 @@ class LinMPC(PredictiveController):
             budget = int(np.clip(0.8 * model.Ts / self._iter_cost, 50, 2**30))
         else:
             budget = 2**30
-        if self._budget_dev[0] != budget:
-            self._budget_dev = (budget, torch.tensor(budget, dtype=torch.int32,
-                                                     device=dev))
-        t0_solve = time.perf_counter()
-        ins = [estim.x0_hat, self.lastu0, self.d0, self.D_hat_0, R_hat_y,
-               R_hat_u, xs_hat, ys_full, self.Z_tilde, self.y_dual, ry, y_now,
-               [self.rho_rung]]
-        flat = torch.as_tensor(np.concatenate(ins)[None], dtype=dt).to(dev)
-        (x0_t, lastu0_t, d0_t, Dh_t, Ry_t, Ru_t, xs_t, ys_t, Z_t, y_t, ry_t,
-         yn_t, rung_t) = torch.split(flat, [len(a) for a in ins], dim=1)
-        # the carried GI operator state stays on the device
-        qs = (None if self._qp_state is None
-              else {k: v[None] for k, v in self._qp_state.items()})
-        u, Z_t, y_dual, converged, F, obj, iters, rung, qp_state = self._step(
-            p_dev, x0_t, lastu0_t, d0_t, Dh_t, Ry_t, Ru_t, xs_t, ys_t,
-            Z_t, y_t, rung_t[:, 0].to(torch.int32), self._lane, qp_state=qs,
-            ry=ry_t, y_now=yn_t, iter_budget=self._budget_dev[1])
-        if qp_state is not None:
-            self._qp_state = {k: v[0] for k, v in qp_state.items()}
-        out = torch.cat([u, Z_t, y_dual, F, obj[:, None], iters[:, None].to(dt),
-                         converged[:, None].to(dt), rung[:, None].to(dt)],
-                        1)[0].cpu().numpy()
+        with span(ROOT, dev):
+            if self._budget_dev[0] != budget:
+                self._budget_dev = (budget, synced(torch.tensor(budget, dtype=torch.int32,
+                                                                device=dev)))
+            t0_solve = time.perf_counter()
+            ins = [estim.x0_hat, self.lastu0, self.d0, self.D_hat_0, R_hat_y,
+                   R_hat_u, xs_hat, ys_full, self.Z_tilde, self.y_dual, ry, y_now,
+                   [self.rho_rung]]
+            flat = synced(torch.as_tensor(np.concatenate(ins)[None], dtype=dt).to(dev))
+            (x0_t, lastu0_t, d0_t, Dh_t, Ry_t, Ru_t, xs_t, ys_t, Z_t, y_t, ry_t,
+             yn_t, rung_t) = torch.split(flat, [len(a) for a in ins], dim=1)
+            # the carried GI operator state stays on the device
+            qs = (None if self._qp_state is None
+                  else {k: v[None] for k, v in self._qp_state.items()})
+            u, Z_t, y_dual, converged, F, obj, iters, rung, qp_state = self._step(
+                p_dev, x0_t, lastu0_t, d0_t, Dh_t, Ry_t, Ru_t, xs_t, ys_t,
+                Z_t, y_t, rung_t[:, 0].to(torch.int32), self._lane, qp_state=qs,
+                ry=ry_t, y_now=yn_t, iter_budget=self._budget_dev[1])
+            if qp_state is not None:
+                self._qp_state = {k: v[0] for k, v in qp_state.items()}
+            out = synced(torch.cat([u, Z_t, y_dual, F, obj[:, None], iters[:, None].to(dt),
+                                    converged[:, None].to(dt), rung[:, None].to(dt)],
+                                   1)[0].cpu()).numpy()
         wall = time.perf_counter() - t0_solve
         sizes = np.cumsum([model.nu, self.nZt, self.A_stack.shape[0], F.shape[1]])
         u, Z_h, y_h, F_h, rest = np.split(out, sizes)
@@ -684,112 +686,114 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
         M = lambda k, v: mv(p[k], v, lane_ctrl)
         Mt = lambda k, v: mtv(p[k], v, lane_ctrl)
         full = lambda k, val: torch.full((B, k), val, dtype=dt, device=dev)
-        # --- stochastic + deterministic output predictions F (initpred!) ---
-        Ys = M("Ks", xs_hat) + M("Ps", ys_hat)
-        F = L("B") + M("K", x0_hat) + M("V", lastu0) + Ys
-        if nd:
-            F = F + M("G", d0) + M("J", D_hat_0)
-        Tu_lastu0 = M("Tu", lastu0)
-        # --- linear coefficient q̃ (initpred!, execute.jl:247-277) ---
-        Cy = F + L("Yop") - R_hat_y
-        Cu = Tu_lastu0 + L("Uop") - R_hat_u
-        q = 2.0 * (Mt("E_t", M("M_Hp", Cy)) + Mt("Pu_t", M("L_Hp", Cu)))
-        r_const = (torch.sum(Mt("M_Hp", Cy) * Cy, -1)
-                   + torch.sum(Mt("L_Hp", Cu) * Cu, -1))
-        # --- terminal prediction fx̂ (linconstraint!) ---
-        fx = L("bx") + M("kx", x0_hat) + M("vx", lastu0)
-        if nd:
-            fx = fx + M("gx", d0) + M("jx", D_hat_0)
-        # --- custom linear constraints Fw (relaxW + linconstraint_custom!,
-        # execute.jl:337-366) ---
-        if nw:
-            if ry is None or y_now is None:
-                raise ValueError("custom linear constraints need the step's "
-                                 "ry and y_now")
-            Ue_t = torch.cat([Tu_lastu0 + L("Uop"), lastu0 + L("Uop")[:, :nu]], -1)
-            Fw = M("Wu_bar", Ue_t)
+        with span("qp.build"):
+            # --- stochastic + deterministic output predictions F (initpred!) ---
+            Ys = M("Ks", xs_hat) + M("Ps", ys_hat)
+            F = L("B") + M("K", x0_hat) + M("V", lastu0) + Ys
             if nd:
-                De_t = torch.cat([d0 + L("dop_w"), D_hat_0 + L("Dop_w")], -1)
-                Fw = Fw + M("Wd_bar", De_t)
-            Fw = Fw + M("Wr_bar", torch.cat([ry, R_hat_y], -1))
-            Fw = Fw + M("Wy_bar", torch.cat([y_now, F + L("Yop")], -1))
-            bW = torch.cat([-L("Wmin_b") + Fw, L("Wmax_b") - Fw], -1)
-        else:
-            bW = F.new_zeros(B, 0)
-        # --- inequality RHS b (transcription.jl:824-842 order) ---
-        b = torch.cat([
-            -L("U0min") + Tu_lastu0,
-            L("U0max") - Tu_lastu0,
-            -L("DUmin"),
-            L("DUmax"),
-            -L("Y0min") + F,
-            L("Y0max") - F,
-            bW,
-            -L("x0min") + fx,
-            L("x0max") - fx,
-        ], -1)
-        b = torch.clamp(b, -2e18, 2e18)
-        # --- equality RHS beq = −FS (linconstrainteq!) ---
-        FS = L("BS") + M("KS", x0_hat) + M("VS", lastu0)
-        if nd and n_eq:
-            FS = FS + M("GS", d0) + M("JS", D_hat_0)
-        beq = -FS
-        # --- stack l ≤ A Z̃ ≤ u ---
-        l = torch.cat([full(n_ineq, -2e18), full(n_eps, 0.0), beq], -1)
-        u_vec = torch.cat([b, full(n_eps, 2e18), beq], -1)
-        # --- warm start: shift previous solution (transcription.jl:997-1100) ---
-        nDU = nu * Hc
-        Zs = torch.zeros_like(Z_prev)
-        Zs[:, :nDU - nu] = Z_prev[:, nu:nDU]
-        if is_ms:
-            nX = nZ - nDU  # = nx̂*Hp
-            Zs[:, nDU:nDU + nX - nx_hat] = Z_prev[:, nDU + nx_hat:nDU + nX]
-            Zs[:, nDU + nX - nx_hat:nDU + nX] = Z_prev[:, nDU + nX - nx_hat:nDU + nX]
-        if n_eps:
-            Zs[:, -1] = Z_prev[:, -1]
-        # --- solve QP ---
-        def gi_qp(P, q_, A, l_, u_, y0):
-            # GI with the cross-period operator carry when qp_state is given
-            # (P and A are step-invariant, so the carried inverse Gram stays
-            # exact); dual-seed warm start otherwise
-            return solve_qp_active(
-                P, q_, A, l_, u_, None if qp_state is not None else y0,
-                lane_ctrl=lane_ctrl, cache={"gic_Pinv": p["gic_Pinv"]},
-                state0=qp_state, iter_budget=iter_budget,
-                max_active=gi_max_active, slot_dtype=slot_dtype, solve=gi)
-
-        if not use_as:
-            cache = {k: p[k] for k in ADMM_CACHE_KEYS}
-        if is_ms and n_eq:
-            # MultipleShooting via construct-time equality elimination:
-            # Z̃ = Z̃p + N v with ES̃ N = 0
-            n_ie = n_ineq + n_eps
-            Zp = M("Aeq_dag", beq)
-            q_r = Mt("Nnull", q) + M("NTH", Zp)
-            shift = mv(p["A_stack"][:, :n_ie], Zp, lane_ctrl)
-            l_r = torch.clamp(l[:, :n_ie] - shift, -2e18, 2e18)
-            u_r = torch.clamp(u_vec[:, :n_ie] - shift, -2e18, 2e18)
-            y0r = y_prev[:, :n_ie].contiguous()
-            if use_as:
-                sol = gi_qp(p["H_r"], q_r, p["A_r"], l_r, u_r, y0r)
+                F = F + M("G", d0) + M("J", D_hat_0)
+            Tu_lastu0 = M("Tu", lastu0)
+            # --- linear coefficient q̃ (initpred!, execute.jl:247-277) ---
+            Cy = F + L("Yop") - R_hat_y
+            Cu = Tu_lastu0 + L("Uop") - R_hat_u
+            q = 2.0 * (Mt("E_t", M("M_Hp", Cy)) + Mt("Pu_t", M("L_Hp", Cu)))
+            r_const = (torch.sum(Mt("M_Hp", Cy) * Cy, -1)
+                       + torch.sum(Mt("L_Hp", Cu) * Cu, -1))
+            # --- terminal prediction fx̂ (linconstraint!) ---
+            fx = L("bx") + M("kx", x0_hat) + M("vx", lastu0)
+            if nd:
+                fx = fx + M("gx", d0) + M("jx", D_hat_0)
+            # --- custom linear constraints Fw (relaxW + linconstraint_custom!,
+            # execute.jl:337-366) ---
+            if nw:
+                if ry is None or y_now is None:
+                    raise ValueError("custom linear constraints need the step's "
+                                     "ry and y_now")
+                Ue_t = torch.cat([Tu_lastu0 + L("Uop"), lastu0 + L("Uop")[:, :nu]], -1)
+                Fw = M("Wu_bar", Ue_t)
+                if nd:
+                    De_t = torch.cat([d0 + L("dop_w"), D_hat_0 + L("Dop_w")], -1)
+                    Fw = Fw + M("Wd_bar", De_t)
+                Fw = Fw + M("Wr_bar", torch.cat([ry, R_hat_y], -1))
+                Fw = Fw + M("Wy_bar", torch.cat([y_now, F + L("Yop")], -1))
+                bW = torch.cat([-L("Wmin_b") + Fw, L("Wmax_b") - Fw], -1)
             else:
-                v0 = Mt("Nnull", Zs - Zp)
-                sol = solve_qp(p["H_r"], q_r, p["A_r"], l_r, u_r, x0=v0,
-                               y0=y0r, rung0=rung_prev, cache=cache,
+                bW = F.new_zeros(B, 0)
+            # --- inequality RHS b (transcription.jl:824-842 order) ---
+            b = torch.cat([
+                -L("U0min") + Tu_lastu0,
+                L("U0max") - Tu_lastu0,
+                -L("DUmin"),
+                L("DUmax"),
+                -L("Y0min") + F,
+                L("Y0max") - F,
+                bW,
+                -L("x0min") + fx,
+                L("x0max") - fx,
+            ], -1)
+            b = torch.clamp(b, -2e18, 2e18)
+            # --- equality RHS beq = −FS (linconstrainteq!) ---
+            FS = L("BS") + M("KS", x0_hat) + M("VS", lastu0)
+            if nd and n_eq:
+                FS = FS + M("GS", d0) + M("JS", D_hat_0)
+            beq = -FS
+            # --- stack l ≤ A Z̃ ≤ u ---
+            l = torch.cat([full(n_ineq, -2e18), full(n_eps, 0.0), beq], -1)
+            u_vec = torch.cat([b, full(n_eps, 2e18), beq], -1)
+            # --- warm start: shift previous solution (transcription.jl:997-1100) ---
+            nDU = nu * Hc
+            Zs = torch.zeros_like(Z_prev)
+            Zs[:, :nDU - nu] = Z_prev[:, nu:nDU]
+            if is_ms:
+                nX = nZ - nDU  # = nx̂*Hp
+                Zs[:, nDU:nDU + nX - nx_hat] = Z_prev[:, nDU + nx_hat:nDU + nX]
+                Zs[:, nDU + nX - nx_hat:nDU + nX] = Z_prev[:, nDU + nX - nx_hat:nDU + nX]
+            if n_eps:
+                Zs[:, -1] = Z_prev[:, -1]
+        with span("qp.solve"):
+            # --- solve QP ---
+            def gi_qp(P, q_, A, l_, u_, y0):
+                # GI with the cross-period operator carry when qp_state is given
+                # (P and A are step-invariant, so the carried inverse Gram stays
+                # exact); dual-seed warm start otherwise
+                return solve_qp_active(
+                    P, q_, A, l_, u_, None if qp_state is not None else y0,
+                    lane_ctrl=lane_ctrl, cache={"gic_Pinv": p["gic_Pinv"]},
+                    state0=qp_state, iter_budget=iter_budget,
+                    max_active=gi_max_active, slot_dtype=slot_dtype, solve=gi)
+
+            if not use_as:
+                cache = {k: p[k] for k in ADMM_CACHE_KEYS}
+            if is_ms and n_eq:
+                # MultipleShooting via construct-time equality elimination:
+                # Z̃ = Z̃p + N v with ES̃ N = 0
+                n_ie = n_ineq + n_eps
+                Zp = M("Aeq_dag", beq)
+                q_r = Mt("Nnull", q) + M("NTH", Zp)
+                shift = mv(p["A_stack"][:, :n_ie], Zp, lane_ctrl)
+                l_r = torch.clamp(l[:, :n_ie] - shift, -2e18, 2e18)
+                u_r = torch.clamp(u_vec[:, :n_ie] - shift, -2e18, 2e18)
+                y0r = y_prev[:, :n_ie].contiguous()
+                if use_as:
+                    sol = gi_qp(p["H_r"], q_r, p["A_r"], l_r, u_r, y0r)
+                else:
+                    v0 = Mt("Nnull", Zs - Zp)
+                    sol = solve_qp(p["H_r"], q_r, p["A_r"], l_r, u_r, x0=v0,
+                                   y0=y0r, rung0=rung_prev, cache=cache,
+                                   lane_ctrl=lane_ctrl, iter_budget=iter_budget,
+                                   sweep=sweep)
+                Z_sol = Zp + M("Nnull", sol.x)
+                y_full = torch.cat([sol.y, full(n_eq, 0.0)], -1)
+                obj = (sol.obj + 0.5 * torch.sum(Zp * M("H", Zp), -1)
+                       + torch.sum(q * Zp, -1))
+                sol = sol._replace(x=Z_sol, y=y_full, obj=obj)
+            elif use_as:
+                sol = gi_qp(p["H"], q, p["A_stack"], l, u_vec, y_prev)
+            else:
+                sol = solve_qp(p["H"], q, p["A_stack"], l, u_vec, x0=Zs,
+                               y0=y_prev, rung0=rung_prev, cache=cache,
                                lane_ctrl=lane_ctrl, iter_budget=iter_budget,
                                sweep=sweep)
-            Z_sol = Zp + M("Nnull", sol.x)
-            y_full = torch.cat([sol.y, full(n_eq, 0.0)], -1)
-            obj = (sol.obj + 0.5 * torch.sum(Zp * M("H", Zp), -1)
-                   + torch.sum(q * Zp, -1))
-            sol = sol._replace(x=Z_sol, y=y_full, obj=obj)
-        elif use_as:
-            sol = gi_qp(p["H"], q, p["A_stack"], l, u_vec, y_prev)
-        else:
-            sol = solve_qp(p["H"], q, p["A_stack"], l, u_vec, x0=Zs,
-                           y0=y_prev, rung0=rung_prev, cache=cache,
-                           lane_ctrl=lane_ctrl, iter_budget=iter_budget,
-                           sweep=sweep)
         Z_t = torch.where(sol.converged[:, None], sol.x, Zs)
         # --- receding horizon input (getinput!, execute.jl:536-546),
         # clamped to the (soft-relaxed) actuator box for hard safety ---

@@ -30,6 +30,7 @@ from ..ops.qp import solve_qp
 from ..ops.qp_active import solve_qp_active
 from ..utils.config import BIG, as_device, resolve_device
 from ..utils.lanes import identity_lanes, mtv, mv
+from ..utils.trace import ROOT, keep_max, span, synced
 from .base import PredictiveController
 from .construct import ControllerWeights
 from .linmpc import _clipinf
@@ -272,54 +273,61 @@ class SLMPC(PredictiveController):
             d0 = d - dop if nd else d
             u0_last = lastu - uop
             xd, xs = x_hat[:, :nx], x_hat[:, nx:]
-            # --- EKF correction: h-Jacobian at the prior estimate (the
-            # previous model, as in the reference SL pattern) ---
-            Cs_y_b = Cs_y.expand(B, ny, nxs)
-            C1, y1 = jac_h(xd, d0)
-            Chm = torch.cat([C1, Cs_y_b], -1)[:, i_ym, :]
-            y_pred_m = (y1 + xs @ Cs_y.mT)[:, i_ym] + yopm
-            xc, Pc = kf_correct(x_hat, P_hat, y_pred_m, ym, Chm, R_hat)
-            xcd = xc[:, :nx]
-            # --- re-linearize at the corrected estimate (Jacobians of the
-            # deviation dynamics; d is pinned over Hp, so no Bd/Dd) ---
-            A, Bu, fx = jac_f(xcd, u0_last, d0)
-            C, yx = jac_h(xcd, d0)
-            Ah = torch.cat([torch.cat([A, Bu @ Cs_u], -1),
-                            torch.cat([A.new_zeros(B, nxs, nx), As.expand(B, nxs, nxs)], -1)],
-                           -2)
-            Buh = torch.cat([Bu, Bu.new_zeros(B, nxs, nu)], -2)
-            Ch = torch.cat([C, Cs_y_b], -1)
-            E, K, Bc = predmat(Ah, Buh, Ch)
-            # deviation around the linearization point [xcd; 0]: only the
-            # stochastic substate is displaced
-            x0c = torch.cat([xcd.new_zeros(B, nx), xc[:, nx:]], 1)
-            f_aff = torch.cat([fx + fop_m_xop_d - xcd, xcd.new_zeros(B, nxs)], 1)
-            F = mv(K, x0c) + mv(Bc, f_aff)
-            Yop = (yx + yop).repeat(1, Hp)  # absolute outputs at the op point
-            # u deviation: op point = lastu; input target = uop (R̂u = Uop)
-            Cy = F + Yop - ry.repeat(1, Hp)
-            Cu = (lastu - uop).repeat(1, Hp)
-            Et = torch.cat([E, E.new_zeros(B, Hp * ny, n_eps)], -1)
-            q = 2.0 * (mtv(Et, mv(M_Hp, Cy)) + mtv(Pu_t, mv(L_Hp, Cu)))
-            H = 2.0 * (Et.mT @ M_Hp @ Et + H_du + H_u)
-            H = 0.5 * (H + H.mT) + H_reg
-            A_rows, l, u = rows(E, F, Yop, lastu, bd)
-            Zs = shift(st["Z"])
-            if use_as:
-                # exact GI dual active set, warm-started from the previous
-                # period's duals; P⁻¹ per lane in the solve
-                sol = solve_qp_active(H, q, A_rows, l, u, y0=st["ydual"],
-                                      lane_ctrl=lane_ctrl)
-            else:
-                sol = solve_qp(H, q, A_rows, l, u, x0=Zs, y0=st["ydual"],
-                               max_iter=1000)
+            with span("estimator.correct"):
+                # the EKF's correction: h-Jacobian at the prior estimate (the
+                # previous model, as in the reference SL pattern)
+                Cs_y_b = Cs_y.expand(B, ny, nxs)
+                C1, y1 = jac_h(xd, d0)
+                # indexing by the host list i_ym uploads it: a host sync each
+                Chm = synced(torch.cat([C1, Cs_y_b], -1)[:, i_ym, :])
+                y_pred_m = synced((y1 + xs @ Cs_y.mT)[:, i_ym]) + yopm
+                xc, Pc = kf_correct(x_hat, P_hat, y_pred_m, ym, Chm, R_hat)
+                xcd = xc[:, :nx]
+            with span("linearize"):
+                # re-linearize at the corrected estimate (Jacobians of the
+                # deviation dynamics; d is pinned over Hp, so no Bd/Dd)
+                A, Bu, fx = jac_f(xcd, u0_last, d0)
+                C, yx = jac_h(xcd, d0)
+                Ah = torch.cat([torch.cat([A, Bu @ Cs_u], -1),
+                                torch.cat([A.new_zeros(B, nxs, nx), As.expand(B, nxs, nxs)],
+                                          -1)], -2)
+                Buh = torch.cat([Bu, Bu.new_zeros(B, nxs, nu)], -2)
+                Ch = torch.cat([C, Cs_y_b], -1)
+            with span("qp.build"):
+                E, K, Bc = predmat(Ah, Buh, Ch)
+                # deviation around the linearization point [xcd; 0]: only the
+                # stochastic substate is displaced
+                x0c = torch.cat([xcd.new_zeros(B, nx), xc[:, nx:]], 1)
+                f_aff = torch.cat([fx + fop_m_xop_d - xcd, xcd.new_zeros(B, nxs)], 1)
+                F = mv(K, x0c) + mv(Bc, f_aff)
+                Yop = (yx + yop).repeat(1, Hp)  # absolute outputs at the op point
+                # u deviation: op point = lastu; input target = uop (R̂u = Uop)
+                Cy = F + Yop - ry.repeat(1, Hp)
+                Cu = (lastu - uop).repeat(1, Hp)
+                Et = torch.cat([E, E.new_zeros(B, Hp * ny, n_eps)], -1)
+                q = 2.0 * (mtv(Et, mv(M_Hp, Cy)) + mtv(Pu_t, mv(L_Hp, Cu)))
+                H = 2.0 * (Et.mT @ M_Hp @ Et + H_du + H_u)
+                H = 0.5 * (H + H.mT) + H_reg
+                A_rows, l, u = rows(E, F, Yop, lastu, bd)
+                Zs = shift(st["Z"])
+            with span("qp.solve"):
+                if use_as:
+                    # exact GI dual active set, warm-started from the previous
+                    # period's duals; P⁻¹ per lane in the solve
+                    sol = solve_qp_active(H, q, A_rows, l, u, y0=st["ydual"],
+                                          lane_ctrl=lane_ctrl)
+                    keep_max("gi_pivots_max", sol.iters)
+                else:
+                    sol = solve_qp(H, q, A_rows, l, u, x0=Zs, y0=st["ydual"],
+                                   max_iter=1000)
             Z = torch.where(sol.converged[:, None], sol.x, Zs)
             u_new = torch.clamp(Z[:, :nu] + lastu, bd["umin"], bd["umax"])
-            # --- EKF prediction (exact augmented deviation dynamics) ---
-            u0_dist = (u_new - uop) + xc[:, nx:] @ Cs_u.mT
-            xn_raw = torch.cat([vf(xcd, u0_dist, d0) + fop_m_xop_d,
-                                xc[:, nx:] @ As.mT], 1)
-            xn, Pn = kf_predict(xn_raw, Pc, Ah, Q_hat, 0.0)
+            with span("estimator.predict"):
+                # the EKF's prediction (exact augmented deviation dynamics)
+                u0_dist = (u_new - uop) + xc[:, nx:] @ Cs_u.mT
+                xn_raw = torch.cat([vf(xcd, u0_dist, d0) + fop_m_xop_d,
+                                    xc[:, nx:] @ As.mT], 1)
+                xn, Pn = kf_predict(xn_raw, Pc, Ah, Q_hat, 0.0)
             new_st = dict(x_hat=xn, P_hat=Pn, lastu=u_new, Z=Z, ydual=sol.y)
             return u_new, sol.converged, new_st
 
@@ -340,13 +348,14 @@ class SLMPC(PredictiveController):
         Returns the applied u (NumPy) and whether the QP converged."""
         ins = [np.asarray(a, float).ravel()
                for a in (ym, ry, np.zeros(0) if d is None else d)]
-        # one upload for the period's inputs
-        flat = torch.as_tensor(np.concatenate(ins), dtype=self.dtype).to(self.device)
-        ym_t, ry_t, d_t = (t[None] for t in flat.split([a.size for a in ins]))
-        st = {k: v[None] for k, v in self.state.items()}
-        u, conv, st = self._step(st, ym_t, ry_t, d_t, self.bounds(), self._lane)
-        self.state = {k: v[0] for k, v in st.items()}
-        return u[0].cpu().numpy(), bool(conv[0])
+        with span(ROOT, self.device):
+            # one upload for the period's inputs
+            flat = synced(torch.as_tensor(np.concatenate(ins), dtype=self.dtype).to(self.device))
+            ym_t, ry_t, d_t = (t[None] for t in flat.split([a.size for a in ins]))
+            st = {k: v[None] for k, v in self.state.items()}
+            u, conv, st = self._step(st, ym_t, ry_t, d_t, self.bounds(), self._lane)
+            self.state = {k: v[0] for k, v in st.items()}
+            return synced(u[0].cpu()).numpy(), synced(bool(conv[0]))
 
     def _step_on(self, dev):
         """``_step`` with its constants on ``dev`` (made once a device)."""
@@ -379,5 +388,6 @@ class SLMPC(PredictiveController):
         step = self._step
 
         def fleet_step(st, ym, ry, d, bounds):
-            return step(st, ym, ry, d, bounds, lane_ctrl)
+            with span(ROOT, lane_ctrl.device):
+                return step(st, ym, ry, d, bounds, lane_ctrl)
         return fleet_step

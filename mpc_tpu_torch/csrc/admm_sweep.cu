@@ -107,14 +107,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Profiling cuts: profile_per_lane.py builds copies with -DMPC_CUT=k to see
-// where a per-lane launch's time goes (their results are wrong).  0, the
-// default, cuts nothing; 1 returns at the kernel's start, 2 after the loads,
-// 4 runs one sweep instead of `iters`.
-#ifndef MPC_CUT
-#define MPC_CUT 0
-#endif
-
 namespace {
 
 constexpr int kMaxWarps = 16;   // ops/_build.py::MAX_WARPS
@@ -253,8 +245,6 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
                  T* __restrict__ x, T* __restrict__ z, T* __restrict__ y,
                  const uint8_t* __restrict__ active, unsigned char* ws, int n, int m, int n_lad,
                  int iters, T sigma, T alpha) {
-  if (MPC_CUT == 1) return;
-  if (MPC_CUT == 4) iters = 1;
   if constexpr (NC > 0) n = NC;        // the launch checked n == NC
   constexpr bool GLOBAL = LAYOUT == kGlobal;
   const int tid = threadIdx.x;
@@ -328,7 +318,6 @@ admm_warp_kernel(const T* __restrict__ Minvs, const T* __restrict__ A,
   }
   __pipeline_wait_prior(0);
   __syncwarp();
-  if (MPC_CUT == 2) return;
 
   const int parts = 32 / n;            // row classes of the Aᵀv split
   const int pj = lane % n, pp = lane / n;

@@ -102,15 +102,6 @@
 #include <math.h>
 #include <stdint.h>
 
-// Profiling cuts: profile_per_lane.py builds copies with -DMPC_CUT=k to see
-// where a per-lane launch's time goes (their results are wrong).  0, the
-// default, cuts nothing; 1 returns at the kernel's start, 2 returns after
-// the loads without the row norms, 3 after the loads and the row norms, 4
-// runs one pivot (warm or main) a lane.
-#ifndef MPC_CUT
-#define MPC_CUT 0
-#endif
-
 namespace {
 
 constexpr int kMaxWarps = 16;     // ops/_build.py::MAX_WARPS
@@ -501,7 +492,7 @@ __device__ void solve_lane(int b, unsigned char* wsm, const RowsOf<TD> A,
   __syncwarp();
   if constexpr (OWN) {
     // the row norms of the lane's own A: a thread a row, each sum in j order
-    for (int i = lane; i < m && MPC_CUT != 2; i += 32) {
+    for (int i = lane; i < m; i += 32) {
       const TD* a = A.res + (size_t)i * A.lda;
       TD s2 = TD(0);
       for (int j = 0; j < n; ++j) s2 += a[j] * a[j];
@@ -514,12 +505,11 @@ __device__ void solve_lane(int b, unsigned char* wsm, const RowsOf<TD> A,
     sAact[e] = svm[s] ? row(sidx[s])[j] : TD(0);
   }
   __syncwarp();
-  if (MPC_CUT == 2 || MPC_CUT == 3) return;
 
   // the lane's scalar carry, the same in every thread of the warp
   int it = 0, wpos = 0;
   const int wcnt = wcnt_g[b];
-  const int max_it = MPC_CUT == 4 ? min(max_it_g[b], 1) : max_it_g[b];
+  const int max_it = max_it_g[b];
   int done = !(warm || wcnt > 0);
 
   // ---- warm loop: insert one pending warm row, or KKT jump + wrong-sign drop --
@@ -841,7 +831,6 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
                 TS* __restrict__ lam_out, int32_t* __restrict__ it_out,
                 uint8_t* __restrict__ conv_out, unsigned char* ws, int n, int m,
                 int ns, int warm, double tol) {
-  if (MPC_CUT == 1) return;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int warp = tid >> 5;
@@ -896,7 +885,7 @@ gi_solve_kernel(const TS* __restrict__ Pinv, const TD* __restrict__ A,
     srn = A_s + (size_t)nres * lda;
     wsm = smem_raw + ctrl_bytes<TD, TS>(n, nres, m, pw) + warp * slice;
   }
-  for (int i = tid; i < m && MPC_CUT != 2 && !OWN; i += nt) {
+  for (int i = tid; i < m && !OWN; i += nt) {
     TD s2 = TD(0);
     if (LAYOUT != kSplit || i < rows_of.nres) {
       const TD* a = rows_of.res + (size_t)i * rows_of.lda;

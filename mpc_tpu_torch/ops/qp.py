@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils.lanes import identity_lanes, mtv, mv, take
+from ..utils.trace import synced
 from .admm_kernel import admm_sweep
 
 _BIG = 1e18  # bounds beyond this are treated as infinite
@@ -312,7 +313,7 @@ def solve_qp(P, q, A, l, u, x0=None, y0=None, *, cache=None, lane_ctrl=None,
     best = torch.full((B,), float("inf"), dtype=dt, device=dev)
     stall = torch.zeros(B, dtype=torch.int32, device=dev)
     active = ~exit_ & (it < max_it)
-    while bool(active.any()):
+    while synced(bool(active.any())):
         y_prev = y.clone()
         # the sweep reads each lane's Minv and ρ off the ladder by its rung
         sweep(Minvs_c, A_c, lane_ctrl, j, q_c, l_c, u_c, rhovs_c, x, z, y,
@@ -429,8 +430,10 @@ def _polish(P, q, A, l, u, x, y, fin_l, fin_u, eq_mask, iters=3,
         act = act_low | act_up
         b = torch.where(act_low, l, u)
         margin = torch.minimum((z - l).abs(), (u - z).abs()) / row_scale
+        # (the upload of _BIG blocks the host: a host sync)
         score = (act.to(dt) * (1.0 + y.abs() + 1.0 / (margin + 1e-6))
-                 + torch.where(eq_mask, torch.tensor(_BIG, dtype=dt, device=q.device), 0.0))
+                 + torch.where(eq_mask, synced(torch.tensor(_BIG, dtype=dt, device=q.device)),
+                               0.0))
         idx = torch.topk(score, k, dim=-1).indices
         Ak = A[rows, idx]
         eqk = torch.gather(eq_mask, 1, idx)
@@ -443,7 +446,7 @@ def _polish(P, q, A, l, u, x, y, fin_l, fin_u, eq_mask, iters=3,
             torch.cat([P + delta * eye_n, Am.transpose(-1, -2)], -1),
             torch.cat([Am, -delta * eye_k - torch.diag_embed(1.0 - actf)], -1),
         ], -2)
-        Kinv = torch.linalg.inv(K)
+        Kinv = synced(torch.linalg.inv(K))     # its error check reads the device
         rhs = torch.cat([-q, actf * bk], -1)
         Am_h, actf_h, b_h = Am.to(hi), actf.to(hi), bk.to(hi)
         sol = mv(Kinv, rhs)

@@ -25,6 +25,7 @@ from ..ops.qp import _check_cache_penalties
 from ..ops.qp_active import gi_state_init
 from ..utils.config import as_device, resolve_device
 from ..utils.lanes import mv, take
+from ..utils.trace import ROOT, span, synced
 from .grouped import lane_ctrl as _lane_ctrl
 from .mesh import LaneShards
 
@@ -402,14 +403,14 @@ class BatchedLinMPC:
         ep, st, lc, B = part.eparams, part.state, part.lane_ctrl, ym.shape[0]
         E = lambda k: take(ep[k], lc)
         EM = lambda k, v: mv(ep[k], v, lc)
-        # --- estimator correction (SKF constant gain) ---
-        d0 = d - E("dop") if self.nd else d
-        y0m = ym - E("yop_m")
-        x0 = st["x0_hat"]
-        v = y0m - EM("Cm_hat", x0)
-        if self.nd:
-            v = v - EM("Ddm_hat", d0)
-        x0c = x0 + EM("K_hat", v)
+        with span("estimator.correct"):     # the SKF's constant gain
+            d0 = d - E("dop") if self.nd else d
+            y0m = ym - E("yop_m")
+            x0 = st["x0_hat"]
+            v = y0m - EM("Cm_hat", x0)
+            if self.nd:
+                v = v - EM("Ddm_hat", d0)
+            x0c = x0 + EM("K_hat", v)
         # --- MPC solve ---
         zeros = lambda k: torch.zeros(B, k, dtype=self.dtype, device=ym.device)
         u, Z_t, y_dual, conv, _F, _obj, iters, rung, qps = self._step_raw(
@@ -420,11 +421,11 @@ class BatchedLinMPC:
             qp_state=st["qp_state"], gi=self.gi,
             iter_budget=None if budget >= 2**30 else budget)
         lastu0 = u - E("uop")
-        # --- estimator prediction ---
-        x0n = EM("A_hat", x0c) + EM("Bu_hat", lastu0)
-        if self.nd:
-            x0n = x0n + EM("Bd_hat", d0)
-        x0n = x0n + E("fop_m_xop")
+        with span("estimator.predict"):
+            x0n = EM("A_hat", x0c) + EM("Bu_hat", lastu0)
+            if self.nd:
+                x0n = x0n + EM("Bd_hat", d0)
+            x0n = x0n + E("fop_m_xop")
         part.state = dict(x0_hat=x0n, lastu0=lastu0, Z_tilde=Z_t,
                           y_dual=y_dual, rho_rung=rung, qp_state=qps)
         return u, conv, iters
@@ -449,23 +450,24 @@ class BatchedLinMPC:
         ``last_iters`` and records ``last_step_time``, ``last_iter_budget``,
         ``last_deadline_miss`` and ``deadline_miss_count``; the first step
         neither seeds the cost EWMA nor counts as a miss."""
-        budget = self._budget(self._iter_cost if self.limit_solve_time else None)
-        t0 = time.perf_counter()
-        u, n_conv = self._period(*self._inputs(ym, ry, d), budget)
-        self.last_iter_budget = budget
-        if self.limit_solve_time:
-            # the lockstep cost per iteration is set by the slowest lane
-            it_max = float(self.last_iters[0].item())
-            wall = time.perf_counter() - t0
-            first = self.last_step_time is None
-            if not first and it_max > 0:
-                c = wall / it_max
-                self._iter_cost = c if self._iter_cost is None else \
-                    0.7 * self._iter_cost + 0.3 * c
-            self.last_step_time = wall
-            self.last_deadline_miss = (not first) and wall > self.Ts
-            if self.last_deadline_miss:
-                self.deadline_miss_count += 1
+        with span(ROOT, self.device):
+            budget = self._budget(self._iter_cost if self.limit_solve_time else None)
+            t0 = time.perf_counter()
+            u, n_conv = self._period(*self._inputs(ym, ry, d), budget)
+            self.last_iter_budget = budget
+            if self.limit_solve_time:
+                # the lockstep cost per iteration is set by the slowest lane
+                it_max = float(synced(self.last_iters[0].item()))
+                wall = time.perf_counter() - t0
+                first = self.last_step_time is None
+                if not first and it_max > 0:
+                    c = wall / it_max
+                    self._iter_cost = c if self._iter_cost is None else \
+                        0.7 * self._iter_cost + 0.3 * c
+                self.last_step_time = wall
+                self.last_deadline_miss = (not first) and wall > self.Ts
+                if self.last_deadline_miss:
+                    self.deadline_miss_count += 1
         return u, n_conv
 
     def multistep(self, ym_seq, ry_seq, d_seq=None):
@@ -489,13 +491,14 @@ class BatchedLinMPC:
         U, NC, IT = [], [], []
         for k in range(K):
             at = lambda parts: [x[k] for x in parts]
-            u, n_conv = self._period(at(ym_p), at(ry_p), at(d_p), budget)
+            with span(ROOT, self.device):
+                u, n_conv = self._period(at(ym_p), at(ry_p), at(d_p), budget)
             U.append(u)
             NC.append(n_conv)
             IT.append(self.last_iters[0])
         self.last_iter_budget = budget
         if self.limit_solve_time:
-            it_max = torch.stack(IT).cpu().numpy().astype(float)
+            it_max = synced(torch.stack(IT).cpu()).numpy().astype(float)
             wall = time.perf_counter() - t0
             miss = (it_max * ic > self.Ts) if ic > 0 else np.zeros(K, bool)
             shape_key = (K, self.B)

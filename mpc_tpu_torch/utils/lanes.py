@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from .trace import synced
+
 # lane_blocks results per lane_ctrl tensor, dropped with the tensor: a fleet
 # or a controller keeps one lane_ctrl for its life, so the grouping (which
 # needs one host sync) is built once, not once per period
@@ -87,7 +89,7 @@ def lane_blocks(lane_ctrl: torch.Tensor, max_width: int):
         memo[key] = (lane_ctrl.view(-1, 1), lane_ctrl)
         return memo[key]
     dev = lane_ctrl.device
-    lc = lane_ctrl.detach().to("cpu", torch.int64)
+    lc = synced(lane_ctrl.detach().to("cpu", torch.int64))
     B = lc.numel()
     if B == 0:
         out = (torch.empty(0, 1, dtype=torch.int32, device=dev),
