@@ -27,7 +27,7 @@ from ..ops.gi_kernel import gi_solve
 from ..ops.qp import build_solver_cache, solve_qp
 from ..ops.qp_active import build_gi_cache, gi_state_init, solve_qp_active
 from ..utils.config import BIG, resolve_device
-from ..utils.lanes import mtv, mv, take
+from ..utils.lanes import lane_products, mtv, mv, register_tiled, take
 from ..utils.linalg import repeatdiag
 from ..utils.trace import ROOT, span, synced
 from .base import (PredictiveController, default_Hp, estimate_delays,
@@ -107,7 +107,7 @@ class LinMPC(PredictiveController):
         self._solve_time = None
         self._budget_dev = (None, None)
         self._p_dev, self._p_ver = None, None   # params on the device, version
-        self._lane = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self._lane = register_tiled(torch.zeros(1, dtype=torch.int32, device=self.device), 1, 1)
         self._build()
         # runtime state
         self.Uop = np.tile(model.uop, Hp)
@@ -660,6 +660,61 @@ def _setmodel_estimator(estim, model, **cov):
 
 
 # ---------------------------------------------------------------------------
+def _qp_data(g, nu, nd, nw, n_eq, x0_hat, lastu0, R_hat_y, R_hat_u, xs_hat,
+             ys_hat, d0=None, D_hat_0=None, ry=None, y_now=None):
+    """The period's QP data ``(F, q̃, r_const, b, beq)`` from the lane
+    inputs, each product and per-controller vector through ``g`` (a layout
+    of ``utils/lanes.py``: lane tensors (·, k), every op on the last axis)."""
+    L, M, Mt = g.L, g.M, g.Mt
+    # --- stochastic + deterministic output predictions F (initpred!) ---
+    Ys = M("Ks", xs_hat) + M("Ps", ys_hat)
+    F = L("B") + M("K", x0_hat) + M("V", lastu0) + Ys
+    if nd:
+        F = F + M("G", d0) + M("J", D_hat_0)
+    Tu_lastu0 = M("Tu", lastu0)
+    # --- linear coefficient q̃ (initpred!, execute.jl:247-277) ---
+    Cy = F + L("Yop") - R_hat_y
+    Cu = Tu_lastu0 + L("Uop") - R_hat_u
+    q = 2.0 * (Mt("E_t", M("M_Hp", Cy)) + Mt("Pu_t", M("L_Hp", Cu)))
+    r_const = (torch.sum(Mt("M_Hp", Cy) * Cy, -1)
+               + torch.sum(Mt("L_Hp", Cu) * Cu, -1))
+    # --- terminal prediction fx̂ (linconstraint!) ---
+    fx = L("bx") + M("kx", x0_hat) + M("vx", lastu0)
+    if nd:
+        fx = fx + M("gx", d0) + M("jx", D_hat_0)
+    # --- custom linear constraints Fw (relaxW + linconstraint_custom!,
+    # execute.jl:337-366) ---
+    if nw:
+        Ue_t = g.cat([Tu_lastu0 + L("Uop"), lastu0 + L("Uop")[..., :nu]])
+        Fw = M("Wu_bar", Ue_t)
+        if nd:
+            De_t = g.cat([d0 + L("dop_w"), D_hat_0 + L("Dop_w")])
+            Fw = Fw + M("Wd_bar", De_t)
+        Fw = Fw + M("Wr_bar", g.cat([ry, R_hat_y]))
+        Fw = Fw + M("Wy_bar", g.cat([y_now, F + L("Yop")]))
+        bW = g.cat([-L("Wmin_b") + Fw, L("Wmax_b") - Fw])
+    else:
+        bW = F[..., :0]
+    # --- inequality RHS b (transcription.jl:824-842 order) ---
+    b = g.cat([
+        -L("U0min") + Tu_lastu0,
+        L("U0max") - Tu_lastu0,
+        -L("DUmin"),
+        L("DUmax"),
+        -L("Y0min") + F,
+        L("Y0max") - F,
+        bW,
+        -L("x0min") + fx,
+        L("x0max") - fx,
+    ])
+    b = torch.clamp(b, -2e18, 2e18)
+    # --- equality RHS beq = −FS (linconstrainteq!) ---
+    FS = L("BS") + M("KS", x0_hat) + M("VS", lastu0)
+    if nd and n_eq:
+        FS = FS + M("GS", d0) + M("JS", D_hat_0)
+    return F, q, r_const, b, -FS
+
+
 def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
                 qp_solver="admm", gi_max_active=None, slot_dtype=None):
     """Create the per-period step over a leading lane axis.
@@ -687,56 +742,21 @@ def _build_step(nu, Hc, nd, n_eps, nZ, n_ineq, n_eq, is_ms, nx_hat, nw=0,
         Mt = lambda k, v: mtv(p[k], v, lane_ctrl)
         full = lambda k, val: torch.full((B, k), val, dtype=dt, device=dev)
         with span("qp.build"):
-            # --- stochastic + deterministic output predictions F (initpred!) ---
-            Ys = M("Ks", xs_hat) + M("Ps", ys_hat)
-            F = L("B") + M("K", x0_hat) + M("V", lastu0) + Ys
+            # F, q̃, the rows' RHS b and beq in the layout the lane map allows
+            # (one GEMM a controller over its lanes for a tiled map), back in
+            # lane order for the solve
+            g = lane_products(p, lane_ctrl, B)
+            lane_in = dict(x0_hat=x0_hat, lastu0=lastu0, R_hat_y=R_hat_y,
+                           R_hat_u=R_hat_u, xs_hat=xs_hat, ys_hat=ys_hat)
             if nd:
-                F = F + M("G", d0) + M("J", D_hat_0)
-            Tu_lastu0 = M("Tu", lastu0)
-            # --- linear coefficient q̃ (initpred!, execute.jl:247-277) ---
-            Cy = F + L("Yop") - R_hat_y
-            Cu = Tu_lastu0 + L("Uop") - R_hat_u
-            q = 2.0 * (Mt("E_t", M("M_Hp", Cy)) + Mt("Pu_t", M("L_Hp", Cu)))
-            r_const = (torch.sum(Mt("M_Hp", Cy) * Cy, -1)
-                       + torch.sum(Mt("L_Hp", Cu) * Cu, -1))
-            # --- terminal prediction fx̂ (linconstraint!) ---
-            fx = L("bx") + M("kx", x0_hat) + M("vx", lastu0)
-            if nd:
-                fx = fx + M("gx", d0) + M("jx", D_hat_0)
-            # --- custom linear constraints Fw (relaxW + linconstraint_custom!,
-            # execute.jl:337-366) ---
+                lane_in.update(d0=d0, D_hat_0=D_hat_0)
             if nw:
                 if ry is None or y_now is None:
                     raise ValueError("custom linear constraints need the step's "
                                      "ry and y_now")
-                Ue_t = torch.cat([Tu_lastu0 + L("Uop"), lastu0 + L("Uop")[:, :nu]], -1)
-                Fw = M("Wu_bar", Ue_t)
-                if nd:
-                    De_t = torch.cat([d0 + L("dop_w"), D_hat_0 + L("Dop_w")], -1)
-                    Fw = Fw + M("Wd_bar", De_t)
-                Fw = Fw + M("Wr_bar", torch.cat([ry, R_hat_y], -1))
-                Fw = Fw + M("Wy_bar", torch.cat([y_now, F + L("Yop")], -1))
-                bW = torch.cat([-L("Wmin_b") + Fw, L("Wmax_b") - Fw], -1)
-            else:
-                bW = F.new_zeros(B, 0)
-            # --- inequality RHS b (transcription.jl:824-842 order) ---
-            b = torch.cat([
-                -L("U0min") + Tu_lastu0,
-                L("U0max") - Tu_lastu0,
-                -L("DUmin"),
-                L("DUmax"),
-                -L("Y0min") + F,
-                L("Y0max") - F,
-                bW,
-                -L("x0min") + fx,
-                L("x0max") - fx,
-            ], -1)
-            b = torch.clamp(b, -2e18, 2e18)
-            # --- equality RHS beq = −FS (linconstrainteq!) ---
-            FS = L("BS") + M("KS", x0_hat) + M("VS", lastu0)
-            if nd and n_eq:
-                FS = FS + M("GS", d0) + M("JS", D_hat_0)
-            beq = -FS
+                lane_in.update(ry=ry, y_now=y_now)
+            F, q, r_const, b, beq = map(g.out, _qp_data(
+                g, nu, nd, nw, n_eq, **{k: g.into(v) for k, v in lane_in.items()}))
             # --- stack l ≤ A Z̃ ≤ u ---
             l = torch.cat([full(n_ineq, -2e18), full(n_eps, 0.0), beq], -1)
             u_vec = torch.cat([b, full(n_eps, 2e18), beq], -1)

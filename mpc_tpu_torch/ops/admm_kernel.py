@@ -245,7 +245,7 @@ def admm_sweep_reference(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y,
     _check_args(Minvs, A, lane_ctrl, rung, q, l, u, rhovs, x, z, y, active)
     lc, rg = lane_ctrl.long(), rung.long()
     Minv, rho = Minvs[lc, rg], rhovs[lc, rg]
-    A_l = take(A, lane_ctrl)
+    A_l = take(A, lane_ctrl, count=False)
     xs, zs, ys = x, z, y
     for _ in range(int(iters)):
         rhs = sigma * xs - q + mtv(A_l, rho * zs - ys)

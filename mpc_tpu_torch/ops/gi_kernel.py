@@ -277,8 +277,8 @@ def gi_solve_reference(Pinv, A, lane_ctrl, q, l, u, idx, side, vmask, Ginv,
                               Ginv, widx, wside, wcnt, max_it, a_ctrl)
     dt, hi, dev = A.dtype, Ginv.dtype, q.device
     inf = float("inf")
-    A_l = take(A, lane_ctrl if a_ctrl is None else a_ctrl)    # (B, m, n) data dtype
-    P_l = take(Pinv, lane_ctrl)                    # (B, n, n) slot dtype
+    A_l = take(A, lane_ctrl if a_ctrl is None else a_ctrl, count=False)  # (B, m, n) data
+    P_l = take(Pinv, lane_ctrl, count=False)       # (B, n, n) slot dtype
     ar = torch.arange(B, device=dev)
     slot_id = torch.arange(ns, device=dev)
     eye = torch.eye(ns, dtype=hi, device=dev).expand(B, ns, ns)

@@ -14,8 +14,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.lanes import register_tiled
+
 
 def lane_ctrl(n_distinct: int, reps: int, device=None) -> torch.Tensor:
-    """(n_distinct·reps,) int32: the configuration of every public lane."""
+    """(n_distinct·reps,) int32: the configuration of every public lane,
+    registered as a tiled map (``utils/lanes.py::tiling``), so that the QP
+    build takes each product one GEMM a configuration over its lanes."""
     lanes = torch.arange(n_distinct * reps, dtype=torch.int32, device=device)
-    return lanes % n_distinct
+    return register_tiled(lanes % n_distinct, n_distinct, reps)

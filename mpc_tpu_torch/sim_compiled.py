@@ -54,6 +54,7 @@ from .ops.admm_kernel import admm_sweep
 from .ops.gi_kernel import gi_solve, slot_dtype_for
 from .ops.qp import solve_qp
 from .ops.qp_active import gi_state_init, solve_qp_active
+from .parallel.grouped import lane_ctrl
 from .parallel.mesh import LaneShards
 from .sim import SimResult, _copy_model
 from .utils.config import as_device
@@ -159,11 +160,10 @@ def _picker(i_ym, device):
 
 def _lanes(cache, B, device, shared):
     """The loop's lane map for B lanes, made once per B and device: all
-    zeros (one controller for every lane) or 0..B−1."""
+    zeros (one controller for every lane, the tiled map of one) or 0..B−1."""
     key = (B, torch.device(device))
     if key not in cache:
-        cache[key] = (torch.zeros(B, dtype=torch.int32, device=device) if shared
-                      else identity_lanes(B, device))
+        cache[key] = lane_ctrl(1, B, device) if shared else identity_lanes(B, device)
     return cache[key]
 
 

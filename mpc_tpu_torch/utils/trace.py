@@ -38,11 +38,14 @@ its host dispatch.  ``clear()`` empties the record.
 Counters are host integers, always on (``COUNTS``): ``host_syncs`` counts
 each expression in a step's path that makes the host wait for the device
 (a read of a device value, a blocking upload, a library call that checks
-its result on the host), each wrapped in ``synced``.  The plain versions of
-the kernels, which stand in for them on the CPU, are not counted: the count
-is what the step makes on the card.  A traced step's entry keeps the
-counters' change over the step and a snapshot of ``ops.LAUNCHES`` at its
-end.  ``keep_max`` keeps a device tensor of a traced step whose largest
+its result on the host), each wrapped in ``synced``; ``lane_copy_bytes``
+the bytes of per-lane copies of per-controller matrices and
+``grouped_products`` the products taken one GEMM a controller over its
+lanes (``utils/lanes.py``).  The plain versions of the kernels, which
+stand in for them on the CPU, are not counted: the count is what the step
+makes on the card.  A traced step's entry keeps each counter's change over
+the step, under the counter's name, and a snapshot of ``ops.LAUNCHES`` at
+its end.  ``keep_max`` keeps a device tensor of a traced step whose largest
 element ``steps()`` reports; an untraced step keeps nothing and gains no
 kernel.
 """
@@ -57,7 +60,7 @@ import torch
 from torch._C._profiler import _RecordFunctionFast as _HostRange
 
 ROOT = "fleet.step"
-COUNTS = {"host_syncs": 0}
+COUNTS = {"host_syncs": 0, "lane_copy_bytes": 0, "grouped_products": 0}
 
 _profiling = torch.autograd._profiler_enabled
 
@@ -134,7 +137,8 @@ class _Span:
         rec.stack.pop()
         if self.root and step is not None:
             from ..ops._build import LAUNCHES
-            step["host_syncs"] = COUNTS["host_syncs"] - step.pop("counts0")["host_syncs"]
+            counts0 = step.pop("counts0")
+            step.update({k: v - counts0[k] for k, v in COUNTS.items()})
             step["launches"] = dict(LAUNCHES)
             rec.done.append(step)
             rec.open = None
@@ -177,10 +181,11 @@ def keep_max(name, t):
 
 def steps():
     """One entry a traced step since the last ``clear``, oldest first:
-    ``step`` (its id), ``host_syncs``, ``launches`` (``ops.LAUNCHES`` at
-    its end), ``items`` (each ``keep_max`` value) and ``spans``, each with
-    its ``name``, ``parent``, ``host_ms`` and ``stream_ms`` (None where the
-    step ran on no CUDA stream).  Synchronises once with each step's card."""
+    ``step`` (its id), each counter's change over it under the counter's
+    name (``host_syncs``, ...), ``launches`` (``ops.LAUNCHES`` at its end),
+    ``items`` (each ``keep_max`` value) and ``spans``, each with its
+    ``name``, ``parent``, ``host_ms`` and ``stream_ms`` (None where the step
+    ran on no CUDA stream).  Synchronises once with each step's card."""
     done = RECORD.done
     for dev in {s["cuda"] for s in done if s["cuda"] is not None and "resolved" not in s}:
         torch.cuda.synchronize(dev)
@@ -188,7 +193,7 @@ def steps():
     for s in done:
         if "resolved" not in s:
             s["resolved"] = dict(
-                step=s["step"], host_syncs=s["host_syncs"], launches=s["launches"],
+                step=s["step"], **{k: s[k] for k in COUNTS}, launches=s["launches"],
                 items={k: int(v.max()) for k, v in s["items"].items()},
                 spans=[dict(name=p["name"], parent=p["parent"],
                             host_ms=(p["host_ns"][1] - p["host_ns"][0]) / 1e6,

@@ -327,3 +327,106 @@ def test_unported_options_raise(option):
         ym, ry = rng.normal(size=(4, 2)), rng.normal(size=(4, 2))
         (u, nc), (u0, nc0) = fleet.step(ym, ry), plain.step(ym, ry)
         assert torch.allclose(u, u0, rtol=0, atol=1e-12) and int(nc) == int(nc0) == 4
+
+
+# ------------------------------------ the QP build over a tiled lane map
+def _port_controller(a, qp, ms, nd, nw):
+    """A port LinMPC of a 2×1 plant (× ``a``) with ``nd`` measured
+    disturbances and ``nw`` custom constraint rows, soft output bounds."""
+    model = mpc_tpu_torch.LinModel(np.array([[0.9, 0.1], [0.0, 0.8]]) * a,
+                                   np.array([[0.5], [1.0]]), np.eye(2),
+                                   np.array([[0.2], [0.0]])[:, :nd],
+                                   np.array([[0.0], [0.1]])[:, :nd], 0.5)
+    custom = dict(Wy=[[1.0, -1.0]], Wu=[[0.5]], Wr=[[0.2, 0.0]]) if nw else {}
+    if nw and nd:
+        custom["Wd"] = [[0.3]]
+    c = mpc_tpu_torch.LinMPC(model, Hp=8, Hc=3, Mwt=[1.0, 0.5], Nwt=[0.2], Lwt=[0.05],
+                             qp_solver=qp, device=CPU,
+                             transcription=(mpc_tpu_torch.MultipleShooting() if ms
+                                            else mpc_tpu_torch.SingleShooting()), **custom)
+    c.setconstraint(umin=[-2.0], umax=[2.0], dumin=[-0.5], dumax=[0.5],
+                    ymin=[-3.0, -3.0], ymax=[3.0, 3.0],
+                    **(dict(wmin=[-1.5], wmax=[1.5]) if nw else {}))
+    return c
+
+
+def _close(a, b, rtol):
+    """``a`` equals ``b`` to ``rtol`` of b's largest finite entry; entries
+    at ±2e18 (a row's missing bound) alike in both."""
+    big = b.abs() >= 1e17
+    assert torch.equal(big, a.abs() >= 1e17)
+    a, b = a[~big], b[~big]
+    scale = max(1.0, float(b.abs().max())) if b.numel() else 1.0
+    torch.testing.assert_close(a, b, rtol=rtol, atol=rtol * scale)
+
+
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("share", [False, True], ids=["grouped", "share_params"])
+@pytest.mark.parametrize("nw", [0, 1], ids=["nw0", "nw1"])
+@pytest.mark.parametrize("nd", [0, 1], ids=["nd0", "nd1"])
+@pytest.mark.parametrize("ms", [False, True], ids=["SS", "MS"])
+@pytest.mark.parametrize("qp", ["active_set", "admm"], ids=["gi", "admm"])
+def test_build_on_a_tiled_map_equals_the_lane_order_build(qp, ms, nd, nw, share, dtype, rtol,
+                                                          monkeypatch):
+    """``_build_step`` over the fleet's tiled map (one GEMM a controller over
+    its lanes) against the same lanes through an unregistered copy of the
+    map (a per-lane copy and a gemv a product): the QP data handed to the
+    solver and the step's u, Z̃, F and objective."""
+    import mpc_tpu_torch.controllers.linmpc as port_linmpc
+    from mpc_tpu_torch.utils import lanes
+    ctrls = [_port_controller(a, qp, ms, nd, nw) for a in ([1.0] if share else [1.0, 0.95, 0.9])]
+    fleet = BatchedLinMPC(ctrls, reps=5 if share else 4, share_params=share, dtype=dtype,
+                          device=CPU)
+    part = fleet._parts[0]
+    lc = part.lane_ctrl
+    assert lanes.tiling(lc) == ((1, 5) if share else (3, 4))
+    seen = []
+    for name in ("solve_qp", "solve_qp_active"):
+        solve = getattr(port_linmpc, name)
+
+        def spy(P, q, A, l, u, *args, _solve=solve, **kw):
+            seen.append((q, l, u))
+            return _solve(P, q, A, l, u, *args, **kw)
+        monkeypatch.setattr(port_linmpc, name, spy)
+    B, Hp, st = fleet.B, fleet.Hp, part.state
+    g = torch.Generator().manual_seed(7)
+    rnd = lambda n, s: (s * torch.randn(B, n, generator=g, dtype=torch.float64)).to(dtype)
+    # x̂, last u, d, D̂, R̂y, R̂u, x̂s, ŷs: inputs whose QPs converge on every lane
+    args = (part.params, rnd(st["x0_hat"].shape[1], 0.3), rnd(1, 0.3), rnd(nd, 0.3),
+            rnd(nd * Hp, 0.3), rnd(2 * Hp, 0.5), rnd(Hp, 0.3),
+            rnd(part.params["Ks"].shape[2], 0.1), rnd(2, 0.1),
+            st["Z_tilde"], st["y_dual"], st["rho_rung"])
+    kw = dict(qp_state=st["qp_state"], gi=fleet.gi, ry=rnd(2, 0.5), y_now=rnd(2, 0.3))
+    counts = mpc_tpu_torch.utils.trace.COUNTS
+    n0 = counts["grouped_products"]
+    grouped = fleet._step_raw(*args, lc, **kw)
+    n1 = counts["grouped_products"]
+    plain = fleet._step_raw(*args, lc.clone(), **kw)
+    assert n1 - n0 >= 15 and counts["grouped_products"] == n1
+    assert len(seen) == 2
+    for a, b in zip(seen[0], seen[1]):
+        _close(a, b, rtol)
+    # u, Z̃, F, objective, each lane's QP converged on both (a lane at the
+    # iteration cap would stop at another iterate for any change of rounding)
+    assert grouped[3].all() and plain[3].all()
+    for i in (0, 1, 4, 5):
+        _close(grouped[i], plain[i], rtol)
+
+
+@pytest.mark.parametrize("option", ["mesh", "grouped_chunks", "tiled"])
+def test_shards_and_chunks_keep_the_lane_order_build(option):
+    """A ``mesh=`` shard's and a ``grouped_chunks`` part's lane maps are not
+    tiled maps: their builds take no grouped product (their parity cases are
+    tests/test_torch_mesh.py); the one-part fleet's build takes all of them."""
+    from mpc_tpu_torch.utils import lanes, trace
+    ctrls = mpc_tpu_torch.parallel.random_cstr_controllers(4, seed=0, device=CPU)
+    kw = {"mesh": dict(mesh=[CPU, "cpu"]), "grouped_chunks": dict(grouped_chunks=2),
+          "tiled": {}}[option]
+    fleet = BatchedLinMPC(ctrls, reps=2, device=CPU, **kw)
+    tiled = [lanes.tiling(p.lane_ctrl) for p in fleet._parts]
+    assert tiled == ([(4, 2)] if option == "tiled" else [None, None])
+    n0 = trace.COUNTS["grouped_products"]
+    rng = np.random.default_rng(0)
+    fleet.step(rng.normal(size=(8, 2)), rng.normal(size=(8, 2)))
+    assert (trace.COUNTS["grouped_products"] > n0) == (option == "tiled")

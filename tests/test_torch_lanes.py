@@ -1,4 +1,5 @@
-"""The lane grouping of the CUDA kernels (``utils/lanes.py::lane_blocks``).
+"""The lane grouping of the CUDA kernels (``utils/lanes.py::lane_blocks``),
+and the QP build's products over a tiled map (``lane_products``).
 
 Both kernels run the lanes of one controller per thread block; the table
 that groups them is built on the host from ``lane_ctrl``.  Every lane
@@ -9,9 +10,12 @@ layout the port produces is checked: the tiled fleet (lane = r·n_d + c),
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mpc_tpu_torch.parallel.grouped import lane_ctrl as tiled
-from mpc_tpu_torch.utils.lanes import lane_blocks
+from mpc_tpu_torch.utils import trace
+from mpc_tpu_torch.utils.lanes import (CtrlMajor, LaneOrder, identity_lanes, lane_blocks,
+                                       lane_products, mtv, mv, take, tiling)
 
 torch.set_num_threads(1)
 
@@ -88,3 +92,82 @@ def test_empty_and_bad_width():
     assert table.shape[0] == 0 and ctrl.shape == (0,)
     with pytest.raises(ValueError, match="max_width"):
         lane_blocks(tiled(2, 2), 0)
+
+
+# ------------------------------------------- the QP build's grouped products
+def _operands(n_d, R, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    M = torch.randn(n_d, 7, 4, generator=g, dtype=torch.float64).to(dtype)
+    v = torch.randn(n_d * R, 4, generator=g, dtype=torch.float64).to(dtype)
+    w = torch.randn(n_d * R, 7, generator=g, dtype=torch.float64).to(dtype)
+    return {"M": M}, v, w
+
+
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n_d,R", [(1, 1), (1, 7), (3, 1), (4, 5), (256, 4)])
+def test_grouped_products_equal_the_lane_order_ones(n_d, R, dtype, rtol):
+    p, v, w = _operands(n_d, R, dtype)
+    lc = tiled(n_d, R)
+    g = lane_products(p, lc, n_d * R)
+    assert isinstance(g, CtrlMajor) and (g.n_d, g.R) == (n_d, R)
+    plain = lc.clone()                     # the same map, unregistered
+    assert type(lane_products(p, plain, n_d * R)) is LaneOrder
+    Mv = g.out(g.M("M", g.into(v)))
+    Mtw = g.out(g.Mt("M", g.into(w)))
+    assert Mv.shape == (n_d * R, 7) and Mtw.shape == (n_d * R, 4)
+    scale = lambda x: rtol * float(x.abs().max())
+    torch.testing.assert_close(Mv, mv(p["M"], v, plain), rtol=rtol, atol=scale(Mv))
+    torch.testing.assert_close(Mtw, mtv(p["M"], w, plain), rtol=rtol, atol=scale(Mtw))
+    # a per-controller vector is a broadcast; a reduction comes back per lane
+    vec = torch.randn(n_d, 4, dtype=dtype)
+    g.p["vec"] = vec
+    assert torch.equal(g.out(g.L("vec") + g.into(v)), take(vec, plain) + v)
+    assert torch.equal(g.out(g.into(v).sum(-1)), v.sum(-1))
+
+
+class _Ops(TorchDispatchMode):
+    """Records every ATen operation dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+def test_a_registered_map_is_recognised_with_no_device_operation():
+    lc = tiled(3, 4)
+    with _Ops() as seen:
+        assert tiling(lc) == (3, 4)
+        assert isinstance(lane_products({}, lc, 12), CtrlMajor)
+    assert seen.ops == []
+
+
+def test_maps_the_helper_does_not_know_keep_the_lane_order():
+    lc = tiled(4, 3)
+    shuffled = lc[torch.randperm(12, generator=torch.Generator().manual_seed(0))]
+    # grouped_chunks' parts: their lanes' controllers renumbered by searchsorted
+    used = np.array([0, 1])
+    chunk = torch.as_tensor(np.searchsorted(used, (np.arange(12) % 4)[np.arange(12) % 4 < 2]),
+                            dtype=torch.int32)
+    written = tiled(4, 3)
+    written[0] = 1                         # changed in place after registration
+    for m, B in [(None, 12), (identity_lanes(12, "cpu"), 12), (shuffled, 12), (lc.clone(), 12),
+                 (chunk, 6), (written, 12)]:
+        assert tiling(m) is None, m
+        assert type(lane_products({}, m, B)) is LaneOrder
+
+
+def test_a_lane_copy_counts_its_bytes_and_a_view_counts_none():
+    M = torch.zeros(3, 5, 2, dtype=torch.float32)
+    lc = tiled(3, 4)
+    n0 = trace.COUNTS["lane_copy_bytes"]
+    take(M, lc)
+    assert trace.COUNTS["lane_copy_bytes"] - n0 == 12 * 5 * 2 * 4
+    take(M, lc, count=False)                            # the kernels' plain versions
+    take(M[:, 0], lc)                                   # a vector a controller
+    take(torch.zeros(12, 5, 2), identity_lanes(12, "cpu"))   # no copy
+    take(M, None)
+    assert trace.COUNTS["lane_copy_bytes"] - n0 == 12 * 5 * 2 * 4

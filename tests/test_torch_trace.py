@@ -7,7 +7,10 @@ no-op and nothing is recorded; under a CPU ``torch.profiler`` the spans of
 each period nest under one ``fleet.step`` as host operations, not user
 annotations; the answers and the ATen operations of a step are the same
 traced and untraced; the ADMM step's host syncs are its sweeps and the
-loop's last test, with the polish's four.
+loop's last test, with the polish's four; a CSTR step takes every product
+of its QP build one GEMM a controller (``grouped_products``) and copies to
+the lanes only the estimator's matrices and the solve's H and A
+(``lane_copy_bytes``).
 
 The ``cuda`` tests need an NVIDIA card and skip elsewhere: the synchronising
 calls of one step of each benchmark cell's fleet (PyTorch's sync debug
@@ -262,6 +265,36 @@ def test_slmpc_keeps_its_gi_pivots_in_traced_steps_only(monkeypatch):
     fl.period(5)
     got = [s["items"]["gi_pivots_max"] for s in trace.steps()]
     assert got == seen[1:5] and max(got) > 0
+
+
+# the products of the CSTR fleet's build (nd = 0, no custom constraints,
+# SingleShooting): Ks, Ps, K, V, Tu, M_Hp, E_t, L_Hp, Pu_t, M_Hpᵀ, L_Hpᵀ, kx,
+# vx, KS, VS (the last two of zero rows)
+CSTR_BUILD_PRODUCTS = 15
+
+
+@pytest.mark.parametrize("kind", ["gi", "admm"])
+def test_counters_of_the_grouped_build_and_the_remaining_copies(kind):
+    """A traced CSTR step takes every product of its build on the grouped
+    path and copies only the estimator's matrices and the solve's H and A
+    to the lanes (ADMM twice: its setup and its z and objective products);
+    an untraced step moves the counters alike and records nothing."""
+    fl = Fleet(kind)
+    p, ep, B = fl.fleet.params, fl.fleet.eparams, fl.B
+    per_lane = lambda *ts: sum(t[0].numel() for t in ts)
+    est = per_lane(*(ep[k] for k in ("Cm_hat", "K_hat", "A_hat", "Bu_hat")))
+    qp = per_lane(p["H"], p["A_stack"]) * (1 if kind == "gi" else 2)
+    want = dict(grouped_products=CSTR_BUILD_PRODUCTS, lane_copy_bytes=B * 4 * (est + qp))
+    untraced = []
+    for k in range(4):
+        n0 = dict(trace.COUNTS)
+        with cpu_profile() if k >= 2 else contextlib.nullcontext():
+            fl.period(k)
+        if k < 2:
+            untraced.append({c: trace.COUNTS[c] - n0[c] for c in want})
+            assert trace.steps() == []
+    assert untraced == [want] * 2
+    assert [{c: s[c] for c in want} for s in trace.steps()] == [want] * 2
 
 
 # ------------------------------------------------------------------ the card
