@@ -1,30 +1,34 @@
-"""Small sizes of the cells for runs on the CPU, and the numbers a run's
-notes give."""
+"""Small sizes of the cells for runs on the CPU (``small/<cell>.json``),
+and the numbers a run's notes give."""
 import re
 import time
 import warnings
+from pathlib import Path
 
 import torch
 
-from benchmark import harness
+from benchmark import harness, registry
 
-SMALL = {
-    "cstr-gi": (dict(reps=2, check_lanes_per_controller=2, counted_periods=8),
-                dict(n_distinct=6)),
-    "cstr-admm": (dict(reps=2, check_lanes_per_controller=2, counted_periods=8),
-                  dict(n_distinct=6)),
-    # 32 counted periods: at 24 lanes the pendulums' u spread apart, so that
-    # half the batch given the mean of the rest fails the check, only after
-    # ~29 periods, however fast the CPU runs them
-    "pendulum-sl-gi": (dict(lanes=24, check_lanes=12, counted_periods=32), None),
-}
+SMALL_DIR = Path(__file__).resolve().parent / "small"
+
+
+def small(workload):
+    """``(cell, config)``: the entries laid over the cell file and the
+    configuration to cut ``workload`` to its CPU test size, from
+    ``small/<workload>.json``."""
+    path = SMALL_DIR / f"{workload}.json"
+    if not path.exists():
+        raise FileNotFoundError(f"cell {workload!r} has no CPU test size: add "
+                                f"{path.relative_to(registry.ROOT)}")
+    sizes = registry.load_json(path)
+    return sizes["cell"], sizes["config"]
 
 
 def small_run(workload, seed=2**31 + 7, seconds=0.5, trace=False, cell=None, **kw):
     """One run of ``workload`` on the CPU at a test size, with the entries of
     ``cell`` laid over its cell file's."""
     torch.set_num_threads(2)
-    cell_override, cfg = SMALL[workload]
+    cell_override, cfg = small(workload)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         return harness.run(workload, seed, seconds, trace, "cpu", time.perf_counter(),

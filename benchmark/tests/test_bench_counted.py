@@ -8,7 +8,7 @@ import pytest
 
 from benchmark import registry
 
-from .helpers import SMALL, counted_note, lanes, small_run
+from .helpers import counted_note, lanes, small, small_run
 
 SPEC = registry.benchmark_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
@@ -46,7 +46,7 @@ def sleeping(s):
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_bench_a_slow_run_counts_what_a_fast_one_counts(workload):
-    n = SMALL[workload][0]["counted_periods"]
+    n = small(workload)[0]["counted_periods"]
     fast, fast_notes, _ = small_run(workload, seconds=1.0)
     slow, slow_notes, _ = small_run(workload, seconds=1.0, fault=sleeping(0.3))
     assert counted_note(slow_notes)[1] > 0

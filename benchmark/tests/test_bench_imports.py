@@ -15,9 +15,9 @@ PROBE = r"""
 import json, sys, time, warnings
 sys.path.insert(0, sys.argv[1])
 import torch
-from benchmark import harness
+from benchmark import harness, registry
 from benchmark.tests.helpers import small_run
-for wl in ("cstr-gi", "pendulum-sl-gi"):
+for wl in [w["name"] for w in registry.benchmark_spec()["workloads"]]:
     small_run(wl, seconds=0.2, trace=True)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """

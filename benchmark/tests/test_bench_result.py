@@ -11,12 +11,13 @@ import torch
 
 from benchmark import harness, registry
 
-from .helpers import SMALL, lanes, small_run
+from .helpers import lanes, small, small_run
 
 SPEC = registry.benchmark_spec()
+CELLS = [w["name"] for w in SPEC["workloads"]]
 
 
-@pytest.mark.parametrize("workload", ["cstr-gi", "cstr-admm", "pendulum-sl-gi"])
+@pytest.mark.parametrize("workload", CELLS)
 @pytest.mark.parametrize("trace", [False, True])
 def test_bench_result_line_schema(workload, trace, capsys):
     result, notes, lines = small_run(workload, trace=trace)
@@ -26,7 +27,7 @@ def test_bench_result_line_schema(workload, trace, capsys):
     assert list(last)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(last)[-1] == "checks"
     assert last["correct"] is True
-    assert last["attempted"] == lanes(notes) * SMALL[workload][0]["counted_periods"]
+    assert last["attempted"] == lanes(notes) * small(workload)[0]["counted_periods"]
     assert 0 <= last["failed"] <= last["attempted"]
     assert set(last["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
     names = {m["name"]: m for m in registry.cell_metrics(SPEC, workload, trace)}

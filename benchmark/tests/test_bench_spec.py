@@ -1,8 +1,13 @@
 """BENCHMARK.json keeps to the limits its checker holds it to: names,
 units, lengths, keys, bounds, and the files it names."""
+import importlib
 import re
 
+import pytest
+
 from benchmark import registry
+
+from .helpers import small
 
 SPEC = registry.benchmark_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -57,3 +62,26 @@ def test_bench_every_cell_reports_setup_another_e2e_metric_and_a_layer_metric():
         e2e = {m["name"] for m in registry.cell_metrics(SPEC, w["name"], False)}
         assert "setup_s" in e2e and len(e2e) >= 2
         assert registry.cell_metrics(SPEC, w["name"], True)
+
+
+def test_bench_every_cell_brings_its_test_size_and_every_kind_its_faults():
+    """Beside its configuration, cell, traffic, kind module and metric
+    readers, a new cell brings ``tests/small/<cell>.json`` and, where its
+    kind is new, ``tests/faults/<kind>.py``."""
+    tests = registry.HERE / "tests"
+    kinds = sorted({registry.config_file(SPEC, c["name"])["kind"] for c in SPEC["configs"]})
+    need = ([tests / "small" / f"{w['name']}.json" for w in SPEC["workloads"]]
+            + [tests / "faults" / f"{k}.py" for k in kinds])
+    missing = [str(p.relative_to(registry.ROOT)) for p in need if not p.exists()]
+    assert not missing, f"add {missing}"
+    for w in SPEC["workloads"]:
+        cell, cfg = small(w["name"])
+        assert "counted_periods" in cell and (cfg is None or isinstance(cfg, dict))
+    for k in kinds:
+        faults = importlib.import_module(f"benchmark.tests.faults.{k}")
+        assert callable(faults.state_unchanged) and callable(faults.altered_answer)
+
+
+def test_bench_a_cell_without_a_test_size_names_the_missing_file():
+    with pytest.raises(FileNotFoundError, match=r"benchmark/tests/small/no-such-cell\.json"):
+        small("no-such-cell")
